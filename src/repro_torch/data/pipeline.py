@@ -1,0 +1,53 @@
+"""Deterministic synthetic token pipeline (port of ``repro.data.pipeline``).
+
+Batches are keyed by (seed, step): ``_batch_at`` is the reference's pure
+numpy function, so both packages see byte-identical batches.  The prefetch
+``Pipeline`` class waits for ROADMAP item 8.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclass
+class DataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    # synthetic structure: repeated n-gram process so loss can actually fall
+    ngram: int = 3
+
+
+def _batch_at(cfg: DataConfig, step: int) -> dict:
+    """Deterministic batch for ``step`` (pure function — restart-safe)."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, 0xD40A]))
+    B, S = cfg.global_batch, cfg.seq_len
+    # Markov-ish stream: next token depends on previous via a fixed table,
+    # with noise — learnable structure for convergence examples.
+    table = np.random.default_rng(cfg.seed).integers(
+        0, cfg.vocab, size=(cfg.vocab,), dtype=np.int32)
+    toks = np.empty((B, S + 1), dtype=np.int32)
+    toks[:, 0] = rng.integers(0, cfg.vocab, size=(B,))
+    noise = rng.random((B, S))
+    rand_toks = rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32)
+    for t in range(S):
+        follow = table[toks[:, t]]
+        toks[:, t + 1] = np.where(noise[:, t] < 0.75, follow, rand_toks[:, t])
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def batch_for_step(cfg: DataConfig, step: int,
+                   device: DeviceLike = None) -> dict:
+    """The batch of ``step`` as int32 tensors on ``device`` (CUDA unless
+    given)."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in _batch_at(cfg, step).items()}
