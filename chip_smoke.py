@@ -10,12 +10,16 @@ Phases, each printing one JSON line and asserting what it checks:
            kernel in ``src/repro_torch/kernels/csrc`` (one nvcc per source,
            all in parallel, into the ignored ``build/repro_torch/``).
   kernels  each Hopper kernel against its plain PyTorch version on the card
-           at the slice's shapes (fp32 rtol 1e-4 / atol 1e-3), plus a bf16
-           case (2e-2), an unaligned case and a block-invariance case, on
-           inputs whose products are O(1) so the tolerance is small against
-           every term of each product (asserted); times
+           at the slice's shapes, plus bf16 (2e-2), unaligned (the fp32
+           pad path at m = 198) and block-invariance cases, on inputs whose
+           products are O(1) so the tolerance is small against every term
+           of each product (asserted).  fp32 symmul / gram_poly (3xTF32 on
+           the tensor cores) must be within 1e-5 · max|want|, which one TF32
+           pass misses by >= 10x (asserted on the plain version run on
+           TF32-rounded operands); syrk keeps rtol 1e-4 / atol 1e-3.  Times
            the kernel, the plain version and one ``torch.matmul`` of the same
-           product (a yardstick only, never called by the port).
+           product (a yardstick only, never called by the port), beside the
+           tensor-core bound and the bound of fp32 FFMA outside them.
   blocks   every candidate block pair timed at the slice's shapes (the
            autotuner's measured backend), beside the analytical choice.
   gram_ns  Gram NS with the kernels against the plain path (1e-4) and
@@ -47,10 +51,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM datasheet peaks (dense): fp32 outside the tensor cores, bf16 on
-# the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM datasheet peaks (dense): TF32 and bf16 on the tensor cores, fp32
+# FFMA outside them, HBM3 bandwidth.
+TF32_FLOPS, BF16_FLOPS, FFMA_FLOPS = 495e12, 989e12, 67e12
 HBM_BYTES_PER_S = 3.35e12
+# fp32 at fp32 accuracy on the tensor cores takes three TF32 products
+# (3xTF32); bf16 one bf16 product.
+TENSOR_CORE_PASSES = {"float32": (3, TF32_FLOPS), "bfloat16": (1, BF16_FLOPS)}
+SCALED_GATE = 1e-5     # fp32 symmul / gram_poly: max err <= 1e-5 · max|want|
 
 KERNELS = {
     "gram_syrk": dict(source="src/repro_torch/kernels/csrc/gram_syrk.cu",
@@ -97,10 +105,14 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(name: str, shape, dtype: str, out_bytes: int) -> tuple[float, str]:
-    """Least time on the card: the larger of the symmetric-kernel operations
-    over the peak for the operand type, and the bytes (each input read once,
-    each output written once) over the HBM rate.  Milliseconds."""
+def bound(name: str, shape, dtype: str, out_bytes: int
+          ) -> tuple[float, str, float]:
+    """Least time on the card, ms: the larger of the symmetric-kernel
+    operations on the tensor cores at the operand type's accuracy (fp32:
+    three TF32 products at 495 TFLOP/s; bf16: one at 989) and the bytes
+    (each input read once, each output written once) over the HBM rate;
+    which of the two bounds it; and the same bound with the operations as
+    fp32 FFMA at 67 TFLOP/s, off the tensor cores."""
     in_bytes = 2 if dtype == "bfloat16" else 4
     if name == "gram_syrk":
         b, m, n = shape
@@ -111,9 +123,13 @@ def bound(name: str, shape, dtype: str, out_bytes: int) -> tuple[float, str]:
         flops = b * m ** 3                      # half of 2·m³
         n_in = 2 if name == "symmul_plain" else 1
         nbytes = n_in * b * m * m * in_bytes + b * m * m * out_bytes
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    passes, peak = TENSOR_CORE_PASSES[dtype]
+    t_ops = passes * flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_ffma = max(flops / FFMA_FLOPS * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", t_ffma
+    return t_bytes, "bytes", t_ffma
 
 
 def max_abs_err(got, want) -> float:
@@ -143,6 +159,36 @@ def check_close(tag: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
+def scaled_allowance(want, scaled: float) -> float:
+    return scaled * float(want.float().abs().max())
+
+
+def check_scaled(tag: str, got, want, scaled: float) -> float:
+    """max|got − want| <= ``scaled`` · max|want|: the gate of the fp32
+    tensor-core products, relative to the output's scale."""
+    import torch
+    err = max_abs_err(got, want)
+    allowance = scaled_allowance(want, scaled)
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+    if err > allowance:
+        raise AssertionError(f"{tag}: max abs err {err:.3e} exceeds "
+                             f"{scaled} · max|want| = {allowance:.3e}")
+    return err
+
+
+def check_rejects_tf32(tag: str, one_pass, want, scaled: float) -> float:
+    """The gate tells TF32 from fp32: the plain version run on TF32-rounded
+    operands (one TF32 product) misses the allowance by at least 10x.
+    Returns that ratio."""
+    ratio = max_abs_err(one_pass, want) / scaled_allowance(want, scaled)
+    if ratio < 10:
+        raise AssertionError(f"{tag}: one TF32 pass is only {ratio:.1f}x "
+                             f"the allowance; the gate cannot tell it from "
+                             f"fp32")
+    return ratio
+
+
 # ----------------------------------------------------------------- kernels
 
 def gram_inputs(torch, gen, b, m, n, dtype, coeffs):
@@ -163,17 +209,19 @@ def gram_inputs(torch, gen, b, m, n, dtype, coeffs):
 
 def kernel_cases(torch, gen):
     """(kernel name, shape, dtype, tol, kernel fn, plain fn, library fn,
-    product term) at the slice's shapes, plus bf16 and unaligned cases.
-    The product term is what the kernel's product adds to the output:
-    all of it for syrk and symmul, c·G² for gram_poly."""
+    product term, one-TF32-pass fn or None) at the slice's shapes, plus
+    bf16 and unaligned cases.  The product term is what the kernel's product
+    adds to the output: all of it for syrk and symmul, c·G² for gram_poly.
+    ``tol`` is rtol/atol, or ``scaled`` for the fp32 tensor-core products."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain
-    from repro_torch.kernels.symmul import symmul_plain
+    from repro_torch.kernels.symmul import symmul_plain, symmul_tf32_emulated
 
     coeffs = get_coefficients("polar_express", 5)[0]   # largest: 8.3/-23.6/17.3
 
     fp32 = dict(rtol=1e-4, atol=1e-3)
+    tc32 = dict(scaled=SCALED_GATE)
     bf16 = dict(rtol=2e-2, atol=2e-2)
     cases = []
     for shape, dtype, tol in [((32, 960, 960), torch.float32, fp32),
@@ -186,24 +234,31 @@ def kernel_cases(torch, gen):
                       lambda x=x: ops.syrk(x),
                       lambda x=x: syrk_plain(x),
                       lambda x=x: torch.matmul(x, x.mT),
-                      lambda x=x: syrk_plain(x)))
-    for (b, m), dtype, tol in [((32, 960), torch.float32, fp32),
-                               ((32, 320), torch.float32, fp32),
+                      lambda x=x: syrk_plain(x), None))
+    for (b, m), dtype, tol in [((32, 960), torch.float32, tc32),
+                               ((32, 320), torch.float32, tc32),
                                ((8, 320), torch.bfloat16, bf16),
-                               ((2, 200), torch.float32, fp32)]:
+                               ((2, 200), torch.float32, tc32),
+                               ((2, 198), torch.float32, tc32)]:
         _, g, p = gram_inputs(torch, gen, b, m, 2 * m, dtype, coeffs)
+        tc = dtype == torch.float32
         cases.append(("symmul_plain", (b, m, m), dtype, tol,
                       lambda p=p, g=g: ops.symmul(p, g),
                       lambda p=p, g=g: symmul_plain(p, g),
                       lambda p=p, g=g: torch.matmul(p, g),
-                      lambda p=p, g=g: symmul_plain(p, g)))
+                      lambda p=p, g=g: symmul_plain(p, g),
+                      (lambda p=p, g=g: symmul_tf32_emulated(p, g, passes=1))
+                      if tc else None))
         cases.append(("symmul_gram_poly", (b, m, m), dtype, tol,
                       lambda g=g: ops.gram_poly(g, *coeffs),
                       lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
                                                coeffs=coeffs),
                       lambda g=g: torch.matmul(g, g),
                       lambda g=g: coeffs[2] * symmul_plain(g.float(),
-                                                           g.float())))
+                                                           g.float()),
+                      (lambda g=g: symmul_tf32_emulated(
+                          g, g, epilogue="gram_poly", coeffs=coeffs,
+                          passes=1)) if tc else None))
     return cases
 
 
@@ -216,25 +271,33 @@ def phase_kernels(torch) -> dict:
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    for (name, shape, dtype, tol, kern, plain, lib,
-         term) in kernel_cases(torch, gen):
+    for (name, shape, dtype, tol, kern, plain, lib, term,
+         one_pass) in kernel_cases(torch, gen):
         got = kern()
         torch.cuda.synchronize()
         want = ref.mirror_lower(plain())
         tag = f"{name}{list(shape)} {dtype}"
-        check_sensitive(tag, term(), want, **tol)
-        err = check_close(tag, got, want, **tol)
+        row = {}
+        if "scaled" in tol:
+            allowance = scaled_allowance(want, tol["scaled"])
+            check_sensitive(tag, term(), want, 0.0, allowance)
+            err = check_scaled(tag, got, want, tol["scaled"])
+            row["tf32_one_pass_x_allowance"] = check_rejects_tf32(
+                tag, ref.mirror_lower(one_pass()), want, tol["scaled"])
+        else:
+            check_sensitive(tag, term(), want, **tol)
+            err = check_close(tag, got, want, **tol)
         dt = dtype_name(dtype)
-        b_ms, b_by = bound(name, shape, dt, got.element_size())
+        b_ms, b_by, ffma_ms = bound(name, shape, dt, got.element_size())
         blocks = autotune.lookup(KERNELS[name]["counter"], shape[1], shape[2],
                                  dt, arch=autotune.device_arch("cuda"))
         rows.append({"phase": "kernels", "kernel": name, "shape": list(shape),
                      "blocks": list(blocks), "dtype": dt, "max_err": err,
                      "max_abs_want": float(want.float().abs().max()),
-                     "rtol": tol["rtol"], "atol": tol["atol"],
+                     **tol, **row,
                      "kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
                      "library_ms": time_ms(lib), "bound_ms": b_ms,
-                     "bound_by": b_by})
+                     "bound_by": b_by, "bound_ffma_ms": ffma_ms})
         emit(rows[-1])
 
     # summary per kernel: its largest main-path shape (fp32, batch 32), with
@@ -251,16 +314,19 @@ def phase_kernels(torch) -> dict:
     coeffs = get_coefficients("polar_express", 5)[0]
     x, g, _ = gram_inputs(torch, gen, 4, 320, 960, torch.float32, coeffs)
     pairs = list(autotune.INSTANTIATED_BLOCKS)
-    for fn, plain in [
+    for fn, plain, check in [
             (lambda bm, bk: ops.syrk(x, block_m=bm, block_k=bk),
-             lambda: syrk_plain(x)),
+             lambda: syrk_plain(x),
+             lambda tag, got, want: check_close(tag, got, want, 1e-4, 1e-3)),
             (lambda bm, bk: ops.symmul(g, g, block_m=bm, block_k=bk),
-             lambda: symmul_plain(g, g))]:
+             lambda: symmul_plain(g, g),
+             lambda tag, got, want: check_scaled(tag, got, want,
+                                                 SCALED_GATE))]:
         want = ref.mirror_lower(plain())
         outs = [fn(*pair) for pair in pairs]
-        errs = [check_close(f"block {pair}", out, want, 1e-4, 1e-3)
+        errs = [check(f"block {pair}", out, want)
                 for pair, out in zip(pairs, outs)]
-        errs.append(check_close("block pairs", outs[0], outs[1], 1e-4, 1e-3))
+        errs.append(check("block pairs", outs[0], outs[1]))
         emit({"phase": "kernels", "check": "block_invariance",
               "blocks": [list(pair) for pair in pairs], "max_err": max(errs)})
     return summary
@@ -276,7 +342,7 @@ def phase_blocks(torch) -> None:
                        ("gram_poly", 320, 320)]:
         ms = {f"{bm}x{bk}": autotune.measure_cuda(mode, bm, bk, m, k,
                                                   "float32", batch=32)
-              for bm, bk in autotune.candidate_blocks(m, k)}
+              for bm, bk in autotune.candidate_blocks(mode, m, k)}
         emit({"phase": "blocks", "mode": mode, "batch": 32, "m": m, "k": k,
               "ms": ms, "measured_best": min(ms, key=ms.get),
               "analytical": "x".join(map(str, autotune.lookup(
@@ -412,8 +478,11 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = build.build_all()
     build_s = time.perf_counter() - t0
+    # registers and spills of every kernel, and ptxas's performance notes
+    # (C75xx: e.g. wgmma serialised, or a wait injected)
     ptxas = {n: [ln for ln in build.library_path(n).with_suffix(".log")
-                 .read_text().splitlines() if "registers" in ln or "spill" in ln]
+                 .read_text().splitlines()
+                 if "registers" in ln or "spill" in ln or "(C75" in ln]
              for n in build.SOURCES
              if build.library_path(n).with_suffix(".log").exists()}
     emit({"phase": "device", "nvidia_smi": smi,

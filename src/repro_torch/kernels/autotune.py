@@ -3,24 +3,32 @@ persistent cache (port of ``repro.kernels.autotune``, paper §3.3, Fig. 6).
 
 The search space is the (block_m, block_k) pairs the CUDA kernels are
 instantiated for (``INSTANTIATED_BLOCKS``; csrc/*.cu dispatch on exactly
-these) that fit the 227 KB of shared memory a Hopper block may use.
+these) that fit the 227 KB of shared memory a Hopper block may use.  Two
+mainloops sit behind them, with their own footprint and cost: fp32 symmul /
+gram_poly run 3xTF32 on the tensor cores (csrc/symmul.cu,
+``symmul_tf32_kernel``); syrk and bf16 symmul / gram_poly run FFMA register
+tiles (csrc/lower_tiles.cuh).
 
 Two backends:
-  * ``analytical`` — padded lower-tile work times the register tile's
-    shared-memory cost (``analytical_score``); runs anywhere, including the
-    CPU, so ``prewarm_plan``, ``lookup`` and ``cached_entry`` work without a
+  * ``analytical`` — padded lower-tile work times the mainloop's per-tile
+    overhead (``analytical_score``); runs anywhere, including the CPU, so
+    ``prewarm_plan``, ``lookup`` and ``cached_entry`` work without a
     card.
   * ``measured``   — times the public op on the card with CUDA events.
 
-Cache entries are keyed by (arch, mode, m, k, dtype), where arch is the
-device capability (``sm90``) or ``cpu``.  The cache file is the port's own,
-``build/repro_torch/autotune.json`` in the checkout (``CACHE_PATH``):
-winners tuned for the TPU by the reference package never leak in.
+Cache entries are keyed by (arch, digest, mode, m, k, dtype), where arch
+is the device capability (``sm90``) or ``cpu`` and digest hashes the kernel
+sources, nvcc flags and this module (``rule_digest``): a winner chosen for
+other kernels or by another rule is never returned.  The cache file is the
+port's own, ``build/repro_torch/autotune.json`` in the checkout
+(``CACHE_PATH``): winners tuned for the TPU by the reference package never
+leak in.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import threading
@@ -32,7 +40,7 @@ import torch
 # (block_m, block_k) pairs the CUDA kernels are compiled for.
 INSTANTIATED_BLOCKS = ((64, 32), (128, 32))
 SMEM_BYTES = 232_448            # dynamic shared memory a Hopper block may use
-THREADS = 256                   # threads per block (16 x 16 micro-tile grid)
+THREADS = 256                   # FFMA threads per block (16 x 16 micro-tile grid)
 
 CACHE_PATH = str(Path(__file__).resolve().parents[3] / "build"
                  / "repro_torch" / "autotune.json")
@@ -56,8 +64,18 @@ def device_arch(device) -> str:
     return device.type
 
 
+@functools.lru_cache(maxsize=None)
+def rule_digest() -> str:
+    """Hash of the kernel sources, the nvcc flags and this module's scoring
+    rule."""
+    from repro_torch.kernels import build
+    h = hashlib.sha256(build.sources_digest().encode())
+    h.update(Path(__file__).read_bytes())
+    return h.hexdigest()[:16]
+
+
 def _key(arch: str, mode: str, m: int, k: int, dtype: str) -> str:
-    return f"{arch}:{mode}:{m}x{k}:{dtype}"
+    return f"{arch}:{rule_digest()}:{mode}:{m}x{k}:{dtype}"
 
 
 def _load(path: str) -> None:
@@ -84,39 +102,72 @@ def _save(path: str) -> None:
         pass
 
 
-def smem_bytes(bm: int, bk: int) -> int:
-    """Dynamic shared memory of one block (csrc/lower_tiles.cuh)."""
+def tensor_core_path(mode: str, dtype_bytes: int) -> bool:
+    """fp32 symmul / gram_poly run 3xTF32 on the tensor cores; syrk and the
+    bf16 products run the FFMA mainloop."""
+    return mode in ("symmul", "gram_poly") and dtype_bytes == 4
+
+
+def smem_bytes(mode: str, bm: int, bk: int, dtype_bytes: int = 4) -> int:
+    """Dynamic shared memory of one block.
+
+    * tensor cores (csrc/symmul.cu, ``Tf32Cfg``): a ring of raw A and B
+      slices (3 stages at bm = 128, 2 at bm = 64), one split buffer
+      {Bᵀ big, Bᵀ small} (A's split stays in registers), one mbarrier a
+      stage and 1 KB of alignment slack;
+    * FFMA (csrc/lower_tiles.cuh): two BK x (BM + 1) fp32 slices or the
+      BM x (BM + 1) transpose buffer, whichever is larger; operands are
+      staged as fp32 whatever their type.
+    """
+    if tensor_core_path(mode, dtype_bytes):
+        tile = bm * bk * 4
+        stages = 3 if bm == 128 else 2
+        return stages * 2 * tile + 2 * tile + stages * 8 + 1024
     return 4 * max(2 * bk * (bm + 1), bm * (bm + 1))
 
 
-def candidate_blocks(m: int, k: int, dtype_bytes: int = 4
+def candidate_blocks(mode: str, m: int, k: int, dtype_bytes: int = 4
                      ) -> Iterable[tuple[int, int]]:
-    """Instantiated (block_m, block_k) pairs that fit a block's shared memory.
-    Operands are staged as fp32 whatever their type, so ``dtype_bytes``
-    does not change the footprint."""
+    """Instantiated (block_m, block_k) pairs whose ``mode`` mainloop fits a
+    block's shared memory."""
     return [(bm, bk) for bm, bk in INSTANTIATED_BLOCKS
-            if smem_bytes(bm, bk) <= SMEM_BYTES]
+            if smem_bytes(mode, bm, bk, dtype_bytes) <= SMEM_BYTES]
 
 
-def analytical_score(bm: int, bk: int, m: int, k: int,
+def analytical_score(mode: str, bm: int, bk: int, m: int, k: int,
                      dtype_bytes: int = 4) -> float:
-    """Lower is better: padded work times the register tile's cost.
+    """Lower is better: padded work times the mainloop's per-tile cost.
 
     * padded work — the lower tiles of a ceil(m/bm)-block grid over
       ceil(k/bk) slices, relative to the m(m+1)/2 · k products needed;
-    * register tile — a thread's (bm/16)² micro-tile does (bm/16)² FFMA per
-      2·bm/16 shared-memory reads, so the cost per FFMA is 1 + 2/(bm/16).
+    * FFMA register tile — a thread's (bm/16)² micro-tile does (bm/16)²
+      FFMA per 2·bm/16 shared-memory reads, so the cost per FFMA is
+      1 + 2/(bm/16);
+    * tensor-core tile — no factor: a 64-row block leaves room for four
+      blocks an SM, whose splits and products overlap, so the larger tile
+      saves nothing per product.
 
-    The two factors are exact in binary, so equal scores compare equal; the
-    tuner breaks a tie towards the larger tile (fewer reads per FFMA).  At
-    m = 960 the pairs tie and 128×32 is chosen; at m = 320 the 128-row grid
-    pads 60% more work and 64×32 is chosen (both the measured winners on an
-    H100, chip_smoke.py's blocks phase).
+    The factors are exact in binary, so equal scores compare equal; a tie
+    goes to the larger tile on the FFMA path (its cost per product falls
+    with the tile) and to the smaller on the tensor cores (more blocks an SM
+    overlap, and 128×32 never won there on the card).  On the slice's shapes
+    the rule picks the measured winners of chip_smoke.py's blocks phase on
+    an H100: for SYRK 128×32 at m = 960 and 64×32 at m = 320 (the 128-row
+    grid pads 60% more work); for the tensor-core symmul / gram_poly 64×32
+    at both, since 960 = 15 · 64 while the 128-row grid pads 20%.
     """
     nb = -(-m // bm)
     nk = -(-k // bk)
     padded = nb * (nb + 1) // 2 * bm * bm * nk * bk
-    return padded * (1.0 + 2.0 / (bm // 16)) / (m * (m + 1) / 2.0 * k)
+    tile = (1.0 if tensor_core_path(mode, dtype_bytes)
+            else 1.0 + 2.0 / (bm // 16))
+    return padded * tile / (m * (m + 1) / 2.0 * k)
+
+
+def tie_break(mode: str, block: tuple[int, int], dtype_bytes: int = 4) -> int:
+    """Second sort key of equal scores: larger tile first on the FFMA
+    path, smaller first on the tensor cores (see ``analytical_score``)."""
+    return block[0] if tensor_core_path(mode, dtype_bytes) else -block[0]
 
 
 def tune(mode: str, m: int, k: int, dtype: str = "float32", *,
@@ -133,14 +184,15 @@ def tune(mode: str, m: int, k: int, dtype: str = "float32", *,
 
     dtype_bytes = 2 if dtype in ("bfloat16", "float16") else 4
     scores = {}
-    for bm, bk in candidate_blocks(m, k, dtype_bytes):
+    for bm, bk in candidate_blocks(mode, m, k, dtype_bytes):
         if backend == "analytical":
-            scores[bm, bk] = analytical_score(bm, bk, m, k, dtype_bytes)
+            scores[bm, bk] = analytical_score(mode, bm, bk, m, k, dtype_bytes)
         elif backend == "measured":
             scores[bm, bk] = measure_cuda(mode, bm, bk, m, k, dtype, batch)
         else:
             raise ValueError(f"unknown autotune backend {backend!r}")
-    best = min(scores, key=lambda b: (scores[b], -b[0]))   # tie: larger tile
+    best = min(scores,
+               key=lambda b: (scores[b], tie_break(mode, b, dtype_bytes)))
 
     with _lock:
         _memory_cache[key] = best

@@ -51,13 +51,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest(name: str) -> str:
+def _digest(name: Optional[str] = None) -> str:
+    """Hash of the headers, ``<name>.cu`` (every source when ``name`` is
+    None) and the flags."""
+    sources = sorted(CSRC.glob("*.cu")) if name is None else [CSRC / f"{name}.cu"]
     h = hashlib.sha256()
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for path in sorted(CSRC.glob("*.cuh")) + sources:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def sources_digest() -> str:
+    """Hash of every kernel source and the flags: changes whenever any
+    library would rebuild."""
+    return _digest()
 
 
 def library_path(name: str) -> Path:

@@ -10,12 +10,19 @@ C = A·B and writes the dense result (the lower triangle mirrored up, i.e.
 * ``plain``      — C = A·B
 * ``gram_poly``  — P = aI + bG + cG² from the G·G pass, combined in fp32
   before the cast, so the polynomial never round-trips device memory.
+
+fp32 operands run on the tensor cores as 3xTF32 (``symmul_tf32_emulated``
+repeats that arithmetic in plain PyTorch); their TMA loads need m % 4 == 0,
+and the wrapper zero-pads any other m and crops the result
+(``padded_call``), which is exact for both epilogues.  bf16 operands run on
+the FFMA mainloop and take any m.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -29,6 +36,10 @@ KERNEL_DTYPES = {(torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
                  (torch.bfloat16, torch.float32)}
 MAX_BATCH = 65535               # grid.y limit
+TMA_ALIGN = 4                   # fp32 elements in 16 bytes: TMA's row-stride unit
+LAUNCH_ERRORS = {-1: "no instantiation",
+                 -2: "TMA tensor map encoding failed",
+                 -3: "fp32 m is not a multiple of 4"}
 
 
 def tri_index_tables(n_blocks: int) -> tuple[np.ndarray, np.ndarray]:
@@ -63,13 +74,62 @@ def symmul_plain(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
     """Plain version: the full batched product with fp32 accumulation; for
     ``gram_poly`` the epilogue is combined in fp32 before the cast, as the
     kernel does."""
-    out_dtype = out_dtype or a.dtype
-    acc = torch.matmul(a.float(), b.float())
+    return _epilogue(torch.matmul(a.float(), b.float()), a, epilogue, coeffs,
+                     out_dtype or a.dtype)
+
+
+def _epilogue(acc: torch.Tensor, a: torch.Tensor, epilogue: str,
+              coeffs: Optional[tuple], out_dtype: torch.dtype) -> torch.Tensor:
     if epilogue == "gram_poly":
         ca, cb, cc = coeffs
         eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
         acc = ca * eye + cb * a.float() + cc * acc
     return acc.to(out_dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to the nearest TF32 value, ties away from zero, as
+    the kernel's ``cvt.rna.tf32.f32``: half a TF32 unit is added to the
+    magnitude's bits and the 13 low mantissa bits are cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def symmul_tf32_emulated(a: torch.Tensor, b: torch.Tensor, *,
+                         epilogue: str = "plain",
+                         coeffs: Optional[tuple] = None,
+                         passes: int = 3) -> torch.Tensor:
+    """The fp32 kernel's tensor-core arithmetic in plain PyTorch: each
+    operand split as x = big + small, both TF32 (``tf32_round``), and
+    A·B ≈ small_A·big_B + big_A·small_B + big_A·big_B, every product of TF32
+    values exact in fp32 (``passes=3``, what the kernel runs).  ``passes=1``
+    keeps big_A·big_B alone: one TF32 product, which the fp32 gate must
+    reject."""
+    a32, b32 = a.float(), b.float()
+    a_big, b_big = tf32_round(a32), tf32_round(b32)
+    acc = torch.matmul(a_big, b_big)
+    if passes == 3:
+        acc = (torch.matmul(tf32_round(a32 - a_big), b_big)
+               + torch.matmul(a_big, tf32_round(b32 - b_big)) + acc)
+    elif passes != 1:
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    return _epilogue(acc, a, epilogue, coeffs, torch.float32)
+
+
+def padded_call(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fn(a, b)`` on (B, m, m) operands zero-padded to the next multiple of
+    ``TMA_ALIGN``, cropped back to (B, m, m).  Exact for both epilogues: the
+    padding adds zero terms to every kept product, and aI + bG at a kept
+    entry reads only kept entries of G."""
+    m = a.shape[-1]
+    mp = -(-m // TMA_ALIGN) * TMA_ALIGN
+    if mp == m:
+        return fn(a, b)
+    pad = (0, mp - m, 0, mp - m)
+    a_p = torch.nn.functional.pad(a, pad)
+    b_p = a_p if b is a else torch.nn.functional.pad(b, pad)
+    return fn(a_p, b_p)[:, :m, :m].contiguous()
 
 
 _entry = None
@@ -89,6 +149,12 @@ def _kernel():
         lib.symmul_error_string.restype = ctypes.c_char_p
         _entry = (lib.symmul_lower, lib.symmul_error_string)
     return _entry
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with the 16-byte-aligned base address TMA needs."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
@@ -117,8 +183,13 @@ def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
         return ref.mirror_lower(symmul_plain(a, b, epilogue=epilogue,
                                              coeffs=coeffs, out_dtype=out_dtype))
 
-    a = a.contiguous()
-    b = b.contiguous()
+    if a.dtype == torch.float32 and a.shape[-1] % TMA_ALIGN:
+        return padded_call(functools.partial(
+            symmul_lower, epilogue=epilogue, coeffs=coeffs, block_m=block_m,
+            block_k=block_k, out_dtype=out_dtype), a, b)
+
+    a = _tma_ready(a)
+    b = a if b is a else _tma_ready(b)
     batch, m, _ = a.shape
     out = torch.empty((batch, m, m), dtype=out_dtype, device=a.device)
     if batch == 0 or m == 0:
@@ -132,8 +203,7 @@ def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
                      block_m, block_k, int(poly), ca, cb, cc,
                      DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype], stream)
     if err != 0:
-        msg = ("no instantiation" if err < 0
-               else error_string(err).decode())
+        msg = LAUNCH_ERRORS.get(err) or error_string(err).decode()
         raise RuntimeError(f"symmul_lower launch failed ({err}): {msg}")
     LAUNCHES["gram_poly" if poly else "symmul"] += 1
     return out

@@ -202,12 +202,21 @@ def test_instantiated_blocks_match_cuda_dispatch():
         assert pairs == set(autotune.INSTANTIATED_BLOCKS), src
 
 
-def test_autotune_candidates_fit_hopper_smem():
-    cands = autotune.candidate_blocks(960, 2560, 4)
+@pytest.mark.parametrize("mode,m,k,dtype_bytes",
+                         [("syrk", 960, 2560, 4), ("symmul", 960, 960, 4),
+                          ("gram_poly", 320, 320, 4), ("symmul", 320, 320, 2)])
+def test_autotune_candidates_fit_hopper_smem(mode, m, k, dtype_bytes):
+    cands = autotune.candidate_blocks(mode, m, k, dtype_bytes)
     assert cands and set(cands) <= set(autotune.INSTANTIATED_BLOCKS)
     for bm, bk in cands:
-        assert autotune.smem_bytes(bm, bk) <= autotune.SMEM_BYTES
-        assert bm % 16 == 0 and (bm // 16) ** 2 * autotune.THREADS == bm * bm
+        assert autotune.smem_bytes(mode, bm, bk, dtype_bytes) <= \
+            autotune.SMEM_BYTES
+        if autotune.tensor_core_path(mode, dtype_bytes):
+            # whole 64-row warpgroup slabs; bk fp32 = one 128-byte swizzle row
+            assert bm % 64 == 0 and bk * 4 == 128
+        else:
+            assert bm % 16 == 0 and \
+                (bm // 16) ** 2 * autotune.THREADS == bm * bm
 
 
 def test_autotune_cache_roundtrip_keyed_by_arch(_isolated_cache):
@@ -223,7 +232,44 @@ def test_autotune_cache_roundtrip_keyed_by_arch(_isolated_cache):
     assert autotune.cached_entry("symmul", 512, 512, "float32",
                                  cache_path=path, arch="cpu") is None
     with open(path) as f:
-        assert list(json.load(f)) == ["sm90:symmul:512x512:float32"]
+        assert list(json.load(f)) == [
+            f"sm90:{autotune.rule_digest()}:symmul:512x512:float32"]
+
+
+def test_autotune_cache_ignores_entries_of_other_kernels(_isolated_cache):
+    """A winner cached for other kernel sources or another scoring rule (a
+    different digest in its key) is never returned."""
+    with open(_isolated_cache, "w") as f:
+        json.dump({"sm90:0000000000000000:symmul:960x960:float32": [128, 32]},
+                  f)
+    assert autotune.cached_entry("symmul", 960, 960, "float32",
+                                 cache_path=_isolated_cache,
+                                 arch="sm90") is None
+    assert autotune.lookup("symmul", 960, 960, "float32",
+                           cache_path=_isolated_cache, arch="sm90") == (64, 32)
+
+
+def test_rule_digest_follows_kernel_sources(monkeypatch):
+    from repro_torch.kernels import build
+    before = autotune.rule_digest()
+    autotune.rule_digest.cache_clear()
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    try:
+        assert autotune.rule_digest() != before
+    finally:
+        autotune.rule_digest.cache_clear()
+
+
+@pytest.mark.parametrize("mode,dtype,want",
+                         [("syrk", "float32", (128, 32)),
+                          ("symmul", "float32", (64, 32)),
+                          ("gram_poly", "float32", (64, 32)),
+                          ("symmul", "bfloat16", (128, 32))])
+def test_autotune_tie_break_per_mainloop(_isolated_cache, mode, dtype, want):
+    """m = 512 pads neither grid, so the scores tie on the tensor cores and
+    the tie goes to the smaller tile; on the FFMA path the larger tile's
+    lower cost per product wins."""
+    assert autotune.lookup(mode, 512, 512, dtype, arch="sm90") == want
 
 
 def test_autotune_default_cache_is_the_ports_own(monkeypatch):
@@ -234,10 +280,11 @@ def test_autotune_default_cache_is_the_ports_own(monkeypatch):
 
 
 # The slice's kernel shapes and the pair measured fastest at each on an H100
-# (chip_smoke.py, blocks phase): the analytical rule must pick the same.
+# (chip_smoke.py, blocks phase; fp32 symmul / gram_poly on the tensor-core
+# mainloop): the analytical rule must pick the same.
 SLICE_WINNERS = [("syrk", 960, 2560, (128, 32)), ("syrk", 960, 960, (128, 32)),
-                 ("syrk", 320, 960, (64, 32)), ("symmul", 960, 960, (128, 32)),
-                 ("gram_poly", 960, 960, (128, 32)),
+                 ("syrk", 320, 960, (64, 32)), ("symmul", 960, 960, (64, 32)),
+                 ("gram_poly", 960, 960, (64, 32)),
                  ("symmul", 320, 320, (64, 32)),
                  ("gram_poly", 320, 320, (64, 32))]
 
@@ -260,8 +307,10 @@ def test_prewarm_plan_covers_plan_shapes(_isolated_cache):
     with open(_isolated_cache) as f:
         cached = json.load(f)
     for mode, m, k in shapes:
-        winner = tuple(cached[f"sm90:{mode}:{m}x{k}:float32"])
-        best = min(autotune.candidate_blocks(m, k, 4),
-                   key=lambda b: (autotune.analytical_score(*b, m, k, 4),
-                                  -b[0]))
+        winner = tuple(
+            cached[f"sm90:{autotune.rule_digest()}:{mode}:{m}x{k}:float32"])
+        best = min(autotune.candidate_blocks(mode, m, k, 4),
+                   key=lambda b: (autotune.analytical_score(mode, *b, m, k,
+                                                            4),
+                                  autotune.tie_break(mode, b)))
         assert winner == best
