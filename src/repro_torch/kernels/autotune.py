@@ -4,10 +4,9 @@ persistent cache (port of ``repro.kernels.autotune``, paper §3.3, Fig. 6).
 The search space is the (block_m, block_k) pairs the CUDA kernels are
 instantiated for (``INSTANTIATED_BLOCKS``; csrc/*.cu dispatch on exactly
 these) that fit the 227 KB of shared memory a Hopper block may use.  Two
-mainloops sit behind them, with their own footprint and cost: fp32 symmul /
-gram_poly run 3xTF32 on the tensor cores (csrc/symmul.cu,
-``symmul_tf32_kernel``); syrk and bf16 symmul / gram_poly run FFMA register
-tiles (csrc/lower_tiles.cuh).
+mainloops sit behind them, with their own footprint and cost: fp32 syrk,
+symmul and gram_poly run 3xTF32 on the tensor cores (csrc/tf32_lower.cuh);
+bf16 inputs run FFMA register tiles (csrc/lower_tiles.cuh).
 
 Two backends:
   * ``analytical`` — padded lower-tile work times the mainloop's per-tile
@@ -103,18 +102,19 @@ def _save(path: str) -> None:
 
 
 def tensor_core_path(mode: str, dtype_bytes: int) -> bool:
-    """fp32 symmul / gram_poly run 3xTF32 on the tensor cores; syrk and the
-    bf16 products run the FFMA mainloop."""
-    return mode in ("symmul", "gram_poly") and dtype_bytes == 4
+    """fp32 syrk, symmul and gram_poly run 3xTF32 on the tensor cores; bf16
+    inputs run the FFMA mainloop."""
+    return mode in ("syrk", "symmul", "gram_poly") and dtype_bytes == 4
 
 
 def smem_bytes(mode: str, bm: int, bk: int, dtype_bytes: int = 4) -> int:
     """Dynamic shared memory of one block.
 
-    * tensor cores (csrc/symmul.cu, ``Tf32Cfg``): a ring of raw A and B
-      slices (3 stages at bm = 128, 2 at bm = 64), one split buffer
-      {Bᵀ big, Bᵀ small} (A's split stays in registers), one mbarrier a
-      stage and 1 KB of alignment slack;
+    * tensor cores (csrc/tf32_lower.cuh, ``Tf32Cfg``; the same for syrk,
+      symmul and gram_poly): a ring of raw A and B slices (3 stages at
+      bm = 128, 2 at bm = 64), one split buffer {B big, B small} (A's split
+      stays in registers), one mbarrier a stage and 1 KB of alignment
+      slack;
     * FFMA (csrc/lower_tiles.cuh): two BK x (BM + 1) fp32 slices or the
       BM x (BM + 1) transpose buffer, whichever is larger; operands are
       staged as fp32 whatever their type.
@@ -152,9 +152,9 @@ def analytical_score(mode: str, bm: int, bk: int, m: int, k: int,
     with the tile) and to the smaller on the tensor cores (more blocks an SM
     overlap, and 128×32 never won there on the card).  On the slice's shapes
     the rule picks the measured winners of chip_smoke.py's blocks phase on
-    an H100: for SYRK 128×32 at m = 960 and 64×32 at m = 320 (the 128-row
-    grid pads 60% more work); for the tensor-core symmul / gram_poly 64×32
-    at both, since 960 = 15 · 64 while the 128-row grid pads 20%.
+    an H100: 64×32 for every fp32 product (syrk, symmul, gram_poly) at
+    m = 960 and m = 320, since 960 = 15 · 64 while the 128-row grid pads
+    20% more work (60% at m = 320).
     """
     nb = -(-m // bm)
     nk = -(-k // bk)

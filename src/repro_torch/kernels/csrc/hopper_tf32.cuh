@@ -1,7 +1,7 @@
 // Hopper building blocks of the fp32 Gram products on tensor cores
-// (symmul.cu): TMA tile loads completing on mbarriers, the 3xTF32 operand
-// split, and wgmma with tf32 operands (A from registers, B from shared
-// memory).
+// (tf32_lower.cuh, for symmul.cu and gram_syrk.cu): TMA tile loads
+// completing on mbarriers, the 3xTF32 operand split, and wgmma with tf32
+// operands (A from registers, B from shared memory).
 //
 // Shared-memory operand layout (what TMA's 128-byte swizzle writes and what
 // a K-major wgmma descriptor with layout type SW128 reads): a tile of R rows

@@ -4,17 +4,26 @@ and its plain PyTorch version (port of ``repro.kernels.gram_syrk``).
 Computes the initial Gram matrix of the Gram Newton-Schulz iteration for a
 stack X of shape (B, m, n).  G is symmetric, so the kernel computes only the
 lower tiles and writes the dense result (lower triangle mirrored up).
+
+fp32 inputs run on the tensor cores as 3xTF32 (``syrk_tf32_emulated``
+repeats that arithmetic in plain PyTorch); their TMA loads and vector stores
+need m % 4 == 0 and n % 4 == 0, and the wrapper zero-pads any other m or n
+and crops the result (``symmul.padded_call``), which is exact.  bf16 inputs
+run on the FFMA mainloop and take any shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, ref
-from repro_torch.kernels.symmul import DTYPE_CODES, check_kernel_args
+from repro_torch.kernels.symmul import (DTYPE_CODES, LAUNCH_ERRORS, TMA_ALIGN,
+                                        check_kernel_args, padded_call,
+                                        symmul_tf32_emulated, tma_ready)
 
 
 def syrk_plain(x: torch.Tensor,
@@ -22,6 +31,13 @@ def syrk_plain(x: torch.Tensor,
     """Plain version: the full batched X Xᵀ with fp32 accumulation."""
     xf = x.float()
     return torch.matmul(xf, xf.mT).to(out_dtype or x.dtype)
+
+
+def syrk_tf32_emulated(x: torch.Tensor, *, passes: int = 3) -> torch.Tensor:
+    """The fp32 kernel's tensor-core arithmetic in plain PyTorch: X Xᵀ as
+    3xTF32 products (``passes=3``) or one TF32 product (``passes=1``, which
+    the fp32 gate must reject); see ``symmul.symmul_tf32_emulated``."""
+    return symmul_tf32_emulated(x, x.mT, passes=passes)
 
 
 _entry = None
@@ -57,11 +73,19 @@ def syrk_lower(x: torch.Tensor, *, block_m: int = 128, block_k: int = 32,
     if x.device.type == "cpu":
         return ref.mirror_lower(syrk_plain(x, out_dtype))
 
-    x = x.contiguous()
+    if x.dtype == torch.float32 and (x.shape[-2] % TMA_ALIGN
+                                     or x.shape[-1] % TMA_ALIGN):
+        return padded_call(functools.partial(
+            syrk_lower, block_m=block_m, block_k=block_k,
+            out_dtype=out_dtype), x)
+
+    x = tma_ready(x)
     batch, m, n = x.shape
     out = torch.empty((batch, m, m), dtype=out_dtype, device=x.device)
     if batch == 0 or m == 0:
         return out
+    if n == 0:
+        return out.zero_()
     launch, error_string = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -69,8 +93,7 @@ def syrk_lower(x: torch.Tensor, *, block_m: int = 128, block_k: int = 32,
                      block_k, DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
                      stream)
     if err != 0:
-        msg = ("no instantiation" if err < 0
-               else error_string(err).decode())
+        msg = LAUNCH_ERRORS.get(err) or error_string(err).decode()
         raise RuntimeError(f"gram_syrk_lower launch failed ({err}): {msg}")
     LAUNCHES["syrk"] += 1
     return out

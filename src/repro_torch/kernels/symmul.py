@@ -37,9 +37,10 @@ KERNEL_DTYPES = {(torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32)}
 MAX_BATCH = 65535               # grid.y limit
 TMA_ALIGN = 4                   # fp32 elements in 16 bytes: TMA's row-stride unit
+# error codes of the C entry points (csrc/symmul.cu, csrc/gram_syrk.cu) below 0
 LAUNCH_ERRORS = {-1: "no instantiation",
                  -2: "TMA tensor map encoding failed",
-                 -3: "fp32 m is not a multiple of 4"}
+                 -3: "fp32 dims not multiples of 4 (TMA row strides)"}
 
 
 def tri_index_tables(n_blocks: int) -> tuple[np.ndarray, np.ndarray]:
@@ -116,20 +117,26 @@ def symmul_tf32_emulated(a: torch.Tensor, b: torch.Tensor, *,
     return _epilogue(acc, a, epilogue, coeffs, torch.float32)
 
 
-def padded_call(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-                a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``fn(a, b)`` on (B, m, m) operands zero-padded to the next multiple of
-    ``TMA_ALIGN``, cropped back to (B, m, m).  Exact for both epilogues: the
-    padding adds zero terms to every kept product, and aI + bG at a kept
-    entry reads only kept entries of G."""
-    m = a.shape[-1]
-    mp = -(-m // TMA_ALIGN) * TMA_ALIGN
-    if mp == m:
-        return fn(a, b)
-    pad = (0, mp - m, 0, mp - m)
-    a_p = torch.nn.functional.pad(a, pad)
-    b_p = a_p if b is a else torch.nn.functional.pad(b, pad)
-    return fn(a_p, b_p)[:, :m, :m].contiguous()
+def padded_call(fn: Callable[..., torch.Tensor],
+                *operands: torch.Tensor) -> torch.Tensor:
+    """``fn(*operands)`` on (B, rows, cols) operands whose last two dims are
+    zero-padded, each on its own, to the next multiple of ``TMA_ALIGN``,
+    cropped back to (B, m, m) with m the first operand's rows.  Exact for
+    the symmetric product's epilogues and for the SYRK: zero columns add
+    zero terms to every kept product, zero rows only add output rows and
+    columns that are cropped, and aI + bG at a kept entry reads only kept
+    entries of G.  An operand that is the first one stays the first one
+    (padded once)."""
+    def pad(t):
+        rows, cols = t.shape[-2:]
+        return torch.nn.functional.pad(
+            t, (0, -cols % TMA_ALIGN, 0, -rows % TMA_ALIGN))
+    if not any(d % TMA_ALIGN for t in operands for d in t.shape[-2:]):
+        return fn(*operands)
+    first = pad(operands[0])
+    padded = [first if t is operands[0] else pad(t) for t in operands]
+    m = operands[0].shape[-2]
+    return fn(*padded)[:, :m, :m].contiguous()
 
 
 _entry = None
@@ -151,7 +158,7 @@ def _kernel():
     return _entry
 
 
-def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+def tma_ready(x: torch.Tensor) -> torch.Tensor:
     """Contiguous, with the 16-byte-aligned base address TMA needs."""
     x = x.contiguous()
     return x.clone() if x.data_ptr() % 16 else x
@@ -188,8 +195,8 @@ def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
             symmul_lower, epilogue=epilogue, coeffs=coeffs, block_m=block_m,
             block_k=block_k, out_dtype=out_dtype), a, b)
 
-    a = _tma_ready(a)
-    b = a if b is a else _tma_ready(b)
+    a = tma_ready(a)
+    b = a if b is a else tma_ready(b)
     batch, m, _ = a.shape
     out = torch.empty((batch, m, m), dtype=out_dtype, device=a.device)
     if batch == 0 or m == 0:

@@ -5,14 +5,17 @@ Needs no JAX, so it runs where the port runs:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Without a CUDA card every test skips.  Tolerances: fp32 rtol 1e-4 /
-atol 1e-3, bf16 2e-2 (the reference's kernel tolerances).
+atol 1e-3, bf16 2e-2 (the reference's kernel tolerances); the fp32 SYRK on
+the tensor cores (3xTF32) also max|err| <= 1e-5 · max|want| on
+heavy-tailed rows, the gate of chip_smoke.py.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, autotune, ops, ref, reset_launches
-from repro_torch.kernels.gram_syrk import syrk_lower, syrk_plain
+from repro_torch.kernels.gram_syrk import (syrk_lower, syrk_plain,
+                                           syrk_tf32_emulated)
 from repro_torch.kernels.symmul import symmul_lower, symmul_plain
 
 pytestmark = pytest.mark.cuda
@@ -20,6 +23,20 @@ pytestmark = pytest.mark.cuda
 BLOCKS = list(autotune.INSTANTIATED_BLOCKS)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SCALED_GATE = 1e-5
+
+
+def _heavy_rows(device, shape, seed=0):
+    """Cubed Gaussians, each row at unit norm (chip_smoke.syrk_inputs)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(*shape, generator=gen, device=device) ** 3
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _assert_scaled(got, want):
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= SCALED_GATE * float(want.abs().max()), err
 
 
 @pytest.fixture
@@ -72,3 +89,42 @@ def test_unsupported_dtype_raises_on_card(cuda_device):
     x = torch.randn(1, 32, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="no kernel"):
         syrk_lower(x, block_m=64, block_k=32)
+
+
+@pytest.mark.parametrize("bm,bk", BLOCKS)
+@pytest.mark.parametrize("shape", [(4, 320, 960), (2, 100, 212)])
+def test_fp32_syrk_within_scaled_gate(cuda_device, shape, bm, bk):
+    """3xTF32 SYRK within 1e-5 · max|want| for both block pairs, a gate one
+    TF32 pass misses by >= 10x on the same rows."""
+    x = _heavy_rows(cuda_device, shape)
+    want = ref.mirror_lower(syrk_plain(x))
+    _assert_scaled(syrk_lower(x, block_m=bm, block_k=bk), want)
+    one = ref.mirror_lower(syrk_tf32_emulated(x, passes=1))
+    assert float((one - want).abs().max()) >= \
+        10 * SCALED_GATE * float(want.abs().max())
+
+
+def test_fp32_syrk_is_exactly_symmetric(cuda_device):
+    x = _heavy_rows(cuda_device, (3, 200, 328), seed=1)
+    g = syrk_lower(x, block_m=64, block_k=32)
+    assert torch.equal(g, g.mT)
+
+
+@pytest.mark.parametrize("shape", [(2, 101, 211), (2, 102, 960),
+                                   (2, 96, 213)])
+def test_fp32_syrk_unaligned_pad_path(cuda_device, shape):
+    """m or n not a multiple of 4 goes through the zero-pad-and-crop: one
+    launch, output (B, m, m), within the gate."""
+    x = _heavy_rows(cuda_device, shape, seed=2)
+    reset_launches()
+    g = syrk_lower(x, block_m=64, block_k=32)
+    assert LAUNCHES["syrk"] == 1
+    assert g.shape == (shape[0], shape[1], shape[1]) and g.is_contiguous()
+    _assert_scaled(g, ref.mirror_lower(syrk_plain(x)))
+
+
+def test_fp32_syrk_counts_one_launch(cuda_device):
+    x = _heavy_rows(cuda_device, (2, 320, 960), seed=3)
+    reset_launches()
+    ops.syrk(x)
+    assert LAUNCHES == {"syrk": 1, "symmul": 0, "gram_poly": 0}

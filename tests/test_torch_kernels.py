@@ -202,21 +202,34 @@ def test_instantiated_blocks_match_cuda_dispatch():
         assert pairs == set(autotune.INSTANTIATED_BLOCKS), src
 
 
+# csrc/tf32_lower.cuh's Tf32Cfg<BM>::kSmem: raw ring (2 stages at BM = 64,
+# 3 at 128) of two BM x 32 fp32 slices, one {big, small} split buffer, one
+# mbarrier a stage and 1 KB of alignment slack
+TF32_SMEM = {64: 2 * 2 * 8192 + 2 * 8192 + 2 * 8 + 1024,
+             128: 3 * 2 * 16384 + 2 * 16384 + 3 * 8 + 1024}
+
+
 @pytest.mark.parametrize("mode,m,k,dtype_bytes",
                          [("syrk", 960, 2560, 4), ("symmul", 960, 960, 4),
-                          ("gram_poly", 320, 320, 4), ("symmul", 320, 320, 2)])
+                          ("gram_poly", 320, 320, 4), ("symmul", 320, 320, 2),
+                          ("syrk", 320, 960, 2)])
 def test_autotune_candidates_fit_hopper_smem(mode, m, k, dtype_bytes):
+    """fp32 products (syrk included) take the tensor-core mainloop's
+    footprint, bf16 inputs the FFMA one's."""
     cands = autotune.candidate_blocks(mode, m, k, dtype_bytes)
     assert cands and set(cands) <= set(autotune.INSTANTIATED_BLOCKS)
+    assert autotune.tensor_core_path(mode, dtype_bytes) == (dtype_bytes == 4)
     for bm, bk in cands:
-        assert autotune.smem_bytes(mode, bm, bk, dtype_bytes) <= \
-            autotune.SMEM_BYTES
+        smem = autotune.smem_bytes(mode, bm, bk, dtype_bytes)
+        assert smem <= autotune.SMEM_BYTES
         if autotune.tensor_core_path(mode, dtype_bytes):
             # whole 64-row warpgroup slabs; bk fp32 = one 128-byte swizzle row
             assert bm % 64 == 0 and bk * 4 == 128
+            assert smem == TF32_SMEM[bm]
         else:
             assert bm % 16 == 0 and \
                 (bm // 16) ** 2 * autotune.THREADS == bm * bm
+            assert smem == 4 * max(2 * bk * (bm + 1), bm * (bm + 1))
 
 
 def test_autotune_cache_roundtrip_keyed_by_arch(_isolated_cache):
@@ -261,10 +274,11 @@ def test_rule_digest_follows_kernel_sources(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,dtype,want",
-                         [("syrk", "float32", (128, 32)),
+                         [("syrk", "float32", (64, 32)),
                           ("symmul", "float32", (64, 32)),
                           ("gram_poly", "float32", (64, 32)),
-                          ("symmul", "bfloat16", (128, 32))])
+                          ("symmul", "bfloat16", (128, 32)),
+                          ("syrk", "bfloat16", (128, 32))])
 def test_autotune_tie_break_per_mainloop(_isolated_cache, mode, dtype, want):
     """m = 512 pads neither grid, so the scores tie on the tensor cores and
     the tie goes to the smaller tile; on the FFMA path the larger tile's
@@ -280,9 +294,9 @@ def test_autotune_default_cache_is_the_ports_own(monkeypatch):
 
 
 # The slice's kernel shapes and the pair measured fastest at each on an H100
-# (chip_smoke.py, blocks phase; fp32 symmul / gram_poly on the tensor-core
+# (chip_smoke.py, blocks phase; every fp32 product on the tensor-core
 # mainloop): the analytical rule must pick the same.
-SLICE_WINNERS = [("syrk", 960, 2560, (128, 32)), ("syrk", 960, 960, (128, 32)),
+SLICE_WINNERS = [("syrk", 960, 2560, (64, 32)), ("syrk", 960, 960, (64, 32)),
                  ("syrk", 320, 960, (64, 32)), ("symmul", 960, 960, (64, 32)),
                  ("gram_poly", 960, 960, (64, 32)),
                  ("symmul", 320, 320, (64, 32)),
