@@ -35,9 +35,21 @@ Phases, each printing one JSON line and asserting what it checks:
            7 syrk / 35 gram_poly / 84 symmul launches per step.
   adamw    the same training with the elementwise AdamW baseline (no Gram
            kernels launched): the yardstick of the optimizer's overhead.
+  mesh     every visible card, one NCCL process each (spawned; they load
+           the kernels the parent built), on a ("data", "model") =
+           (cards, 1) mesh: one Muon update from the same full-width
+           gradients with and without the mesh (bitwise on one card,
+           1e-6 otherwise), the same gradients placed by ``param_specs``
+           on a (1, cards) mesh (NCCL all-to-alls; 1e-6), then the training
+           above under the mesh, data-parallel, by Muon (7 / 35 / 84
+           launches a step on every rank), Muon-AG (gather mode) and AdamW,
+           timed on every rank, and on rank 0 the same Muon training
+           without the mesh: losses within 1e-5 relative (also of the train
+           phase) and step 1's updates within 1e-4 · max|update|.
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
-train phase ran), the nvidia-smi line, and last
+train phase ran), the nvidia-smi line (the first card's; the device line
+lists every card), and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.  Without
 a CUDA card, or without the repository's ``src/`` beside it, it exits 2 and
 prints no result.
@@ -78,19 +90,20 @@ KERNELS = {
 }
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
-PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw")
+PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "mesh")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi() -> list[str]:
+    """One "name, power limit" line per card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
 
 
 def ptxas_report(log: str) -> dict:
@@ -429,10 +442,18 @@ def phase_gram_ns(torch) -> None:
 
 # ------------------------------------------------------------------- train
 
-def phase_train(torch, steps: int, variant: str) -> dict:
-    """Train full-width smollm-360m ``steps`` steps with ``variant`` ('muon':
-    the main path, kernel launches counted; 'adamw': the elementwise
-    baseline, which must launch none).  Returns the launch counts."""
+def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
+              capture: bool = False) -> dict:
+    """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on)
+    ``TRAIN_STEPS`` steps with ``variant`` / ``mode``, under ``mesh`` when
+    given (each rank on its rows of the batch).  The launch counters are
+    set to 0 before each step and read after it: Muon in owner mode must
+    launch exactly ``LAUNCHES_PER_STEP`` a step, anything else none.
+    Returns losses, times (synchronised host clock around each step and
+    around ``opt.update``), launches, peak memory and, with ``capture``,
+    the first step's updates (this rank's parts)."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch import configs
     from repro_torch.core import api, tree
     from repro_torch.core.gram_ns import GramNSConfig
@@ -443,16 +464,17 @@ def phase_train(torch, steps: int, variant: str) -> dict:
     from repro_torch.train.step import init_state, make_train_step
 
     cfg = configs.get("smollm-360m")
-    plan = api.dedicate_params(transformer.init(cfg, device="meta"))
-    opt = api.Muon(plan, config=MuonConfig(
-        variant=variant, mode="owner", pipeline="fused",
+    plan = api.dedicate_params(transformer.init(cfg, device="meta"),
+                               mesh=mesh)
+    opt = api.Muon(plan, mesh, config=MuonConfig(
+        variant=variant, mode=mode, pipeline="fused",
         ns=GramNSConfig(use_kernels=True)), device="cuda")
-    state = init_state(cfg, opt, seed=0, device="cuda")
-    step = make_train_step(cfg, opt, device="cuda")
+    state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+    step = make_train_step(cfg, opt, mesh, device="cuda")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
 
     # time the optimizer transform inside the step (synchronised around it)
-    opt_ms = []
+    opt_ms, first = [], {}
     update = opt.update
 
     def timed_update(*a, **kw):
@@ -461,43 +483,309 @@ def phase_train(torch, steps: int, variant: str) -> dict:
         out = update(*a, **kw)
         torch.cuda.synchronize()
         opt_ms.append((time.perf_counter() - t0) * 1e3)
+        if capture and not first:
+            first.update({p: (u.to_local() if isinstance(u, DTensor)
+                              else u).clone()
+                          for p, u in tree.flatten(out[0])})
         return out
     opt.update = timed_update
 
     torch.cuda.reset_peak_memory_stats()
-    loss_ema, step_ms = [], []
-    reset_launches()
-    for i in range(steps):
-        batch = batch_for_step(dcfg, i, device="cuda")
+    loss_ema, step_ms, launches = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_for_step(dcfg, i, device="cuda", mesh=mesh)
         torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
         state = step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(LAUNCHES))
         loss_ema.append(float(state.loss_ema))
-    launches = dict(LAUNCHES)
 
+    tag = f"{variant}/{mode}" + ("" if mesh is None else " on the mesh")
     # the EMA is finite exactly when every step's loss so far is
     for i, loss in enumerate(loss_ema):
         if not math.isfinite(loss):
-            raise AssertionError(f"{variant} step {i}: loss_ema {loss}")
+            raise AssertionError(f"{tag} step {i}: loss_ema {loss}")
     for p, v in tree.flatten(state.params):
         if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"{variant}: parameter {p} is not finite")
-    per_step = LAUNCHES_PER_STEP if variant == "muon" else \
+            raise AssertionError(f"{tag}: parameter {p} is not finite")
+    want = LAUNCHES_PER_STEP if (variant, mode) == ("muon", "owner") else \
         dict.fromkeys(LAUNCHES_PER_STEP, 0)
-    want = {k: n * steps for k, n in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"{variant}: kernel launches {launches}, "
-                             f"expected {want} over {steps} steps")
-    emit({"phase": "train", "variant": variant, "arch": cfg.name,
-          "params": cfg.param_count(), "seq_len": dcfg.seq_len,
-          "global_batch": dcfg.global_batch, "steps": steps,
-          "loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches,
-          "launches_per_step": {k: v // steps for k, v in launches.items()}})
-    return launches
+    for i, got in enumerate(launches):
+        if got != want:
+            raise AssertionError(f"{tag} step {i}: kernel launches {got}, "
+                                 f"expected {want}")
+    return {"arch": cfg.name, "params": cfg.param_count(),
+            "seq_len": dcfg.seq_len, "global_batch": dcfg.global_batch,
+            "loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
+            "launches": {k: sum(d[k] for d in launches) for k in want},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "first_updates": first}
+
+
+def phase_train(torch, variant: str) -> dict:
+    """Train full-width smollm-360m with ``variant`` ('muon': the main path,
+    kernel launches counted; 'adamw': the elementwise baseline, which must
+    launch none).  Returns the run."""
+    run = train_run(torch, variant)
+    launches = run["launches"]
+    emit({"phase": "train", "variant": variant, "arch": run["arch"],
+          "params": run["params"], "seq_len": run["seq_len"],
+          "global_batch": run["global_batch"], "steps": TRAIN_STEPS,
+          "loss_ema": run["loss_ema"], "step_ms": run["step_ms"],
+          "optimizer_ms": run["optimizer_ms"],
+          "peak_mem_gb": run["peak_mem_gb"], "launches": launches,
+          "launches_per_step": {k: v // TRAIN_STEPS
+                                for k, v in launches.items()}})
+    return run
+
+
+# -------------------------------------------------------------------- mesh
+
+MESH_TIMEOUT_S = 180           # every NCCL collective of the phase
+SAME_GRADIENT_GATE = 1e-6      # max|Δ| of one update, absolute
+LOSS_GATE = 1e-5               # relative, per step's loss_ema
+STEP_UPDATE_GATE = 1e-4        # max|Δ| <= 1e-4 · max|update|, all leaves
+
+
+def leaf_diffs(a: dict, b: dict) -> dict:
+    """{path: (max|a − b|, max|b|, bitwise equal)} over two {path: tensor}
+    dicts."""
+    import torch
+    return {p: (float((a[p].float() - v.float()).abs().max()),
+                float(v.float().abs().max()), torch.equal(a[p], v))
+            for p, v in b.items()}
+
+
+def max_diff(a: dict, b: dict) -> tuple[float, float, bool]:
+    """(max|a − b|, max|b|, bitwise equal) over all leaves."""
+    rows = leaf_diffs(a, b).values()
+    return (max(r[0] for r in rows), max(r[1] for r in rows),
+            all(r[2] for r in rows))
+
+
+def phase_mesh(torch, train_losses) -> None:
+    """Every visible card, one NCCL rank each (spawned processes that load
+    the kernels the parent built).  A rank that fails fails the run."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    mp.start_processes(mesh_rank, args=(world, free_port(), train_losses),
+                       nprocs=world, start_method="spawn", join=True)
+
+
+def mesh_rank(rank: int, world: int, port: int, train_losses) -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import strict_fp32
+    from repro_torch.launch.mesh import init_process_group
+
+    strict_fp32()
+    init_process_group("cuda", rank=rank, world_size=world,
+                       init_method=f"tcp://localhost:{port}",
+                       timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    # on a failure the process exits without destroy_process_group, which
+    # would wait for peers blocked in a collective; the parent then ends
+    # every rank
+    mesh_checks(torch, dist, rank, world, train_losses)
+    dist.destroy_process_group()
+
+
+def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
+    """The ``mesh`` phase on one rank: a ("data", "model") = (world, 1) mesh
+    (the owners are the ranks, the batch split over them).
+
+    1. One Muon update from the same full-width gradients (replicated,
+       from a seed) with the mesh and without it: bitwise at world 1 (the
+       collectives of one rank are copies), max|Δ| <= 1e-6 otherwise.
+    2. The same gradients placed by ``param_specs`` on a (1, world) mesh,
+       so the owner transposes are NCCL all-to-alls: max|Δ| <= 1e-6 against
+       the update of 1.
+    3. Full-width smollm-360m trained 3 steps under the mesh by Muon (owner
+       mode, 7 / 35 / 84 launches a step on every rank), Muon-AG (gather
+       mode) and AdamW, timed on every rank; then, on rank 0 alone, the
+       same Muon training without the mesh (``train_vs_single``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding, transformer
+
+    lead = rank == 0
+    mesh = make_mesh((world, 1), ("data", "model"), "cuda")
+    cfg = configs.get("smollm-360m")
+    shapes = transformer.init(cfg, device="meta")
+    mcfg = MuonConfig(variant="muon", mode="owner", pipeline="fused",
+                      ns=GramNSConfig(use_kernels=True))
+
+    def update(m, params, grads):
+        opt = api.Muon(api.dedicate_params(shapes, mesh=m), m, config=mcfg,
+                       device="cuda")
+        u, _ = opt.update(grads, opt.init(params), params)
+        return {p: v.full_tensor() if isinstance(v, DTensor) else v
+                for p, v in tree.flatten(u)}
+
+    # 1 + 2: one update from the same gradients
+    params = transformer.init(cfg, seed=0, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(7)
+    grads = tree.tree_map(lambda v: torch.randn(
+        v.shape, generator=gen, device="cuda") * 1e-3, params)
+    u_one = update(None, params, grads)
+    u_mesh = update(mesh, params, grads)
+    d, top, same = max_diff(u_mesh, u_one)
+    tp = make_mesh((1, world), ("data", "model"), "cuda")
+    specs = sharding.param_specs(cfg, shapes, tp)
+    u_tp = update(tp, sharding.place(params, specs, tp),
+                  sharding.place(grads, specs, tp))
+    d_tp, _, same_tp = max_diff(u_tp, u_mesh)
+    if lead:
+        emit({"phase": "mesh", "check": "same_gradient_update",
+              "world": world, "mesh": [world, 1], "bitwise": same,
+              "max_abs_diff": d, "max_abs_update": top,
+              "gate": SAME_GRADIENT_GATE,
+              "per_leaf_max_abs_diff": {p: r[0] for p, r in
+                                        leaf_diffs(u_mesh, u_one).items()}})
+        emit({"phase": "mesh", "check": "param_specs_update",
+              "mesh": [1, world],
+              "sharded_leaves": sum(any(e is not None for e in s)
+                                    for s in specs.values()),
+              "bitwise": same_tp, "max_abs_diff": d_tp,
+              "gate": SAME_GRADIENT_GATE})
+        batch_invariance(torch, 32 // world if world > 1 else 8)
+    if world == 1 and not same:
+        raise AssertionError(f"mesh of one: update differs by {d:.3e}")
+    for what, diff in [("mesh", d), ("param_specs", d_tp)]:
+        if diff > SAME_GRADIENT_GATE:
+            raise AssertionError(f"{what} update differs by {diff:.3e} > "
+                                 f"{SAME_GRADIENT_GATE}")
+    del u_one, u_mesh, u_tp, params, grads
+
+    # 3: training under the mesh, every rank timed
+    runs = {}
+    for variant, mode in [("muon", "owner"), ("muon", "gather"),
+                          ("adamw", "owner")]:
+        name = "adamw" if variant == "adamw" else mode
+        run = train_run(torch, variant, mode, mesh, capture=name == "owner")
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, timing)
+        runs[name] = run
+        if lead:
+            emit({"phase": "mesh", "mode": name, "world": world,
+                  "mesh": [world, 1], "loss_ema": run["loss_ema"],
+                  "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                                        run["launches"].items()},
+                  "per_rank": per_rank})
+        torch.cuda.empty_cache()
+
+    failure = None
+    if lead:
+        single = train_run(torch, "muon", "owner", capture=True)
+        matrices = set(api.dedicate_params(shapes).leaves)
+        failure = train_vs_single(runs, single, world, train_losses,
+                                  matrices)
+    failures = [None] * world
+    dist.all_gather_object(failures, failure)
+    if failures[0] is not None:
+        raise AssertionError(failures[0])
+
+
+def batch_invariance(torch, rows: int) -> None:
+    """Which stage of the owner-local Gram NS depends on how many matrices
+    one call holds: the first ``rows`` of a (32, m, n) stack alone against
+    the same rows inside the whole stack, stage by stage (a diagnostic of
+    the same-gradient update across ranks, not a gate)."""
+    from repro_torch.core import gram_ns
+    from repro_torch.core.gram_ns import GramNSConfig
+
+    cfg = GramNSConfig(use_kernels=True)
+    gen = torch.Generator("cuda").manual_seed(3)
+    out = {}
+    for m, n in [(960, 2560), (960, 960), (320, 960)]:
+        x = torch.randn(32, m, n, generator=gen, device="cuda")
+        stages = {}
+        for tag, xs in [("part", x[:rows]), ("whole", x)]:
+            x0 = gram_ns._normalize(xs, cfg)
+            g = gram_ns._ops(cfg)[0](x0)
+            q = gram_ns.gram_iterate(g, cfg)
+            stages[tag] = {"normalize": x0, "syrk": g, "iterate": q,
+                           "finish": gram_ns._rect_dot(q, x0)}
+        out[f"{m}x{n}"] = {
+            k: float((v - stages["whole"][k][:rows]).abs().max())
+            for k, v in stages["part"].items()}
+    emit({"phase": "mesh", "check": "batch_invariance", "rows": rows,
+          "of": 32, "max_abs_diff_by_stage": out})
+
+
+def train_vs_single(runs: dict, single: dict, world: int, train_losses,
+                    matrices: set):
+    """Rank 0: emit the mesh runs against the same training on one card
+    without the mesh, then the first gate missed (None if none): losses
+    within 1e-5 relative (also of the train phase); step 1's updates
+    within 1e-4 · max|update| (the gradient sums change order with the
+    batch split), reported per leaf with the rule that made it (Muon's
+    Newton-Schulz and AdamW's first step, -lr · g / (|g| + eps), both
+    magnify a rounding-size change of the gradient).  The model's backward
+    may add with atomics, so two runs without the mesh may differ too
+    (``run_to_run_rel``)."""
+    def rel_diff(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    mesh_loss = runs["owner"]["loss_ema"]
+    rel = rel_diff(mesh_loss, single["loss_ema"])
+    rel_train = None if train_losses is None else \
+        rel_diff(mesh_loss, train_losses)
+    per_leaf = leaf_diffs(runs["owner"]["first_updates"],
+                          single["first_updates"])
+    d_up = max(r[0] for r in per_leaf.values())
+    top_up = max(r[1] for r in per_leaf.values())
+    # steps 2-3: step 1 pays first-call costs
+    steady = {name: {k: sum(r[k][1:]) / len(r[k][1:])
+                     for k in ("step_ms", "optimizer_ms")}
+              for name, r in [*runs.items(), ("single_owner", single)]}
+    emit({"phase": "mesh", "check": "train_vs_single", "world": world,
+          "loss_ema_mesh": mesh_loss, "loss_ema_single": single["loss_ema"],
+          "train_phase_loss_ema": train_losses, "loss_rel_diff": rel,
+          "loss_rel_diff_train_phase": rel_train,
+          "run_to_run_rel": None if train_losses is None else
+          rel_diff(single["loss_ema"], train_losses),
+          "loss_gate": LOSS_GATE, "step1_update_max_abs_diff": d_up,
+          "step1_max_abs_update": top_up,
+          "update_gate": STEP_UPDATE_GATE,
+          "step1_per_leaf": {p: {"max_abs_diff": r[0], "max_abs_update": r[1],
+                                 "bitwise": r[2],
+                                 "rule": "muon" if p in matrices else "adamw"}
+                             for p, r in per_leaf.items()},
+          "single_step_ms": single["step_ms"],
+          "single_optimizer_ms": single["optimizer_ms"],
+          "rank0_steady_mean_ms": steady,
+          "owner_over_adamw": {k: steady["owner"][k] / steady["adamw"][k]
+                               for k in ("step_ms", "optimizer_ms")},
+          "gather_over_owner": {k: steady["gather"][k] / steady["owner"][k]
+                                for k in ("step_ms", "optimizer_ms")},
+          "mesh_minus_single_ms": {
+              k: steady["owner"][k] - steady["single_owner"][k]
+              for k in ("step_ms", "optimizer_ms")}})
+    for name, r in [("the same run without the mesh", rel),
+                    ("the train phase", rel_train)]:
+        if r is not None and r > LOSS_GATE:
+            return (f"mesh losses {mesh_loss} vs {name}: {r:.3e} relative "
+                    f"> {LOSS_GATE}")
+    if d_up > STEP_UPDATE_GATE * top_up:
+        return (f"step 1 updates differ by {d_up:.3e} > "
+                f"{STEP_UPDATE_GATE} x {top_up:.3e}")
+    return None
 
 
 # -------------------------------------------------------------------- main
@@ -535,7 +823,7 @@ def main() -> int:
                              .read_text())
              for n in build.SOURCES
              if build.library_path(n).with_suffix(".log").exists()}
-    emit({"phase": "device", "nvidia_smi": smi,
+    emit({"phase": "device", "nvidia_smi": smi[0], "nvidia_smi_all": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
@@ -548,11 +836,16 @@ def main() -> int:
         phase_blocks(torch)
     if "gram_ns" in phases:
         phase_gram_ns(torch)
+    train_losses = None
     if "train" in phases:
-        launches = phase_train(torch, TRAIN_STEPS, "muon")
+        run = phase_train(torch, "muon")
+        launches, train_losses = run["launches"], run["loss_ema"]
+        del run
     if "adamw" in phases:
         torch.cuda.empty_cache()
-        phase_train(torch, TRAIN_STEPS, "adamw")
+        phase_train(torch, "adamw")
+    if "mesh" in phases:
+        phase_mesh(torch, train_losses)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
@@ -564,7 +857,7 @@ def main() -> int:
          "shape": row["shape"]}
         for name, meta in KERNELS.items()
         if (row := summary.get(name)) is not None]})
-    print(smi, flush=True)
+    print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,18 @@
 """Drop-in user surface (port of ``repro.core.api``; paper Fig. 1a):
 
     import repro_torch.core.api as dmuon
-    plan = dmuon.dedicate_params(params)
-    opt  = dmuon.Muon(plan, learning_rate=0.02)
+    plan = dmuon.dedicate_params(params, mesh=mesh)
+    opt  = dmuon.Muon(plan, mesh=mesh, learning_rate=0.02)
     state = opt.init(params)
     updates, state = opt.update(grads, state, params)
 
 ``params`` and ``grads`` are nested dicts of tensors (or ``params`` an
 ``nn.Module``); ``update`` returns update *deltas*, as the reference does.
+``mesh`` is an optional ``DeviceMesh`` (``repro_torch.launch.mesh``): its
+axes, all by default or ``owner_axes``, are the owners, one slot per rank.
+Under it a gradient is a ``DTensor`` in its training layout (``Partial``
+for data parallelism) or a plain tensor (replicated), and the state holds
+each rank's own part (``core/muon.py``).
 
 Variant registry: ``muon`` (owner-centric Muon, batched Gram NS) and
 ``adamw`` (elementwise baseline).  The reference's normuon, muonbp, dion2 and
@@ -17,7 +22,8 @@ adamuon wait for ROADMAP item 7.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import dedication
 from repro_torch.core.dedication import DedicationPlan, default_muon_predicate
@@ -26,6 +32,7 @@ from repro_torch.core.muon import (AdamWState, MuonConfig, MuonState,
                                    _resolve, muon_init, muon_update)
 from repro_torch.core.update_rules import VariantSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import axis_sizes
 
 __all__ = ["dedicate_params", "Muon", "MuonConfig", "GramNSConfig",
            "DedicationPlan", "default_muon_predicate", "VariantSpec",
@@ -64,29 +71,41 @@ register_variant(VariantSpec(
 
 
 def dedicate_params(params, mesh=None, *, num_owners: Optional[int] = None,
-                    strategy: str = "load_balance", **kw) -> DedicationPlan:
-    """Plan ownership for ``params`` over ``num_owners`` slots (default 1).
-    Meshes across ranks wait for ROADMAP item 6."""
+                    strategy: str = "load_balance",
+                    owner_axes: Tuple[str, ...] = (), **kw) -> DedicationPlan:
+    """Plan ownership for ``params`` over ``mesh`` (or ``num_owners`` slots,
+    default 1).
+
+    With a mesh, the owner axis is the flattened mesh (all axes by default;
+    restrict with ``owner_axes``) and the XOR slot layout uses the owner
+    axes' extents as (rows, cols): the last one is cols, the rest rows.
+    """
     if mesh is not None:
-        raise ValueError("meshes are not ported yet (ROADMAP item 6); "
-                         "pass num_owners")
+        sizes = axis_sizes(mesh)
+        axes = owner_axes or tuple(sizes)
+        num_owners = math.prod(sizes[a] for a in axes)
+        cols = sizes[axes[-1]]
+        kw.setdefault("mesh_rows", num_owners // cols)
+        kw.setdefault("mesh_cols", cols)
+    elif num_owners is None:
+        num_owners = 1
     return dedication.dedicate_params(
-        params, num_owners=num_owners or 1, strategy=strategy, **kw)
+        params, num_owners=num_owners, strategy=strategy,
+        owner_axes=owner_axes, **kw)
 
 
 class Muon:
     """Functional optimizer implementing the DMuon training step (Alg. 1).
 
     ``device`` is where the optimizer state lives and the kernels run:
-    CUDA unless ``device="cpu"`` is passed."""
+    CUDA unless ``device="cpu"`` is passed.  ``mesh`` (a ``DeviceMesh``)
+    spreads the owners over its ranks."""
 
     def __init__(self, plan: DedicationPlan, mesh=None,
                  config: Optional[MuonConfig] = None, *,
                  device: DeviceLike = None, **overrides):
-        if mesh is not None:
-            raise ValueError("meshes are not ported yet (ROADMAP item 6)")
         self.plan = plan
-        self.mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
         cfg = config or MuonConfig()
         if overrides:
@@ -110,15 +129,19 @@ class Muon:
         return _resolve(self.config)[1]
 
     def replace(self, **overrides) -> "Muon":
-        """A new Muon sharing this plan and device, config fields overridden."""
-        return Muon(self.plan, config=replace(self.config, **overrides),
+        """A new Muon sharing this plan, mesh and device, config fields
+        overridden."""
+        return Muon(self.plan, self.mesh,
+                    config=replace(self.config, **overrides),
                     device=self.device)
 
     def init(self, params) -> MuonState:
-        return muon_init(self.plan, params, self.config, device=self.device)
+        return muon_init(self.plan, params, self.config, self.mesh,
+                         device=self.device)
 
     def update(self, grads, state: MuonState, params):
-        return muon_update(self.plan, grads, state, params, self.config)
+        return muon_update(self.plan, grads, state, params, self.config,
+                           self.mesh)
 
     def update_staged(self, staged, rest_grads, state: MuonState, params):
         raise ValueError("update_staged (the bucketed pipeline) is not ported "

@@ -4,11 +4,23 @@
 Execution modes (``MuonConfig.mode``):
 
 * ``owner``  — DMuon.  Matrix gradients are packed into owner-major stacked
-  buffers; momentum lives permanently in this layout; one batched Gram NS
-  runs per shape group and the updates are unpacked to each parameter.
-* ``gather`` — Muon-AG baseline: momentum in training layout, full-matrix
-  standard NS per leaf.
+  buffers; under a mesh each rank receives only its owner rows (the
+  reduce-to-owner collectives of ``core/owner_comms.py``).  Momentum lives
+  permanently in this layout; one batched Gram NS runs per shape group on
+  the local rows and the updates are published back to each parameter's
+  training layout.
+* ``gather`` — Muon-AG baseline: momentum in training layout; under a mesh
+  every gradient is reduced and all-gathered and every rank runs the
+  full-matrix standard NS of every leaf.
 * ``adamw``  — element-wise baseline.
+
+Under a ``DeviceMesh`` a gradient leaf is a ``DTensor`` (its placements are
+its training layout; ``Partial`` = a data-parallel reduction still to do)
+or a plain tensor (replicated).  The optimizer state holds this rank's
+local parts only: owner rows of the momentum, AdamW moments shaped like the
+parameter's local part.  Updates come back as the gradients went in: a
+``DTensor`` in the gradient's training layout (``Partial`` replicated), or
+a plain tensor.
 
 Non-matrix parameters always take AdamW (Alg. 1 line 16).  For
 variant='muon' all modes produce identical updates up to NS rounding.
@@ -25,13 +37,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import tree
 from repro_torch.core.dedication import DedicationPlan
 from repro_torch.core.gram_ns import GramNSConfig
 from repro_torch.core.orthogonalize import FullMatrixNS, make_orthogonalizer
 from repro_torch.core.owner_comms import (  # noqa: F401 — re-exports
-    OwnerLayout, group_key_str, pack_group, unpack_group)
+    OwnerLayout, group_key_str, local_shard, pack_group, published,
+    reduce_partial, replicate, unpack_group)
 from repro_torch.core.update_rules import (  # noqa: F401 — re-exports
     AdamWState, adamw_init, adamw_update, apply_wd_and_lr, momentum_update,
     scale_factor)
@@ -129,11 +143,6 @@ def _matrix_and_rest(plan: DedicationPlan, t):
     return matrix, rest
 
 
-def _rebuild(tree_like, matrix: Dict[str, Any], rest: Dict[str, Any]):
-    """Reassemble a tree of ``tree_like``'s structure from the two dicts."""
-    return tree.rebuild(tree_like, {**rest, **matrix})
-
-
 def _device_of(params, device):
     if device is not None:
         return torch.device(device)
@@ -141,11 +150,30 @@ def _device_of(params, device):
     return leaves[0][1].device if leaves else torch.device("cpu")
 
 
+def _split(layout: OwnerLayout, leaves: Dict[str, Any]):
+    """({path: local part}, {path: placements or None})."""
+    local, placements = {}, {}
+    for p, v in leaves.items():
+        local[p], placements[p] = layout.split(v)
+    return local, placements
+
+
+def _like(grad, update: torch.Tensor, placements, mesh):
+    """``update`` (a local part) in the form its gradient came in."""
+    if not isinstance(grad, DTensor):
+        return update
+    return DTensor.from_local(update, mesh, published(placements),
+                              run_check=False, shape=grad.shape,
+                              stride=grad.stride())
+
+
 def muon_init(plan: DedicationPlan, params, cfg: MuonConfig, mesh=None,
               device=None) -> MuonState:
-    matrix, rest = _matrix_and_rest(plan, params)
     spec, mode = _resolve(cfg)
     layout = OwnerLayout(plan, mesh, device=_device_of(params, device))
+    matrix, rest = _matrix_and_rest(plan, params)
+    matrix, _ = _split(layout, matrix)
+    rest, _ = _split(layout, rest)
     mdt = as_dtype(cfg.momentum_dtype)
     if mode == "owner":
         momentum = {group_key_str(key): layout.zeros(key, mdt)
@@ -169,37 +197,51 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
                 cfg: MuonConfig, mesh=None):
     """One optimizer step.  Returns (updates, new_state); updates are deltas
     to be *added* to params."""
+    spec, mode = _resolve(cfg)
+    layout = OwnerLayout(plan, mesh)
     gm, gr = _matrix_and_rest(plan, grads)
     pm, pr = _matrix_and_rest(plan, params)
-    spec, mode = _resolve(cfg)
-
     if mode == "adamw":
-        gr, pr = {**gr, **gm}, {**pr, **pm}
-        adam_updates, adamw_state = adamw_update(gr, state.adamw, pr,
-                                                 state.step, cfg)
-        updates = _rebuild(grads, {}, adam_updates)
-        return updates, MuonState(state.step + 1, state.momentum, adamw_state,
-                                  state.error_feedback, state.variant_state)
+        gr, pr, gm, pm = {**gr, **gm}, {**pr, **pm}, {}, {}
+    gm_local, gm_pl = _split(layout, gm)
+    gr_local, gr_pl = _split(layout, gr)
+    pm_local, _ = _split(layout, pm)
+    pr_local, _ = _split(layout, pr)
+    if mesh is not None:    # AdamW is elementwise: reduce first
+        gr_local = {p: reduce_partial(g, gr_pl[p], mesh)
+                    for p, g in gr_local.items()}
 
-    adam_updates, adamw_state = adamw_update(gr, state.adamw, pr, state.step,
-                                             cfg)
+    adam_updates, adamw_state = adamw_update(gr_local, state.adamw, pr_local,
+                                             state.step, cfg)
     if mode == "owner":
         matrix_updates, new_momentum, new_ef = _owner_update(
-            plan, gm, pm, state, cfg, mesh, spec)
-    else:
-        matrix_updates, new_momentum = _gather_update(plan, gm, pm, state,
-                                                      cfg, mesh)
+            plan, gm_local, gm_pl, pm_local, state, cfg, layout, spec)
+    elif mode == "gather":
+        matrix_updates, new_momentum = _gather_update(
+            plan, gm_local, gm_pl, pm_local, state, cfg, layout)
         new_ef = state.error_feedback
-    updates = _rebuild(grads, matrix_updates, adam_updates)
-    return updates, MuonState(state.step + 1, new_momentum, adamw_state,
-                              new_ef, state.variant_state)
+    else:
+        matrix_updates, new_momentum = {}, state.momentum
+        new_ef = state.error_feedback
+    updates = {p: _like(g, matrix_updates[p], gm_pl[p], mesh)
+               for p, g in gm.items()}
+    updates.update({p: _like(g, adam_updates[p], gr_pl[p], mesh)
+                    for p, g in gr.items()})
+    return tree.rebuild(grads, updates), MuonState(
+        state.step + 1, new_momentum, adamw_state, new_ef,
+        state.variant_state)
 
 
-def _owner_update(plan: DedicationPlan, gm, pm, state: MuonState,
-                  cfg: MuonConfig, mesh, spec):
-    """DMuon path: pack → momentum → orthogonalize → unpack + scale/wd/lr.
-    Alg. 1 lines 10–15, one process."""
-    layout = OwnerLayout(plan, mesh)
+def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
+                  cfg: MuonConfig, layout: OwnerLayout, spec):
+    """DMuon path: pack (reduce-to-owner) → momentum → orthogonalize on the
+    local owner rows → unpack (publish) + scale/wd/lr.  Alg. 1 lines 10–15.
+    ``gm`` / ``pm`` hold local parts, ``gm_pl`` the gradients' placements."""
+    if cfg.compress_grads and any(
+            p.is_partial() for pl in gm_pl.values() if pl for p in pl):
+        raise ValueError(
+            "compress_grads with Partial (data-parallel) gradients would "
+            "reduce them in bf16; not ported yet (ROADMAP item 6)")
     new_momentum: Dict[str, torch.Tensor] = {}
     grads_for_pack, new_ef = compress_with_error_feedback(
         gm, state.error_feedback, cfg)
@@ -210,7 +252,7 @@ def _owner_update(plan: DedicationPlan, gm, pm, state: MuonState,
     skey_to_key = {group_key_str(key): key for key in plan.groups}
     for key, g in plan.groups.items():
         g_packed = layout.pack(key, {p: grads_for_pack[p].to(pdt)
-                                     for p in g.leaf_paths})
+                                     for p in g.leaf_paths}, gm_pl)
         skey = group_key_str(key)
         mom, eff = momentum_update(state.momentum[skey].to(pdt), g_packed, cfg)
         new_momentum[skey] = mom.to(mdt)
@@ -225,28 +267,34 @@ def _owner_update(plan: DedicationPlan, gm, pm, state: MuonState,
         key = skey_to_key[skey]
         m, n = plan.groups[key].key
         s = scale_factor(m, n, cfg.scale_mode)
-        for p, upd in layout.unpack(key, o.to(pdt) * s).items():
+        for p, upd in layout.unpack(key, o.to(pdt) * s, gm_pl).items():
             matrix_updates[p] = apply_wd_and_lr(upd, pm[p], cfg)
     return matrix_updates, new_momentum, new_ef
 
 
-def _gather_update(plan: DedicationPlan, gm, pm, state: MuonState,
-                   cfg: MuonConfig, mesh=None):
-    """Muon-AG baseline: momentum in training layout; full-matrix standard NS
-    per leaf."""
-    layout = OwnerLayout(plan, mesh)
+def _gather_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
+                   cfg: MuonConfig, layout: OwnerLayout):
+    """Muon-AG baseline: momentum in training layout; under a mesh each
+    gradient is reduced, its momentum look-ahead all-gathered, and every
+    rank runs the full-matrix standard NS of every leaf."""
+    mesh = layout.mesh
     new_momentum: Dict[str, torch.Tensor] = {}
     eff_all: Dict[str, torch.Tensor] = {}
     mdt = as_dtype(cfg.momentum_dtype)
     for p, g in gm.items():
+        if mesh is not None:
+            g = reduce_partial(g, gm_pl[p], mesh)
         mom, eff = momentum_update(state.momentum[p].float(), g.float(), cfg)
         new_momentum[p] = mom.to(mdt)
-        eff_all[p] = eff
+        eff_all[p] = eff if mesh is None else \
+            replicate(eff, published(gm_pl[p]), mesh)
     ortho, _ = FullMatrixNS()(eff_all, step=state.step, state=None,
                               layout=layout, cfg=cfg)
     matrix_updates: Dict[str, torch.Tensor] = {}
     for p, o in ortho.items():
         m, n = plan.leaves[p].group
         s = scale_factor(m, n, cfg.scale_mode)
+        if mesh is not None:
+            o = local_shard(o, gm_pl[p], mesh)
         matrix_updates[p] = apply_wd_and_lr(o * s, pm[p], cfg)
     return matrix_updates, new_momentum

@@ -8,8 +8,10 @@ Every backend implements one protocol:
         def __call__(self, stacks, *, step, state, layout, cfg)
             -> (ortho_stacks, new_state)
 
-``stacks`` is a dict of owner-major (D·cap, m, n) buffers keyed by
-``group_key_str``; ``cfg`` is the MuonConfig (only ``ns`` is read here).
+``stacks`` is a dict of owner-major buffers keyed by ``group_key_str``:
+(D·cap, m, n) on one process, this rank's (cap, m, n) owner rows under a
+mesh (``OwnerLayout.shard_local``); ``cfg`` is the MuonConfig (only ``ns``
+is read here).
 
 Ported backends:
 
@@ -73,8 +75,8 @@ class BucketFusedGramNS(Orthogonalizer):
     """Bucket-fused owner NS: one batched m×m recurrence per Gram bucket.
 
     Per-group prepare (normalize + SYRK; shapes differ in n), concatenate the
-    Gram stacks of the bucket, ONE batched iterate, split Q back, per-group
-    finish (Q·X₀)."""
+    Gram stacks of the bucket (the local owner rows under a mesh), ONE
+    batched iterate, split Q back, per-group finish (Q·X₀)."""
 
     name = "gram_fused"
 

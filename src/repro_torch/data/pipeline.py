@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.sharding import (batch_spec, dp_axes, entry_axes,
+                                         local_batch)
 
 
 @dataclass
@@ -44,10 +46,19 @@ def _batch_at(cfg: DataConfig, step: int) -> dict:
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def batch_for_step(cfg: DataConfig, step: int,
-                   device: DeviceLike = None) -> dict:
+def batch_for_step(cfg: DataConfig, step: int, device: DeviceLike = None,
+                   mesh=None) -> dict:
     """The batch of ``step`` as int32 tensors on ``device`` (CUDA unless
-    given)."""
+    given).  Under a ``DeviceMesh`` only this rank's rows of the global
+    batch (``models.sharding.local_batch``): byte for byte the slice of
+    the global batch, split over the data-parallel axes."""
     device = resolve_device(device)
+    batch = _batch_at(cfg, step)
+    if mesh is not None:
+        dp = dp_axes(mesh)
+        if entry_axes(batch_spec(mesh, cfg.global_batch)[0]) != dp:
+            raise ValueError(f"global batch {cfg.global_batch} does not "
+                             f"split over the data-parallel axes {dp}")
+        batch = {k: local_batch(v, mesh) for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in _batch_at(cfg, step).items()}
+            for k, v in batch.items()}
