@@ -27,7 +27,9 @@ Phases, each printing one JSON line and asserting what it checks:
   blocks   every candidate block pair timed at the slice's shapes (the
            autotuner's measured backend), beside the analytical choice.
   gram_ns  Gram NS with the kernels against the plain path (1e-4) and
-           against standard NS (2e-3), at (32, 960, 2560) and (3, 64, 192).
+           against standard NS (2e-3), at (32, 960, 2560) and (3, 64, 192);
+           the per-matrix Frobenius normalization timed beside one batched
+           ``vector_norm`` of the stack (the formula it replaced).
   train    full-width smollm-360m (32 layers, d_model 960, vocab 49152,
            fp32, remat) from seed 0, trained 3 steps by
            Muon(variant="muon", mode="owner", pipeline="fused") with the
@@ -35,6 +37,17 @@ Phases, each printing one JSON line and asserting what it checks:
            7 syrk / 35 gram_poly / 84 symmul launches per step.
   adamw    the same training with the elementwise AdamW baseline (no Gram
            kernels launched): the yardstick of the optimizer's overhead.
+  variants the same training with muon and each of normuon, muonbp
+           (period 2, so step 2 reuses the cached polar map), dion2 (Gram
+           NS on the rank-r factors, r = 240 / 80) and adamuon: 7 / 35 /
+           84 launches a step, 0 / 0 / 0 on MuonBP's reuse step.  Then each
+           first-step update with the kernels against the same variant's
+           with the plain Gram NS (use_kernels=False) on the same
+           gradients: within 10x what one ulp on the gradients moves the
+           plain update, a gate that one TF32 pass per product misses by
+           >= 10x (AdaMuon, whose first step maps each entry to about
+           sign(o): what o's relative difference explains, above 1e-4 ·
+           max|update|).  Dion2's batched QR timed.
   mesh     every visible card, one NCCL process each (spawned; they load
            the kernels the parent built), on a ("data", "model") =
            (cards, 1) mesh: one Muon update from the same full-width
@@ -90,7 +103,16 @@ KERNELS = {
 }
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
-PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "mesh")
+PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
+          "mesh")
+# the stateful variants and their knobs in the variants phase
+VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
+                "dion2": {}, "adamuon": {}}
+VARIANT_GATE = 1e-4            # AdaMuon's floor: 1e-4 · max|update|
+# kernel vs plain Gram NS update: within this many times the plain path's
+# own move under one ulp on the gradients; one TF32 pass this many times
+# outside that
+VARIANT_SPREAD = 10
 
 
 def emit(obj) -> None:
@@ -154,6 +176,23 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def wall_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of one call on the host clock, synchronised
+    before and after: what a caller waiting for the result sees, host
+    launch costs included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[len(times) // 2]
 
 
@@ -284,9 +323,13 @@ def kernel_cases(torch, gen):
     tc32 = dict(scaled=SCALED_GATE)
     bf16 = dict(rtol=2e-2, atol=2e-2)
     cases = []
+    # muon's shapes, then Dion2's r×n factors (r = 240, 80)
     for shape, dtype, tol in [((32, 960, 960), torch.float32, tc32),
                               ((32, 320, 960), torch.float32, tc32),
                               ((32, 960, 2560), torch.float32, tc32),
+                              ((32, 240, 2560), torch.float32, tc32),
+                              ((32, 240, 960), torch.float32, tc32),
+                              ((32, 80, 960), torch.float32, tc32),
                               ((8, 320, 960), torch.bfloat16, bf16),
                               ((2, 100, 212), torch.float32, tc32),
                               ((2, 101, 211), torch.float32, tc32)]:
@@ -302,6 +345,8 @@ def kernel_cases(torch, gen):
                       if tc else None))
     for (b, m), dtype, tol in [((32, 960), torch.float32, tc32),
                                ((32, 320), torch.float32, tc32),
+                               ((32, 240), torch.float32, tc32),
+                               ((32, 80), torch.float32, tc32),
                                ((8, 320), torch.bfloat16, bf16),
                                ((2, 200), torch.float32, tc32),
                                ((2, 198), torch.float32, tc32)]:
@@ -405,7 +450,10 @@ def phase_blocks(torch) -> None:
     for mode, m, k in [("syrk", 960, 2560), ("syrk", 960, 960),
                        ("syrk", 320, 960), ("symmul", 960, 960),
                        ("gram_poly", 960, 960), ("symmul", 320, 320),
-                       ("gram_poly", 320, 320)]:
+                       ("gram_poly", 320, 320), ("syrk", 240, 2560),
+                       ("syrk", 240, 960), ("syrk", 80, 960),
+                       ("symmul", 240, 240), ("gram_poly", 240, 240),
+                       ("symmul", 80, 80), ("gram_poly", 80, 80)]:
         ms = {f"{bm}x{bk}": autotune.measure_cuda(mode, bm, bk, m, k,
                                                   "float32", batch=32)
               for bm, bk in autotune.candidate_blocks(mode, m, k)}
@@ -418,6 +466,7 @@ def phase_blocks(torch) -> None:
 # ----------------------------------------------------------------- gram ns
 
 def phase_gram_ns(torch) -> None:
+    from repro_torch.core import gram_ns
     from repro_torch.core.gram_ns import GramNSConfig, gram_newton_schulz
     from repro_torch.core.newton_schulz import newton_schulz
 
@@ -439,19 +488,48 @@ def phase_gram_ns(torch) -> None:
               "kernel_ms": time_ms(kern, reps=5, warmup=1),
               "plain_ms": time_ms(plain, reps=5, warmup=1)})
 
+    # X₀ = X / ‖X‖_F by one reduction per matrix (batch-invariant) against
+    # one batched vector_norm of the stack, the formula it replaced; at the
+    # main path's group shapes, 7 groups a step: 2 + 2 + 3 of these
+    cfg = GramNSConfig()
+    for m, n in [(960, 2560), (960, 960), (320, 960)]:
+        x = torch.randn(32, m, n, generator=gen, device="cuda")
+        new = lambda x=x: gram_ns.normalize(x, cfg)  # noqa: E731
+        old = lambda x=x: x / (torch.linalg.vector_norm(  # noqa: E731
+            x, dim=(-2, -1), keepdim=True, dtype=torch.float32) + 1e-7)
+        emit({"phase": "gram_ns", "check": "normalize", "shape": [32, m, n],
+              "per_matrix_ms": time_ms(new), "batched_ms": time_ms(old),
+              "per_matrix_wall_ms": wall_ms(new),
+              "batched_wall_ms": wall_ms(old),
+              "max_abs_diff": max_abs_err(new(), old())})
+
 
 # ------------------------------------------------------------------- train
 
+def expected_launches(variant: str, mode: str, step: int,
+                      knobs: dict) -> dict:
+    """Kernel launches of one train step: ``LAUNCHES_PER_STEP`` for every
+    Gram NS variant in owner mode (Dion2 runs the same iteration on its
+    factors), none on MuonBP's reuse steps (one plain matmul), none for
+    AdamW or the gather baseline (full-matrix NS, no kernel)."""
+    none = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+    if variant == "adamw" or mode != "owner":
+        return none
+    if variant == "muonbp" and step % knobs.get("muonbp_period", 4):
+        return none
+    return dict(LAUNCHES_PER_STEP)
+
+
 def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
-              capture: bool = False) -> dict:
+              capture: bool = False, knobs: dict | None = None) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on)
-    ``TRAIN_STEPS`` steps with ``variant`` / ``mode``, under ``mesh`` when
-    given (each rank on its rows of the batch).  The launch counters are
-    set to 0 before each step and read after it: Muon in owner mode must
-    launch exactly ``LAUNCHES_PER_STEP`` a step, anything else none.
-    Returns losses, times (synchronised host clock around each step and
-    around ``opt.update``), launches, peak memory and, with ``capture``,
-    the first step's updates (this rank's parts)."""
+    ``TRAIN_STEPS`` steps with ``variant`` / ``mode`` and the MuonConfig
+    fields ``knobs``, under ``mesh`` when given (each rank on its rows of
+    the batch).  The launch counters are set to 0 before each step and read
+    after it, and must equal ``expected_launches``.  Returns losses, times
+    (synchronised host clock around each step and around ``opt.update``),
+    launches, peak memory, the plan and the model config and, with
+    ``capture``, the first step's updates (this rank's parts)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
@@ -466,9 +544,10 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     cfg = configs.get("smollm-360m")
     plan = api.dedicate_params(transformer.init(cfg, device="meta"),
                                mesh=mesh)
+    knobs = knobs or {}
     opt = api.Muon(plan, mesh, config=MuonConfig(
         variant=variant, mode=mode, pipeline="fused",
-        ns=GramNSConfig(use_kernels=True)), device="cuda")
+        ns=GramNSConfig(use_kernels=True), **knobs), device="cuda")
     state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
     step = make_train_step(cfg, opt, mesh, device="cuda")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
@@ -511,18 +590,19 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     for p, v in tree.flatten(state.params):
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{tag}: parameter {p} is not finite")
-    want = LAUNCHES_PER_STEP if (variant, mode) == ("muon", "owner") else \
-        dict.fromkeys(LAUNCHES_PER_STEP, 0)
     for i, got in enumerate(launches):
+        want = expected_launches(variant, mode, i, knobs)
         if got != want:
             raise AssertionError(f"{tag} step {i}: kernel launches {got}, "
                                  f"expected {want}")
     return {"arch": cfg.name, "params": cfg.param_count(),
             "seq_len": dcfg.seq_len, "global_batch": dcfg.global_batch,
             "loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
-            "launches": {k: sum(d[k] for d in launches) for k in want},
+            "launches": {k: sum(d[k] for d in launches)
+                         for k in LAUNCHES_PER_STEP},
+            "launches_by_step": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "first_updates": first}
+            "first_updates": first, "plan": plan, "cfg": cfg}
 
 
 def phase_train(torch, variant: str) -> dict:
@@ -540,6 +620,166 @@ def phase_train(torch, variant: str) -> dict:
           "launches_per_step": {k: v // TRAIN_STEPS
                                 for k, v in launches.items()}})
     return run
+
+
+def adamuon_vs_o(got: dict, want: dict, o_got: dict, o_want: dict,
+                 gate: float) -> dict:
+    """AdaMuon's first update maps each entry o of the orthogonalized update
+    to about sign(o) (v = (1 − β₂)o², bias correction 1 − β₂), so an entry
+    carries o's *relative* difference between two paths into its own.
+    With ``o_got`` / ``o_want`` plain Muon's updates on the same gradients
+    (u = −lr·s·o) and rho an entry's relative difference of o, every entry
+    must be within gate · max|update| + min(2·rho, 2) · max(|got|, |want|):
+    at most a sign flip, or, where |o| is near eps = 1e-8, the step from
+    o/eps to ±1.  Returns the counts and largest differences of the entries
+    whose o agrees within ``gate`` ("held") and of the others."""
+    import torch
+    top = max(float(v.float().abs().max()) for v in want.values())
+    allow = gate * top
+    held_d = other_d = 0.0
+    n_other = n_all = 0
+    bad = []
+    for p, w in want.items():
+        g, w = got[p].float(), w.float()
+        d = (g - w).abs()
+        rho = torch.zeros_like(w)
+        if p in o_want:
+            oa, ob = o_got[p].float(), o_want[p].float()
+            rho = torch.where(ob == 0, torch.full_like(ob, math.inf),
+                              (oa - ob).abs() / ob.abs())
+        bound = allow + torch.clamp(2 * rho, max=2.0) * \
+            torch.maximum(g.abs(), w.abs())
+        if bool((d > bound).any()):
+            bad.append(p)
+        held = rho <= gate
+        n_all += w.numel()
+        n_other += int((~held).sum())
+        held_d = max(held_d, float(d[held].max()) if held.any() else 0.0)
+        other_d = max(other_d, float(d[~held].max()) if (~held).any()
+                      else 0.0)
+    return {"max_abs_update": top, "allowance": allow,
+            "held_max_abs_diff": held_d, "excepted": n_other,
+            "entries": n_all, "excepted_max_abs_diff": other_d,
+            "outside": bad}
+
+
+def one_ulp_up(torch, t, gen):
+    """``t`` with a random half of its entries moved one ulp up."""
+    half = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+    return torch.where(half, torch.nextafter(t, torch.full_like(t, math.inf)),
+                       t)
+
+
+def phase_variants(torch) -> None:
+    """Muon (the baseline) and each stateful variant train full-width
+    smollm-360m like the train phase (launches asserted per step by
+    ``train_run``).  Then, on the first step's gradients (seed-0
+    parameters, batch 0), each variant's update with the kernels is held
+    against the same variant's with the plain Gram NS (``use_kernels=
+    False``).  The gate is calibrated on the plain path itself: max|Δ| at
+    most ``VARIANT_SPREAD`` times what one ulp on half the gradients moves
+    the plain update, and the plain path with one TF32 pass per product
+    (``allow_tf32``) at least ``VARIANT_SPREAD`` times outside that gate,
+    so the gate tells TF32 from fp32.  AdaMuon, whose first step turns
+    each entry into about sign(o), is held by ``adamuon_vs_o``.  Dion2's
+    batched QR is timed at its (32, m, r) shapes."""
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import transformer
+    from repro_torch.train.step import make_loss_fn
+
+    runs = {"muon": {}, **VARIANT_RUNS}
+    lines = {}
+    for variant, knobs in runs.items():
+        torch.cuda.empty_cache()
+        run = train_run(torch, variant, knobs=knobs)
+        lines[variant] = {
+            "phase": "variants", "variant": variant, "knobs": knobs,
+            "arch": run["arch"], "steps": TRAIN_STEPS,
+            "loss_ema": run["loss_ema"], "step_ms": run["step_ms"],
+            "optimizer_ms": run["optimizer_ms"],
+            "peak_mem_gb": run["peak_mem_gb"],
+            "launches_by_step": run["launches_by_step"]}
+        plan, cfg = run["plan"], run["cfg"]
+        del run
+    torch.cuda.empty_cache()
+
+    # the first step's gradients, as train_run's first step computes them
+    params = transformer.init(cfg, seed=0, device="cuda")
+    leaves = [v.requires_grad_(True) for _, v in tree.flatten(params)]
+    batch = batch_for_step(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                      global_batch=8), 0, device="cuda")
+    grads = torch.autograd.grad(make_loss_fn(cfg)(params, batch), leaves)
+    grads = tree.rebuild(params, dict(zip(
+        (p for p, _ in tree.flatten(params)), grads)))
+    gen = torch.Generator("cuda").manual_seed(5)
+    grads_ulp = tree.tree_map(lambda g: one_ulp_up(torch, g, gen), grads)
+    params = tree.tree_map(lambda v: v.detach(), params)
+
+    def update(variant, knobs, use_kernels, g=grads, tf32=False):
+        opt = api.Muon(plan, config=MuonConfig(
+            variant=variant, mode="owner", pipeline="fused",
+            ns=GramNSConfig(use_kernels=use_kernels), **knobs),
+            device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            u, _ = opt.update(g, opt.init(params), params)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return dict(tree.flatten(u))
+
+    failures = []
+    for variant, knobs in runs.items():
+        line = lines[variant]
+        u_kern = update(variant, knobs, True)
+        u_plain = update(variant, knobs, False)
+        if variant == "adamuon":
+            matrices = set(plan.leaves)
+            o_kern, o_plain = (
+                {p: v for p, v in update("muon", {}, k).items()
+                 if p in matrices} for k in (True, False))
+            cmp = adamuon_vs_o(u_kern, u_plain, o_kern, o_plain,
+                               VARIANT_GATE)
+            ok = not cmp["outside"]
+            line.update({f"step1_{k}": v for k, v in cmp.items()})
+            why = f"entries beyond what o explains in {cmp['outside']}"
+        else:
+            d, top, same = max_diff(u_kern, u_plain)
+            spread = max_diff(update(variant, knobs, False, grads_ulp),
+                              u_plain)[0]
+            tf32 = max_diff(update(variant, knobs, False, tf32=True),
+                            u_plain)[0]
+            ok = d <= VARIANT_SPREAD * spread and \
+                tf32 >= VARIANT_SPREAD * VARIANT_SPREAD * spread
+            line.update({"step1_kernel_vs_plain_max_abs_diff": d,
+                         "step1_max_abs_update": top, "bitwise": same,
+                         "step1_plain_one_ulp_spread": spread,
+                         "step1_plain_tf32_max_abs_diff": tf32,
+                         "spread_factor": VARIANT_SPREAD,
+                         "kernel_over_spread": d / spread if spread else None,
+                         "tf32_over_gate": tf32 / (VARIANT_SPREAD * spread)
+                         if spread else None,
+                         "kernel_vs_plain_over_max_update": d / top})
+            why = (f"kernel vs plain {d:.3e}, one-ulp spread {spread:.3e}, "
+                   f"one TF32 pass {tf32:.3e}")
+        emit({**line, "ok": ok})
+        if not ok:
+            failures.append(f"{variant}: {why}")
+        del u_kern, u_plain
+
+    qr = {}
+    for b, m, r in [(32, 960, 240), (32, 320, 80)]:
+        z = torch.randn(b, m, r, generator=gen, device="cuda")
+        qr[f"{b}x{m}x{r}"] = {"ms": time_ms(lambda z=z: torch.linalg.qr(z)),
+                              "wall_ms": wall_ms(
+                                  lambda z=z: torch.linalg.qr(z))}
+    emit({"phase": "variants", "check": "dion2_qr",
+          "calls_per_step": {"32x960x240": 5, "32x320x80": 2}, "qr": qr})
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 # -------------------------------------------------------------------- mesh
@@ -716,7 +956,7 @@ def batch_invariance(torch, rows: int) -> None:
         x = torch.randn(32, m, n, generator=gen, device="cuda")
         stages = {}
         for tag, xs in [("part", x[:rows]), ("whole", x)]:
-            x0 = gram_ns._normalize(xs, cfg)
+            x0 = gram_ns.normalize(xs, cfg)
             g = gram_ns._ops(cfg)[0](x0)
             q = gram_ns.gram_iterate(g, cfg)
             stages[tag] = {"normalize": x0, "syrk": g, "iterate": q,
@@ -844,6 +1084,8 @@ def main() -> int:
     if "adamw" in phases:
         torch.cuda.empty_cache()
         phase_train(torch, "adamw")
+    if "variants" in phases:
+        phase_variants(torch)
     if "mesh" in phases:
         phase_mesh(torch, train_losses)
 

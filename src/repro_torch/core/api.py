@@ -14,14 +14,32 @@ Under it a gradient is a ``DTensor`` in its training layout (``Partial``
 for data parallelism) or a plain tensor (replicated), and the state holds
 each rank's own part (``core/muon.py``).
 
-Variant registry: ``muon`` (owner-centric Muon, batched Gram NS) and
-``adamw`` (elementwise baseline).  The reference's normuon, muonbp, dion2 and
-adamuon wait for ROADMAP item 7.
+Variant registry
+----------------
+``MuonConfig.variant`` selects a named optimizer variant; all but AdamW
+share the owner-layout pipeline (``core/owner_comms.py``) and differ only in
+the orthogonalizer backend (``core/orthogonalize.py``) and its per-group
+state:
+
+    muon     — plain orthogonalized updates (the paper's optimizer)
+    normuon  — NorMuon: neuron-wise second-moment normalization of the
+               orthogonalized update
+    muonbp   — MuonBP: full NS refresh every ``muonbp_period`` steps, the
+               cached polar map in between
+    dion2    — Dion2: Gram NS on a warm-started rank-r factor only
+               (``dion2_rank_frac``), the full update reconstructed
+    adamuon  — AdaMuon: elementwise second-moment adaptation of the
+               orthogonalized update, norm-preserving
+    adamw    — elementwise AdamW baseline
+
+``register_variant`` plugs in further backends.  The bucketed pipeline and
+``update_staged`` wait for ROADMAP item 7.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -30,6 +48,7 @@ from repro_torch.core.dedication import DedicationPlan, default_muon_predicate
 from repro_torch.core.gram_ns import GramNSConfig
 from repro_torch.core.muon import (AdamWState, MuonConfig, MuonState,
                                    _resolve, muon_init, muon_update)
+from repro_torch.core.orthogonalize import dion2_rank
 from repro_torch.core.update_rules import VariantSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import axis_sizes
@@ -40,7 +59,6 @@ __all__ = ["dedicate_params", "Muon", "MuonConfig", "GramNSConfig",
 
 
 VARIANTS: Dict[str, VariantSpec] = {}
-PENDING_VARIANTS = ("adamuon", "dion2", "muonbp", "normuon")
 
 
 def register_variant(spec: VariantSpec, *, overwrite: bool = False) -> None:
@@ -54,9 +72,6 @@ def get_variant(name: str) -> VariantSpec:
     try:
         return VARIANTS[name]
     except KeyError:
-        if name in PENDING_VARIANTS:
-            raise ValueError(f"variant {name!r} is not ported yet "
-                             "(ROADMAP item 7)") from None
         raise ValueError(
             f"unknown variant {name!r}; known: {sorted(VARIANTS)}") from None
 
@@ -65,6 +80,20 @@ register_variant(VariantSpec(
     "muon", orthogonalizer="auto",
     description="owner-centric Muon: batched Gram NS (bucket-fused when "
                 "GramNSConfig.bucket_fusion)"))
+register_variant(VariantSpec(
+    "normuon", orthogonalizer="normuon", stateful=True,
+    description="Muon + NorMuon neuron-wise second-moment normalization"))
+register_variant(VariantSpec(
+    "muonbp", orthogonalizer="block_periodic", stateful=True,
+    description="Muon with block-periodic NS refresh (MuonBP)"))
+register_variant(VariantSpec(
+    "dion2", orthogonalizer="dion2", stateful=True,
+    description="Dion2: batched Gram NS on a warm-started rank-r factor "
+                "only (dion2_rank_frac), full update reconstructed"))
+register_variant(VariantSpec(
+    "adamuon", orthogonalizer="adamuon", stateful=True,
+    description="AdaMuon: elementwise second-moment adaptation of the "
+                "orthogonalized update, norm-preserving"))
 register_variant(VariantSpec(
     "adamw", orthogonalizer="none", elementwise=True,
     description="elementwise AdamW baseline (no matrix pipeline)"))
@@ -114,10 +143,14 @@ class Muon:
         self.config = cfg
         if cfg.autotune_prewarm and not spec.elementwise:
             # Parameter shapes are fixed for the whole run, so score every
-            # kernel shape of the plan once, at init, into the cache.
+            # kernel shape of the plan once, at init, into the cache.  Dion2
+            # runs the kernels on its r×n factors.
             from repro_torch.kernels.autotune import device_arch, prewarm_plan
+            gram_dim = None
+            if spec.orthogonalizer == "dion2":
+                gram_dim = functools.partial(dion2_rank, cfg=cfg)
             prewarm_plan(plan, dtypes=(cfg.ns.compute_dtype,),
-                         arch=device_arch(self.device))
+                         arch=device_arch(self.device), gram_dim=gram_dim)
 
     @property
     def variant(self) -> VariantSpec:

@@ -80,13 +80,24 @@ def _rect_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def _normalize(x: torch.Tensor, cfg: GramNSConfig) -> torch.Tensor:
-    # Frobenius norm accumulated in fp32 without an fp32 copy of x: the cast
-    # fuses into the reduction.
-    norm = torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True,
-                                    dtype=torch.float32)
+def frobenius_norm(x: torch.Tensor) -> torch.Tensor:
+    """fp32 Frobenius norm of each matrix of ``x`` (..., r, c), shaped
+    (..., 1, 1), by one reduction per matrix.  A batched reduction picks its
+    split of the work (and so its order of summation) by how many outputs
+    it has, so a matrix's norm would depend on how many matrices the call
+    holds: on an H100, 8 of 32 matrices came out 1 ulp apart alone and in
+    the batch.  One matrix per reduction fixes the layout the order follows.
+    The fp32 cast fuses into the reduction (no fp32 copy of x)."""
+    mats = x.reshape((-1,) + tuple(x.shape[-2:]))
+    norms = torch.stack([torch.linalg.vector_norm(a, dtype=torch.float32)
+                         for a in mats])
+    return norms.reshape(tuple(x.shape[:-2]) + (1, 1))
+
+
+def normalize(x: torch.Tensor, cfg: GramNSConfig) -> torch.Tensor:
+    """X₀ = X / (‖X‖_F + eps) per matrix, in ``cfg.compute_dtype``."""
     cdtype = as_dtype(cfg.compute_dtype)
-    return x.to(cdtype) / (norm + _EPS).to(cdtype)
+    return x.to(cdtype) / (frobenius_norm(x) + _EPS).to(cdtype)
 
 
 def gram_newton_schulz(
@@ -107,7 +118,7 @@ def gram_newton_schulz(
     if not assume_short_fat and m.shape[-2] > m.shape[-1]:
         x, transposed = x.mT, True
 
-    x0 = _normalize(x, cfg)
+    x0 = normalize(x, cfg)
     syrk, _, _ = _ops(cfg)
     q = gram_iterate(syrk(x0), cfg)                # G₀ = X₀X₀ᵀ, then Q_k
     out = _rect_dot(q, x0)                         # X_k = Q_k X₀
@@ -119,7 +130,7 @@ def gram_newton_schulz(
 def gram_prepare(m: torch.Tensor, cfg: GramNSConfig):
     """Phase 1: normalize + initial Gram.  m: (..., r, c) with r <= c.
     Returns (x0, G) — G is (..., r, r)."""
-    x0 = _normalize(m, cfg)
+    x0 = normalize(m, cfg)
     syrk, _, _ = _ops(cfg)
     return x0, syrk(x0)
 

@@ -22,6 +22,13 @@ parameter's local part.  Updates come back as the gradients went in: a
 ``DTensor`` in the gradient's training layout (``Partial`` replicated), or
 a plain tensor.
 
+Variants (``MuonConfig.variant``; registry in ``core/api.py``): ``muon``,
+``normuon``, ``muonbp``, ``dion2``, ``adamuon``, ``adamw``.  All but AdamW
+share the owner pipeline and differ only in the orthogonalizer backend and
+its per-group state, threaded through ``MuonState.variant_state`` (this
+rank's owner rows, like the momentum); the gather baseline runs ``muon``
+only.
+
 Non-matrix parameters always take AdamW (Alg. 1 line 16).  For
 variant='muon' all modes produce identical updates up to NS rounding.
 
@@ -63,9 +70,13 @@ class MuonConfig:
     # 'spectral' = sqrt(max(1, m/n)), 'none' = 1.0
     scale_mode: str = "match_rms_adam"
     mode: str = "owner"                  # 'owner' | 'gather' | 'adamw'
-    # optimizer variant by name (registry in core/api.py): 'muon', 'adamw';
-    # the reference's normuon / muonbp / dion2 / adamuon wait for ROADMAP
-    # item 7
+    # optimizer variant by name (registry in core/api.py):
+    #   'muon'    — plain orthogonalized updates (the paper's optimizer)
+    #   'normuon' — + neuron-wise second-moment normalization (NorMuon)
+    #   'muonbp'  — block-periodic NS refresh every `muonbp_period` steps
+    #   'dion2'   — Gram NS on a warm-started rank-r factor only (Dion2)
+    #   'adamuon' — + elementwise second-moment adaptation (AdaMuon)
+    #   'adamw'   — elementwise baseline (equivalent to mode='adamw')
     variant: str = "muon"
     # 'fused': pack all → NS all → publish all.  'bucketed' waits for
     # ROADMAP item 7.
@@ -85,12 +96,14 @@ class MuonConfig:
     adam_weight_decay: float = 0.0
     # reduce matrix gradients in bf16 with an fp32 error-feedback residual
     compress_grads: bool = False
-    # variant knobs of the reference, kept so configs carry over
-    normuon_beta2: float = 0.95
+    # variant knobs
+    normuon_beta2: float = 0.95          # NorMuon neuron second-moment decay
     normuon_eps: float = 1e-8
-    muonbp_period: int = 4
+    muonbp_period: int = 4               # full-NS refresh period (1 = every step)
+    # Dion2: rank fraction r/m of the factor the Gram NS runs on (1.0 =
+    # full rank; the update then matches plain muon up to rounding)
     dion2_rank_frac: float = 0.25
-    adamuon_beta2: float = 0.95
+    adamuon_beta2: float = 0.95          # AdaMuon entry second-moment decay
     adamuon_eps: float = 1e-8
 
 
@@ -101,6 +114,10 @@ def _resolve(cfg: MuonConfig):
     mode = "adamw" if spec.elementwise else cfg.mode
     if mode not in ("owner", "gather", "adamw"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
+    if cfg.mode == "gather" and not spec.elementwise and spec.name != "muon":
+        raise ValueError(
+            f"variant {spec.name!r} requires the owner pipeline "
+            "(mode='owner'); the gather baseline only supports 'muon'")
     if cfg.pipeline == "bucketed":
         raise ValueError("pipeline='bucketed' is not ported yet "
                          "(ROADMAP item 7); use pipeline='fused'")
@@ -132,7 +149,9 @@ class MuonState(NamedTuple):
     momentum: Any
     adamw: AdamWState            # state for non-matrix leaves
     error_feedback: Any = None   # fp32 residual for compressed grad transpose
-    variant_state: Any = None    # per-variant state (none for 'muon')
+    # per-variant orthogonalizer state of owner-major buffers (this rank's
+    # rows), e.g. NorMuon's neuron-wise second moments; None for 'muon'
+    variant_state: Any = None
 
 
 def _matrix_and_rest(plan: DedicationPlan, t):
@@ -175,9 +194,13 @@ def muon_init(plan: DedicationPlan, params, cfg: MuonConfig, mesh=None,
     matrix, _ = _split(layout, matrix)
     rest, _ = _split(layout, rest)
     mdt = as_dtype(cfg.momentum_dtype)
+    variant_state = None
     if mode == "owner":
         momentum = {group_key_str(key): layout.zeros(key, mdt)
                     for key in plan.groups}
+        if spec.stateful:
+            variant_state = make_orthogonalizer(
+                spec.orthogonalizer, cfg).init_state(layout, cfg)
     elif mode == "gather":
         momentum = {p: torch.zeros(v.shape, dtype=mdt, device=v.device)
                     for p, v in matrix.items()}
@@ -189,7 +212,7 @@ def muon_init(plan: DedicationPlan, params, cfg: MuonConfig, mesh=None,
         ef = {p: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
               for p, v in matrix.items()}
     return MuonState(step=0, momentum=momentum, adamw=adamw_init(rest),
-                     error_feedback=ef, variant_state=None)
+                     error_feedback=ef, variant_state=variant_state)
 
 
 @torch.no_grad()
@@ -213,30 +236,30 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
 
     adam_updates, adamw_state = adamw_update(gr_local, state.adamw, pr_local,
                                              state.step, cfg)
+    new_ef, new_vstate = state.error_feedback, state.variant_state
     if mode == "owner":
-        matrix_updates, new_momentum, new_ef = _owner_update(
+        matrix_updates, new_momentum, new_ef, new_vstate = _owner_update(
             plan, gm_local, gm_pl, pm_local, state, cfg, layout, spec)
     elif mode == "gather":
         matrix_updates, new_momentum = _gather_update(
             plan, gm_local, gm_pl, pm_local, state, cfg, layout)
-        new_ef = state.error_feedback
     else:
         matrix_updates, new_momentum = {}, state.momentum
-        new_ef = state.error_feedback
     updates = {p: _like(g, matrix_updates[p], gm_pl[p], mesh)
                for p, g in gm.items()}
     updates.update({p: _like(g, adam_updates[p], gr_pl[p], mesh)
                     for p, g in gr.items()})
     return tree.rebuild(grads, updates), MuonState(
-        state.step + 1, new_momentum, adamw_state, new_ef,
-        state.variant_state)
+        state.step + 1, new_momentum, adamw_state, new_ef, new_vstate)
 
 
 def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
                   cfg: MuonConfig, layout: OwnerLayout, spec):
     """DMuon path: pack (reduce-to-owner) → momentum → orthogonalize on the
-    local owner rows → unpack (publish) + scale/wd/lr.  Alg. 1 lines 10–15.
-    ``gm`` / ``pm`` hold local parts, ``gm_pl`` the gradients' placements."""
+    local owner rows by the variant's backend → unpack (publish) +
+    scale/wd/lr.  Alg. 1 lines 10–15.  ``gm`` / ``pm`` hold local parts,
+    ``gm_pl`` the gradients' placements.  Returns (updates, momentum,
+    error feedback, variant state)."""
     if cfg.compress_grads and any(
             p.is_partial() for pl in gm_pl.values() if pl for p in pl):
         raise ValueError(
@@ -259,8 +282,9 @@ def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
         packed_mom[skey] = eff
 
     ortho_fn = make_orthogonalizer(spec.orthogonalizer, cfg)
-    ortho, _ = ortho_fn(packed_mom, step=state.step, state=state.variant_state,
-                        layout=layout, cfg=cfg)
+    ortho, new_vstate = ortho_fn(packed_mom, step=state.step,
+                                 state=state.variant_state, layout=layout,
+                                 cfg=cfg)
 
     matrix_updates: Dict[str, torch.Tensor] = {}
     for skey, o in ortho.items():
@@ -269,7 +293,7 @@ def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
         s = scale_factor(m, n, cfg.scale_mode)
         for p, upd in layout.unpack(key, o.to(pdt) * s, gm_pl).items():
             matrix_updates[p] = apply_wd_and_lr(upd, pm[p], cfg)
-    return matrix_updates, new_momentum, new_ef
+    return matrix_updates, new_momentum, new_ef, new_vstate
 
 
 def _gather_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,

@@ -327,12 +327,15 @@ class OwnerLayout:
         """Rows of group ``key``'s owner-major buffers on this rank."""
         return self.plan.groups[key].packed_size // self.shards
 
-    def zeros(self, key, dtype) -> torch.Tensor:
-        """Zero (cap, m, n) state buffer for group ``key``: this rank's owner
-        rows (all D·cap rows without a mesh)."""
-        g = self.plan.groups[key]
-        return torch.zeros((self.local_rows(key),) + g.key, dtype=dtype,
-                           device=self.device)
+    def zeros(self, key, dtype, trailing: Optional[tuple] = None
+              ) -> torch.Tensor:
+        """Zero state buffer for group ``key``: this rank's owner rows (all
+        D·cap rows without a mesh), each of shape ``trailing`` (default the
+        group's (m, n); a variant's state may be per row, (m,), or per
+        basis, (m, r))."""
+        shape = self.plan.groups[key].key if trailing is None else trailing
+        return torch.zeros((self.local_rows(key),) + tuple(shape),
+                           dtype=dtype, device=self.device)
 
     def split(self, leaf):
         """(local tensor, placements) of a training-layout leaf; placements

@@ -19,6 +19,8 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.gram_ns import frobenius_norm
+
 
 @dataclass(frozen=True)
 class VariantSpec:
@@ -47,6 +49,19 @@ def momentum_update(mom: torch.Tensor, grad: torch.Tensor, cfg):
     new_mom = cfg.momentum * mom + grad
     eff = grad + cfg.momentum * new_mom if cfg.nesterov else new_mom
     return new_mom, eff
+
+
+def norm_preserving_rescale(normalized: torch.Tensor, reference: torch.Tensor,
+                            eps: float = 1e-7) -> torch.Tensor:
+    """Rescale each matrix in ``normalized`` back to the Frobenius norm of
+    its ``reference`` counterpart (leading dims are batch): the epilogue of
+    the adaptive variants (NorMuon's per-neuron, AdaMuon's per-entry second
+    moments), which reshape the orthogonalized update but keep the
+    magnitude the RMS-matching scale rule expects.  The norms are taken one
+    matrix at a time (``gram_ns.frobenius_norm``), so a matrix's result does
+    not depend on how many share the call."""
+    return normalized * frobenius_norm(reference) / (
+        frobenius_norm(normalized) + eps)
 
 
 def apply_wd_and_lr(update: torch.Tensor, param: torch.Tensor, cfg) -> torch.Tensor:

@@ -32,7 +32,7 @@ import json
 import os
 import threading
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -256,12 +256,17 @@ def lookup(mode: str, m: int, k: int, dtype: str,
                 cache_path=cache_path, arch=arch)
 
 
-def plan_shapes(plan) -> list[tuple[str, int, int]]:
+def plan_shapes(plan, gram_dim: Optional[Callable[[int], int]] = None
+                ) -> list[tuple[str, int, int]]:
     """Every (mode, m, k) kernel launch a dedication plan can produce: one
-    m×n SYRK per group shape, ``gram_poly`` and ``symmul`` per Gram dim."""
+    SYRK per group shape, ``gram_poly`` and ``symmul`` per Gram dim.  The
+    Gram dim of an (m, n) group is m, or ``gram_dim(m)`` for a variant that
+    orthogonalizes a smaller factor (Dion2's r×n)."""
     shapes: set[tuple[str, int, int]] = set()
     for g in plan.groups.values():
         m, n = g.key
+        if gram_dim is not None:
+            m = gram_dim(m)
         shapes.add(("syrk", m, n))
         shapes.add(("gram_poly", m, m))
         shapes.add(("symmul", m, m))
@@ -269,13 +274,14 @@ def plan_shapes(plan) -> list[tuple[str, int, int]]:
 
 
 def prewarm_plan(plan, *, dtypes=("float32",), backend: str = "analytical",
-                 cache_path: Optional[str] = None, arch: str = "cpu") -> int:
-    """Pre-warm the cache for every kernel shape of a dedication plan, once,
-    at optimizer construction; cached shapes are skipped.  Returns the number
-    of entries covered (hit or newly tuned)."""
+                 cache_path: Optional[str] = None, arch: str = "cpu",
+                 gram_dim: Optional[Callable[[int], int]] = None) -> int:
+    """Pre-warm the cache for every kernel shape of a dedication plan
+    (``plan_shapes``), once, at optimizer construction; cached shapes are
+    skipped.  Returns the number of entries covered (hit or newly tuned)."""
     n = 0
     for dt in dtypes:
-        for mode, m, k in plan_shapes(plan):
+        for mode, m, k in plan_shapes(plan, gram_dim):
             if cached_entry(mode, m, k, str(dt), cache_path=cache_path,
                             arch=arch) is None:
                 tune(mode, m, k, str(dt), backend=backend,

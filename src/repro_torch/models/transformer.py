@@ -4,8 +4,11 @@
 Parameters are a nested dict of tensors laid out as the reference's pytree:
 per-layer leaves stacked ``(L, ...)`` under ``blocks``, linear weights
 ``(in, out)``.  The reference's ``lax.scan`` over the stacked blocks is a
-Python loop over ``w[l]``; its ``jax.checkpoint`` is
-``torch.utils.checkpoint`` (non-reentrant).  Other families (moe, hybrid,
+Python loop over the layers, each stacked leaf cut into its L layers once
+per forward (``unbind``: its backward stacks the L gradients once, where
+indexing ``w[l]`` per layer would zero-fill a full-size gradient of every
+leaf L times); its ``jax.checkpoint`` is ``torch.utils.checkpoint``
+(non-reentrant).  Other families (moe, hybrid,
 ssm, vlm, encoder-decoder) wait for ROADMAP item 9.
 """
 
@@ -123,9 +126,11 @@ def forward(cfg: ArchConfig, params: Params,
     x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
     S = x.shape[1]
     rope_cs = _rope_for(cfg, torch.arange(S, device=x.device))
-    blocks = params["blocks"]
+    paths, leaves = zip(*tree.flatten(params["blocks"]))
+    per_layer = [leaf.unbind(0) for leaf in leaves]
     for l in range(cfg.n_layers):
-        bp = tree.tree_map(lambda w: w[l], blocks)
+        bp = tree.rebuild(params["blocks"],
+                          {p: w[l] for p, w in zip(paths, per_layer)})
         body = functools.partial(_block_apply, cfg, bp, rope_cs=rope_cs)
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(body, x, use_reentrant=False)

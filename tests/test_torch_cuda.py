@@ -128,3 +128,30 @@ def test_fp32_syrk_counts_one_launch(cuda_device):
     reset_launches()
     ops.syrk(x)
     assert LAUNCHES == {"syrk": 1, "symmul": 0, "gram_poly": 0}
+
+
+@pytest.mark.parametrize("bm,bk", BLOCKS)
+@pytest.mark.parametrize("shape", [(4, 240, 2560), (4, 240, 960),
+                                   (4, 80, 960)])
+def test_fp32_syrk_dion2_factor_shapes(cuda_device, shape, bm, bk):
+    """Dion2's r×n factors (r = 240 and 80, not multiples of the 64-row
+    block) within the scaled gate."""
+    x = _heavy_rows(cuda_device, shape, seed=4)
+    _assert_scaled(syrk_lower(x, block_m=bm, block_k=bk),
+                   ref.mirror_lower(syrk_plain(x)))
+
+
+@pytest.mark.parametrize("bm,bk", BLOCKS)
+@pytest.mark.parametrize("m", [240, 80])
+def test_fp32_symmul_dion2_factor_shapes(cuda_device, m, bm, bk):
+    """symmul and gram_poly at Dion2's Gram dims within the scaled gate, on
+    O(1) products (G = X Xᵀ near I)."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    x = torch.randn(4, m, 2 * m, generator=gen, device=cuda_device)
+    g = ref.mirror_lower(syrk_plain(x / (2 * m) ** 0.5))
+    c = (8.287, -23.6, 17.3)
+    p = ref.mirror_lower(symmul_plain(g, g, epilogue="gram_poly", coeffs=c))
+    _assert_scaled(symmul_lower(p, g, block_m=bm, block_k=bk),
+                   ref.mirror_lower(symmul_plain(p, g)))
+    _assert_scaled(symmul_lower(g, g, epilogue="gram_poly", coeffs=c,
+                                block_m=bm, block_k=bk), p)

@@ -4,7 +4,15 @@ Both packages plan the same parameter shapes: the reduced smollm-360m from
 its JAX init (carried over as numpy) and the full smollm-360m shape census
 (JAX ``eval_shape`` vs the port's ``device="meta"`` init), for several owner
 counts and every strategy ``load_balance.assign`` accepts.
+
+Both packages' MILP solves run without their 10 s time limit here
+(``_solve_to_gap``): on the full census at 8 owners the solve needs about
+12 s alone and more beside other tests, so a clock could stop the two
+solves at different incumbents.  Each then ends at HiGHS's 2% relative gap,
+which it reaches by the same deterministic search in both.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +27,19 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core import api as tapi  # noqa: E402
 from repro_torch.core.owner_comms import pack_group, unpack_group  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
+
+# far above any solve's time: the relative gap ends every solve
+MILP_TIME_LIMIT_S = 3600.0
+
+
+@pytest.fixture(autouse=True)
+def _solve_to_gap(monkeypatch):
+    from repro.core import load_balance as jlb
+    from repro_torch.core import load_balance as tlb
+    for mod in (jlb, tlb):
+        monkeypatch.setattr(mod, "solve_milp", functools.partial(
+            mod.solve_milp, time_limit=MILP_TIME_LIMIT_S))
+
 
 STRATEGIES = ["load_balance", "greedy", "lpt", "round_robin", "rank0", "xor"]
 OWNERS = [1, 4, 8]

@@ -113,3 +113,18 @@ def test_tall_input_transposes():
 def test_flops_model_matches_reference():
     for args in [(960, 2560, 5, 32), (320, 960, 5, 32), (2560, 960, 3, 1)]:
         assert tgram.gram_ns_flops(*args) == jgram.gram_ns_flops(*args)
+
+
+@pytest.mark.parametrize("shape", [(32, 96, 256), (32, 32, 96)])
+def test_normalize_is_batch_invariant(shape):
+    """The first 8 matrices of a (32, m, n) stack normalize bit for bit as
+    they do alone (a rank holding 8 of 32 owner rows), and the norm is the
+    reference's sqrt(sum(x²)) within fp32 rounding."""
+    x = torch.from_numpy(_x(shape, seed=11))
+    cfg = tgram.GramNSConfig()
+    assert torch.equal(tgram.normalize(x, cfg)[:8],
+                       tgram.normalize(x[:8], cfg))
+    want = np.sqrt(np.sum(np.square(x.numpy().astype(np.float64)),
+                          axis=(-2, -1), keepdims=True))
+    np.testing.assert_allclose(tgram.frobenius_norm(x).numpy(), want,
+                               rtol=1e-6)

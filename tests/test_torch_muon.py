@@ -171,18 +171,11 @@ def test_state_dict_roundtrip():
 
 def test_unported_settings_raise_naming_roadmap():
     plan = tapi.dedicate_params(_to_torch(_tree()), num_owners=2)
-    for kw in ({"pipeline": "bucketed"}, {"variant": "normuon"},
-               {"variant": "dion2"}):
-        with pytest.raises(ValueError, match="ROADMAP item 7"):
-            tapi.Muon(plan, device="cpu", **kw)
+    with pytest.raises(ValueError, match="ROADMAP item 7"):
+        tapi.Muon(plan, device="cpu", pipeline="bucketed")
     opt = tapi.Muon(plan, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP item 7"):
         opt.update_staged({}, {}, None, None)
-    from repro_torch.core.orthogonalize import (known_orthogonalizers,
-                                                make_orthogonalizer)
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        make_orthogonalizer("normuon", opt.config)
-    assert "normuon" not in known_orthogonalizers()
     with pytest.raises(ValueError, match="unknown variant"):
         tapi.Muon(plan, device="cpu", variant="nope")
 

@@ -175,6 +175,64 @@ def test_remat_gradients_match_plain_backward():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _forward_sliced_per_layer(cfg, params, tokens):
+    """The forward as it was before the stacked leaves were unbound once:
+    every layer indexes each stacked leaf with ``w[l]``."""
+    import functools
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import layers as tlayers
+    x = tlayers.embed(params["embed"], tokens)
+    rope_cs = ttransformer._rope_for(cfg, torch.arange(x.shape[1]))
+    for l in range(cfg.n_layers):
+        bp = tree.tree_map(lambda w: w[l], params["blocks"])
+        body = functools.partial(ttransformer._block_apply, cfg, bp,
+                                 rope_cs=rope_cs)
+        x = checkpoint(body, x, use_reentrant=False) if cfg.remat else \
+            body(x)
+    x = tlayers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return tlayers.unembed(params.get("lm_head", params["embed"]), x)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_unbound_layers_give_bitwise_gradients_of_per_layer_slicing(remat):
+    """Unbinding each stacked block leaf once per forward changes no bit of
+    any parameter gradient against slicing ``w[l]`` on every layer."""
+    _, tcfg, _, tparams = _init(remat=remat)
+    batch = tpipeline.batch_for_step(_dcfg(tcfg), 0, device="cpu")
+    leaves = [v for _, v in tree.flatten(tparams)]
+    got = torch.autograd.grad(tstep.make_loss_fn(tcfg)(tparams, batch),
+                              leaves)
+    logits = _forward_sliced_per_layer(tcfg, tparams, batch["tokens"])
+    want = torch.autograd.grad(tstep.softmax_xent(logits, batch["labels"]),
+                               leaves)
+    for (p, _), a, b in zip(tree.flatten(tparams), got, want, strict=True):
+        assert torch.equal(a, b), p
+
+
+def test_no_select_backward_on_stacked_block_leaves():
+    """The backward graph reaches each stacked (L, ...) block leaf through
+    one UnbindBackward0, never through a per-layer SelectBackward0."""
+    _, tcfg, _, tparams = _init()
+    batch = tpipeline.batch_for_step(_dcfg(tcfg), 0, device="cpu")
+    loss = tstep.make_loss_fn(tcfg)(tparams, batch)
+    stacked = {id(v): p for p, v in tree.flatten(tparams["blocks"])}
+    feeders: dict = {}
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for child, _ in node.next_functions:
+            var = getattr(child, "variable", None)
+            if var is not None and id(var) in stacked:
+                feeders.setdefault(stacked[id(var)], set()).add(node.name())
+            todo.append(child)
+    assert set(feeders) == set(stacked.values())
+    for path, names in feeders.items():
+        assert names == {"UnbindBackward0"}, (path, names)
+
+
 def test_rope_and_chunked_attention_match_reference():
     """rope_freqs and the online-softmax attention path (taken when both
     sequence lengths exceed 1024) against the reference, 1e-4."""

@@ -7,14 +7,18 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --mesh 2,4 --out DIR
     python tests/torch_dist_check.py train --rank R --world W --port P \\
         --mesh 2,1 --out DIR
+    python tests/torch_dist_check.py variants --rank R --world W \\
+        --port P --mesh 2,2 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_dist_check.py jax --mesh 2,4 --out DIR
 
 ``owner`` is the twin of ``dist_check.py``'s checks 1–5 on a
 ("data", "model") mesh with its tree, gradients and tensor-parallel specs,
 plus the port's own invariants; ``train`` runs the data-parallel train step
-of the reduced smollm-360m; ``jax`` runs the reference's own multi-device
-owner update on an Auto-axis mesh.  Each writes ``rank<R>.npz`` and
+of the reduced smollm-360m; ``variants`` runs every stateful optimizer
+variant 3 steps on the mesh (and, on rank 0, in one process on the same
+plan); ``jax`` runs the reference's own multi-device owner update on an
+Auto-axis mesh.  Each writes ``rank<R>.npz`` and
 ``rank<R>.json`` (``jax.npz``) into DIR; the tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
 fails one test.
@@ -344,6 +348,76 @@ def train_rank(args) -> None:
     (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
 
 
+VARIANTS = ("normuon", "muonbp", "dion2", "adamuon")
+VARIANT_STEPS = 3
+
+
+def variants_rank(args) -> None:
+    """Each stateful variant (MuonBP with period 2: refresh, reuse,
+    refresh) 3 steps on the mesh from tensor-parallel, replicated and
+    ``Partial`` (data-parallel) gradients, a fresh gradient each step;
+    saves every step's update and this rank's variant-state rows after each
+    step.  Rank 0 also runs the same plan in one process."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.models.sharding import place, placements
+
+    mesh = _setup(args)
+    P = tree.tree_map(torch.from_numpy, dist_tree())
+    Pd = place(P, SPECS, mesh)
+    plan = api.dedicate_params(P, mesh=mesh, strategy="greedy")
+    base = MuonConfig(mode="owner", learning_rate=LR, momentum=MOMENTUM,
+                      muonbp_period=2, ns=GramNSConfig(num_steps=NS_STEPS))
+
+    def grads(t: int, kind: str):
+        G = tree.tree_map(torch.from_numpy, dist_grads(1 + t))
+        if kind == "replicated":
+            return G
+        Gd = place(G, SPECS, mesh)
+        if kind == "tp":
+            return Gd
+        # every data rank holds the same part, so the average is exact
+        return tree.rebuild(G, {
+            p: DTensor.from_local(
+                g.to_local(), mesh,
+                (Partial("avg"),) + tuple(placements(SPECS[p], mesh))[1:],
+                run_check=False, shape=g.shape, stride=g.stride())
+            for p, g in tree.flatten(Gd)})
+
+    def run(variant, m, kind, params):
+        opt = api.Muon(plan, m, config=dataclasses.replace(
+            base, variant=variant), device="cpu")
+        state, out = opt.init(params), {}
+        for t in range(VARIANT_STEPS):
+            upd, state = opt.update(grads(t, kind), state, params)
+            out.update(_flat_np(f"{variant}/{kind}/upd{t}", upd))
+            out.update({f"{variant}/{kind}/state{t}/{p}": v.numpy()
+                        for p, v in tree.flatten(state.variant_state)})
+        return out
+
+    arrays = {}
+    for variant in VARIANTS:
+        for kind in ("tp", "replicated", "partial"):
+            arrays.update(run(variant, mesh, kind, Pd if kind != "replicated"
+                              else P))
+        if args.rank == 0:
+            single = run(variant, None, "replicated", P)
+            arrays.update({k.replace("/replicated/", "/nomesh/", 1): v
+                           for k, v in single.items()})
+    owner_index = 0
+    for i in range(mesh.ndim):
+        owner_index = owner_index * mesh.size(i) + mesh.get_local_rank(i)
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(
+        {"owner_index": owner_index, "num_owners": plan.num_owners}))
+
+
 def jax_reference(args) -> None:
     """The reference's owner update inside jit on an Auto-axis mesh (jax
     0.9's ``make_mesh`` default is Explicit axes, which its owner layout's
@@ -384,7 +458,7 @@ def jax_reference(args) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("owner", "train", "jax"))
+    ap.add_argument("mode", choices=("owner", "train", "variants", "jax"))
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--port", type=int, default=0)
@@ -399,7 +473,8 @@ def main() -> None:
         return
     import torch.distributed as dist
     try:
-        (owner_rank if args.mode == "owner" else train_rank)(args)
+        {"owner": owner_rank, "train": train_rank,
+         "variants": variants_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
