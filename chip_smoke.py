@@ -48,17 +48,44 @@ Phases, each printing one JSON line and asserting what it checks:
            >= 10x (AdaMuon, whose first step maps each entry to about
            sign(o): what o's relative difference explains, above 1e-4 ·
            max|update|).  Dion2's batched QR timed.
+  pipeline the bucketed schedule (``pipeline="bucketed"``), one card: 3
+           training steps bucketed, fused at ``accum_steps=2`` and bucketed
+           with prestaging at ``accum_steps=2`` (7 / 35 / 84 launches a
+           step), timed beside the train phase; one update from the same
+           full-width gradients bucketed and fused, and two saved microbatch
+           gradients accumulated prestaged and unstaged: bitwise equal.
   mesh     every visible card, one NCCL process each (spawned; they load
            the kernels the parent built), on a ("data", "model") =
            (cards, 1) mesh: one Muon update from the same full-width
            gradients with and without the mesh (bitwise on one card,
            1e-6 otherwise), the same gradients placed by ``param_specs``
-           on a (1, cards) mesh (NCCL all-to-alls; 1e-6), then the training
-           above under the mesh, data-parallel, by Muon (7 / 35 / 84
-           launches a step on every rank), Muon-AG (gather mode) and AdamW,
-           timed on every rank, and on rank 0 the same Muon training
-           without the mesh: losses within 1e-5 relative (also of the train
-           phase) and step 1's updates within 1e-4 · max|update|.
+           on a (1, cards) mesh (NCCL all-to-alls; 1e-6), on both meshes
+           the bucketed update bitwise equal to the fused one on every
+           rank, then the training above under the mesh, data-parallel, by
+           Muon (fused, bucketed, fused and bucketed-prestaged at
+           ``accum_steps=2``; 7 / 35 / 84 launches a step on every rank),
+           Muon-AG (gather mode) and AdamW, timed on every rank, with each
+           step's allocator calls and garbage collections.  On every rank
+           the bucketed training equals the fused one, and the prestaged
+           one its own run with every collective waited as issued,
+           bitwise (losses, first updates, last parameters); the
+           prestaged one is within rounding of the unstaged one (bitwise
+           on one card; on more, loss_ema within 1e-5, AdamW's first
+           updates bitwise, Muon's within 10x the one-ulp spread below,
+           the last parameters printed beside 5e-5).  On rank 0 the same
+           Muon training on one
+           card, of the whole batch and of the batch in ``cards``
+           microbatches (microbatch r = rank r's rows, checked): losses
+           within 1e-5 relative of the first (also of the train phase);
+           step 1's updates against it printed per leaf beside 1e-4 ·
+           max|update|; step 1 held against the second by ``step_gate``
+           (averaged gradients within the reordering bound of a sum over
+           the ranks, Muon updates within 10x the one-ulp spread, AdamW
+           entries within what their gradients explain), which the sum
+           where the mean belongs and a dropped rank must each miss by
+           >= 10x on more than one card.  ``--trace adamw,owner`` writes
+           ``torch.profiler`` traces of those mesh runs (rank 0) into
+           ``--trace-dir`` (default ``build/traces``).
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran), the nvidia-smi line (the first card's; the device line
@@ -71,6 +98,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -104,7 +133,7 @@ KERNELS = {
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "mesh")
+          "pipeline", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -520,16 +549,116 @@ def expected_launches(variant: str, mode: str, step: int,
     return dict(LAUNCHES_PER_STEP)
 
 
+def allocator_counts(torch) -> dict:
+    """The caching allocator's device calls and reserved bytes so far."""
+    st = torch.cuda.memory_stats()
+    return {"cuda_mallocs": st.get("num_device_alloc", 0),
+            "cuda_frees": st.get("num_device_free", 0),
+            "alloc_retries": st.get("num_alloc_retries", 0),
+            "reserved_gb": st.get("reserved_bytes.all.current", 0) / 1e9}
+
+
+class GcClock:
+    """Collections of Python's cyclic garbage collector and their host
+    time, per generation, since ``reset()`` (a ``gc.callbacks`` hook)."""
+
+    def __init__(self):
+        self.reset()
+        self._t0 = None
+
+    def reset(self) -> None:
+        self.counts, self.ms = [0, 0, 0], [0.0, 0.0, 0.0]
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            g = info["generation"]
+            self.counts[g] += 1
+            self.ms[g] += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def read(self) -> dict:
+        return {"collections": list(self.counts), "ms": list(self.ms)}
+
+
+def trace_summary(prof, steps: int, top: int = 8) -> list:
+    """Per step (a ``record_function`` range "step<i>"), the ``top`` ops by
+    self host time and by self device time, ms."""
+    events = list(prof.events())
+    out = []
+    for i in range(steps):
+        rng = next((e.time_range for e in events if e.name == f"step{i}"),
+                   None)
+        if rng is None:
+            out.append(None)
+            continue
+        host, dev = {}, {}
+        for e in events:
+            if e.name.startswith("step") or not (
+                    rng.start <= e.time_range.start <= rng.end):
+                continue
+            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+            dev[e.name] = dev.get(e.name, 0.0) + e.self_device_time_total
+        out.append({
+            "range_ms": (rng.end - rng.start) / 1e3,
+            "host_self_ms": {k: v / 1e3 for k, v in sorted(
+                host.items(), key=lambda kv: -kv[1])[:top]},
+            "device_self_ms": {k: v / 1e3 for k, v in sorted(
+                dev.items(), key=lambda kv: -kv[1])[:top] if v > 0},
+            "device_busy_ms": sum(dev.values()) / 1e3})
+    return out
+
+
+def capture_grads(grads, mesh) -> dict:
+    """{path: (mean gradient, sum over the ranks of |gradient|, this rank's
+    gradient)} of one step's gradients as the optimizer receives them: a
+    ``Partial`` ``DTensor``'s pending reduction done by
+    ``owner_comms.reduce_partial`` (a copy, ``all_reduce``, ``div_``), a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.core import tree
+    from repro_torch.core.owner_comms import reduce_partial
+    out = {}
+    for p, g in tree.flatten(grads):
+        if not isinstance(g, DTensor):
+            out[p] = (g.clone(), g.abs(), g.clone())
+            continue
+        local, pl = g.to_local(), g.placements
+        summed = [Partial("sum") if q.is_partial() else q for q in pl]
+        out[p] = (reduce_partial(local, pl, mesh),
+                  reduce_partial(local.abs(), summed, mesh), local.clone())
+    return out
+
+
 def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
-              capture: bool = False, knobs: dict | None = None) -> dict:
+              capture: bool | str = False, grads: bool = False,
+              knobs: dict | None = None,
+              trace: str | None = None, pipeline: str = "fused",
+              accum_steps: int = 1, prestage: bool | None = None,
+              steps: int = TRAIN_STEPS) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on)
-    ``TRAIN_STEPS`` steps with ``variant`` / ``mode`` and the MuonConfig
-    fields ``knobs``, under ``mesh`` when given (each rank on its rows of
-    the batch).  The launch counters are set to 0 before each step and read
-    after it, and must equal ``expected_launches``.  Returns losses, times
-    (synchronised host clock around each step and around ``opt.update``),
-    launches, peak memory, the plan and the model config and, with
-    ``capture``, the first step's updates (this rank's parts)."""
+    ``steps`` steps with ``variant`` / ``mode`` / ``pipeline`` and
+    the MuonConfig fields ``knobs``, under ``mesh`` when given (each rank
+    on its rows of the batch), in ``accum_steps`` microbatches, staged to
+    the owners per microbatch when ``prestage`` (``make_train_step``).  The
+    launch counters are set to 0 before each step and read after it, and
+    must equal ``expected_launches``.  Returns losses, times (synchronised
+    host clock around each step and around ``opt.update`` /
+    ``opt.update_staged``), launches, the caching allocator's device calls
+    and Python's garbage collections per step, peak memory, the plan and
+    the model config; with ``capture``, the first step's updates (this
+    rank's parts; kept on the card, or copied to the host with
+    ``capture="host"``) and the last step's parameters (on the host); with
+    ``grads``, the first step's gradients (``capture_grads``).  Like a
+    training launcher, it exempts what is alive before the steps (torch's
+    modules, this run's model, optimizer and state) from Python's cyclic
+    garbage collector for the timed steps (``gc.freeze``), and hands it
+    back after them (``gc.unfreeze``), so nothing of the run outlives it.
+    With ``trace`` (a file path) the steps run under ``torch.profiler``
+    (host and device), the Chrome trace is written there and a per-step
+    summary returned."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
@@ -546,43 +675,81 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
                                mesh=mesh)
     knobs = knobs or {}
     opt = api.Muon(plan, mesh, config=MuonConfig(
-        variant=variant, mode=mode, pipeline="fused",
+        variant=variant, mode=mode, pipeline=pipeline,
         ns=GramNSConfig(use_kernels=True), **knobs), device="cuda")
     state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
-    step = make_train_step(cfg, opt, mesh, device="cuda")
+    step = make_train_step(cfg, opt, mesh, accum_steps=accum_steps,
+                           prestage=prestage, device="cuda")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
 
     # time the optimizer transform inside the step (synchronised around it)
-    opt_ms, first = [], {}
-    update = opt.update
+    opt_ms, first, first_grads = [], {}, {}
 
-    def timed_update(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = update(*a, **kw)
-        torch.cuda.synchronize()
-        opt_ms.append((time.perf_counter() - t0) * 1e3)
-        if capture and not first:
-            first.update({p: (u.to_local() if isinstance(u, DTensor)
-                              else u).clone()
-                          for p, u in tree.flatten(out[0])})
-        return out
-    opt.update = timed_update
+    def keep(t):
+        return t.to("cpu") if capture == "host" else t.clone()
 
+    def timed(update, staged: bool):
+        def run(*a, **kw):
+            if grads and not staged and not first_grads:
+                first_grads.update(capture_grads(a[0], mesh))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = update(*a, **kw)
+            torch.cuda.synchronize()
+            opt_ms.append((time.perf_counter() - t0) * 1e3)
+            if capture and not first:
+                first.update({p: keep(u.to_local() if isinstance(u, DTensor)
+                                      else u)
+                              for p, u in tree.flatten(out[0])})
+            return out
+        return run
+    opt.update = timed(opt.update, False)
+    opt.update_staged = timed(opt.update_staged, True)
+
+    prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    gc.freeze()
     torch.cuda.reset_peak_memory_stats()
-    loss_ema, step_ms, launches = [], [], []
-    for i in range(TRAIN_STEPS):
+    loss_ema, step_ms, launches, allocator, collector = [], [], [], [], []
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    for i in range(steps):
         batch = batch_for_step(dcfg, i, device="cuda", mesh=mesh)
         torch.cuda.synchronize()
+        before = allocator_counts(torch)
+        gc_clock.reset()
         reset_launches()
         t0 = time.perf_counter()
-        state = step(state, batch)
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(f"step{i}"):
+            state = step(state, batch)
+            torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(dict(LAUNCHES))
         loss_ema.append(float(state.loss_ema))
+        after = allocator_counts(torch)
+        allocator.append({k: after[k] - before[k] if k != "reserved_gb"
+                          else after[k] for k in after})
+        collector.append(gc_clock.read())
+    gc.callbacks.remove(gc_clock)
+    gc.unfreeze()
+    # the timed wrappers close over ``opt``'s own methods: drop them, or the
+    # cycle keeps this run's captures alive until a full collection
+    del opt.update, opt.update_staged
+    traced = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        out = Path(trace)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        traced = {"file": str(out),
+                  "steps": trace_summary(prof, steps)}
 
-    tag = f"{variant}/{mode}" + ("" if mesh is None else " on the mesh")
+    tag = f"{variant}/{mode}/{pipeline}/accum {accum_steps}" + (
+        "" if mesh is None else " on the mesh")
     # the EMA is finite exactly when every step's loss so far is
     for i, loss in enumerate(loss_ema):
         if not math.isfinite(loss):
@@ -600,9 +767,14 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
             "launches": {k: sum(d[k] for d in launches)
                          for k in LAUNCHES_PER_STEP},
-            "launches_by_step": launches,
+            "launches_by_step": launches, "allocator_by_step": allocator,
+            "gc_by_step": collector,
+            "trace": traced,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "first_updates": first, "plan": plan, "cfg": cfg}
+            "first_updates": first, "first_grads": first_grads,
+            "final_params": {p: v.detach().to("cpu") for p, v in
+                             tree.flatten(state.params)} if capture else {},
+            "plan": plan, "cfg": cfg, "data": dcfg}
 
 
 def phase_train(torch, variant: str) -> dict:
@@ -616,6 +788,8 @@ def phase_train(torch, variant: str) -> dict:
           "global_batch": run["global_batch"], "steps": TRAIN_STEPS,
           "loss_ema": run["loss_ema"], "step_ms": run["step_ms"],
           "optimizer_ms": run["optimizer_ms"],
+          "allocator_by_step": run["allocator_by_step"],
+          "gc_by_step": run["gc_by_step"],
           "peak_mem_gb": run["peak_mem_gb"], "launches": launches,
           "launches_per_step": {k: v // TRAIN_STEPS
                                 for k, v in launches.items()}})
@@ -782,12 +956,156 @@ def phase_variants(torch) -> None:
         raise AssertionError("; ".join(failures))
 
 
+# ---------------------------------------------------------------- pipeline
+
+def microbatch_grads(torch, cfg, params, dcfg, parts: int) -> list:
+    """The first step's gradients (``params``, batch 0) of each of
+    ``parts`` microbatches, split as ``make_train_step`` splits them,
+    as {path: tensor} dicts."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.train.step import make_loss_fn
+    paths, leaves = zip(*tree.flatten(params))
+    batch = batch_for_step(dcfg, 0, device="cuda")
+    loss_fn = make_loss_fn(cfg)
+    out = []
+    for i in range(parts):
+        mb = {k: v.reshape((parts, -1) + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+        out.append(dict(zip(paths, torch.autograd.grad(loss_fn(params, mb),
+                                                       leaves))))
+    return out
+
+
+def phase_pipeline(torch, fused=None) -> None:
+    """The bucketed schedule on one card (no mesh), full-width smollm-360m:
+
+    1. 3 training steps each with ``pipeline="bucketed"``, with fused and
+       ``accum_steps=2``, and bucketed with prestaging forced on at
+       ``accum_steps=2`` (7 / 35 / 84 launches a step asserted by
+       ``train_run``), timed beside the train phase's fused run.
+    2. One update from the same full-width first-step gradients with
+       bucketed and with fused: bitwise equal, updates and momentum.
+    3. Two saved microbatch gradients accumulated unstaged (sum, 1/2,
+       ``opt.update``) and prestaged (``stage_in_all`` per microbatch, sum,
+       1/2, ``opt.update_staged``): bitwise equal."""
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.core.pipeline import BucketPipeline, wait_all
+    from repro_torch.models import transformer
+
+    base = None if fused is None else {
+        k: fused[k] for k in ("step_ms", "optimizer_ms", "peak_mem_gb")}
+    for name, kw in [("bucketed", dict(pipeline="bucketed")),
+                     ("fused_accum2", dict(accum_steps=2)),
+                     ("bucketed_prestaged_accum2",
+                      dict(pipeline="bucketed", accum_steps=2,
+                           prestage=True))]:
+        torch.cuda.empty_cache()
+        run = train_run(torch, "muon", **kw)
+        emit({"phase": "pipeline", "run": name, **kw,
+              "loss_ema": run["loss_ema"], "step_ms": run["step_ms"],
+              "optimizer_ms": run["optimizer_ms"],
+              "peak_mem_gb": run["peak_mem_gb"],
+              "gc_by_step": run["gc_by_step"],
+              "launches_per_step": {k: v // TRAIN_STEPS
+                                    for k, v in run["launches"].items()},
+              "train_phase_fused": base})
+        plan, cfg, dcfg = run["plan"], run["cfg"], run["data"]
+        del run
+    torch.cuda.empty_cache()
+
+    params = transformer.init(cfg, seed=0, device="cuda")
+    params = tree.tree_map(lambda v: v.requires_grad_(True), params)
+    g0, g1 = microbatch_grads(torch, cfg, params, dcfg, 2)
+    full = microbatch_grads(torch, cfg, params, dcfg, 1)[0]
+    params = tree.tree_map(lambda v: v.detach(), params)
+
+    def muon(pipeline):
+        return api.Muon(plan, config=MuonConfig(
+            variant="muon", mode="owner", pipeline=pipeline,
+            ns=GramNSConfig(use_kernels=True)), device="cuda")
+
+    def flat(t):
+        return dict(tree.flatten(t))
+
+    opt_f, opt_b = muon("fused"), muon("bucketed")
+    grads = tree.rebuild(params, full)
+    u_f, s_f = opt_f.update(grads, opt_f.init(params), params)
+    u_b, s_b = opt_b.update(grads, opt_b.init(params), params)
+    d, top, same = max_diff(flat(u_b), flat(u_f))
+    same_mom = all(torch.equal(s_b.momentum[k], v)
+                   for k, v in s_f.momentum.items())
+    del u_f, u_b, s_f, s_b, grads, full
+
+    # accumulation: unstaged (the train step's sum) and prestaged
+    acc = {p: torch.zeros_like(v, dtype=torch.float32) for p, v in g0.items()}
+    for g in (g0, g1):
+        for p, v in g.items():
+            acc[p] += v.float()
+    u_un, s_un = opt_b.update(tree.rebuild(params, {
+        p: v * 0.5 for p, v in acc.items()}), opt_b.init(params), params)
+    del acc
+    pipe = BucketPipeline(plan, opt_b.config, None, opt_b.variant,
+                          device="cuda")
+    staged = pipe.zeros_staged(torch.float32)
+    rest = {p: torch.zeros_like(v, dtype=torch.float32) for p, v in
+            g0.items() if p not in plan.leaves}
+    for g in (g0, g1):
+        for k, v in wait_all(pipe.stage_in_all(
+                {p: v for p, v in g.items() if p in plan.leaves},
+                dtype=torch.float32)).items():
+            staged[k] += v
+        for p in rest:
+            rest[p] += g[p].float()
+    u_st, s_st = opt_b.update_staged(
+        {k: v * 0.5 for k, v in staged.items()},
+        {p: v * 0.5 for p, v in rest.items()}, opt_b.init(params), params)
+    d_st, _, same_st = max_diff(flat(u_st), flat(u_un))
+    same_st_mom = all(torch.equal(s_st.momentum[k], v)
+                      for k, v in s_un.momentum.items())
+    emit({"phase": "pipeline", "check": "bitwise",
+          "bucketed_vs_fused": {"bitwise": same, "momentum_bitwise":
+                                same_mom, "max_abs_diff": d,
+                                "max_abs_update": top},
+          "prestaged_vs_unstaged_accum2": {
+              "bitwise": same_st, "momentum_bitwise": same_st_mom,
+              "max_abs_diff": d_st}})
+    if not (same and same_mom and same_st and same_st_mom):
+        raise AssertionError(
+            f"bucketed vs fused {d:.3e} (momentum {same_mom}), prestaged vs "
+            f"unstaged {d_st:.3e} (momentum {same_st_mom}): not bitwise")
+
+
 # -------------------------------------------------------------------- mesh
 
 MESH_TIMEOUT_S = 180           # every NCCL collective of the phase
+MESH_STEPS = 5                 # training steps of each mesh-phase run
+# (name, variant, mode, train_run keywords) of the mesh phase's training
+MESH_RUNS = [("owner", "muon", "owner", {}),
+             ("owner_bucketed", "muon", "owner", {"pipeline": "bucketed"}),
+             ("owner_accum2", "muon", "owner", {"accum_steps": 2}),
+             ("owner_bucketed_prestaged_accum2", "muon", "owner",
+              {"pipeline": "bucketed", "accum_steps": 2, "prestage": True}),
+             ("owner_bucketed_prestaged_accum2_sync", "muon", "owner",
+              {"pipeline": "bucketed", "accum_steps": 2, "prestage": True,
+               "knobs": {"pipeline_barriers": False}}),
+             ("gather", "muon", "gather", {}),
+             ("adamw", "adamw", "owner", {})]
+# (run, reference run) pairs of ``pipeline_pairs``, and its gates (the gloo
+# test's loss_ema gate; its parameter gate is printed)
+PIPELINE_PAIRS = [("owner_bucketed", "owner"),
+                  ("owner_bucketed_prestaged_accum2",
+                   "owner_bucketed_prestaged_accum2_sync"),
+                  ("owner_bucketed_prestaged_accum2", "owner_accum2")]
+PIPELINE_PAIRS_RUNS = {r for pair in PIPELINE_PAIRS for r in pair}
+PAIR_LOSS_ATOL, PAIR_PARAM_ATOL = 1e-5, 5e-5
 SAME_GRADIENT_GATE = 1e-6      # max|Δ| of one update, absolute
 LOSS_GATE = 1e-5               # relative, per step's loss_ema
-STEP_UPDATE_GATE = 1e-4        # max|Δ| <= 1e-4 · max|update|, all leaves
+STEP_UPDATE_GATE = 1e-4        # AdamW leaves' floor: 1e-4 · max|update|
+STEP_SPREAD = 10               # Muon leaves: 10x the one-ulp spread
+STEP_FAULT = 10                # a planted fault misses the step gate 10x
 
 
 def leaf_diffs(a: dict, b: dict) -> dict:
@@ -806,18 +1124,20 @@ def max_diff(a: dict, b: dict) -> tuple[float, float, bool]:
             all(r[2] for r in rows))
 
 
-def phase_mesh(torch, train_losses) -> None:
+def phase_mesh(torch, train_losses, trace: dict | None = None) -> None:
     """Every visible card, one NCCL rank each (spawned processes that load
     the kernels the parent built).  A rank that fails fails the run."""
     import torch.multiprocessing as mp
     from repro_torch.launch.mesh import free_port
     world = torch.cuda.device_count()
     torch.cuda.empty_cache()
-    mp.start_processes(mesh_rank, args=(world, free_port(), train_losses),
+    mp.start_processes(mesh_rank, args=(world, free_port(), train_losses,
+                                        trace),
                        nprocs=world, start_method="spawn", join=True)
 
 
-def mesh_rank(rank: int, world: int, port: int, train_losses) -> None:
+def mesh_rank(rank: int, world: int, port: int, train_losses,
+              trace: dict | None) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
 
@@ -834,11 +1154,12 @@ def mesh_rank(rank: int, world: int, port: int, train_losses) -> None:
     # on a failure the process exits without destroy_process_group, which
     # would wait for peers blocked in a collective; the parent then ends
     # every rank
-    mesh_checks(torch, dist, rank, world, train_losses)
+    mesh_checks(torch, dist, rank, world, train_losses, trace)
     dist.destroy_process_group()
 
 
-def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
+def mesh_checks(torch, dist, rank: int, world: int, train_losses,
+                trace: dict | None = None) -> None:
     """The ``mesh`` phase on one rank: a ("data", "model") = (world, 1) mesh
     (the owners are the ranks, the batch split over them).
 
@@ -847,11 +1168,18 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
        collectives of one rank are copies), max|Δ| <= 1e-6 otherwise.
     2. The same gradients placed by ``param_specs`` on a (1, world) mesh,
        so the owner transposes are NCCL all-to-alls: max|Δ| <= 1e-6 against
-       the update of 1.
-    3. Full-width smollm-360m trained 3 steps under the mesh by Muon (owner
-       mode, 7 / 35 / 84 launches a step on every rank), Muon-AG (gather
-       mode) and AdamW, timed on every rank; then, on rank 0 alone, the
-       same Muon training without the mesh (``train_vs_single``)."""
+       the update of 1.  On both meshes the bucketed pipeline's update
+       (its collectives overlapped on more than one rank) equals the fused
+       one bitwise on every rank.
+    3. Full-width smollm-360m trained ``MESH_STEPS`` steps under the mesh
+       by each of ``MESH_RUNS`` (owner mode: 7 / 35 / 84 launches a step on
+       every rank), timed on every rank; ``pipeline_pairs``: on every rank
+       bucketed equals fused and prestaged equals its run without overlap
+       bitwise, and prestaged is within rounding of unstaged.
+    4. On rank 0 alone, the same Muon training on one card, of the whole
+       batch and of the same batch in ``world`` microbatches, the step
+       gate, and the prestaged run's step-1 Muon updates against the
+       one-ulp spread (``train_vs_single``)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
@@ -868,8 +1196,9 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
     mcfg = MuonConfig(variant="muon", mode="owner", pipeline="fused",
                       ns=GramNSConfig(use_kernels=True))
 
-    def update(m, params, grads):
-        opt = api.Muon(api.dedicate_params(shapes, mesh=m), m, config=mcfg,
+    def update(m, params, grads, pipeline="fused"):
+        opt = api.Muon(api.dedicate_params(shapes, mesh=m), m,
+                       config=dataclasses.replace(mcfg, pipeline=pipeline),
                        device="cuda")
         u, _ = opt.update(grads, opt.init(params), params)
         return {p: v.full_tensor() if isinstance(v, DTensor) else v
@@ -885,9 +1214,18 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
     d, top, same = max_diff(u_mesh, u_one)
     tp = make_mesh((1, world), ("data", "model"), "cuda")
     specs = sharding.param_specs(cfg, shapes, tp)
-    u_tp = update(tp, sharding.place(params, specs, tp),
-                  sharding.place(grads, specs, tp))
+    tp_params = sharding.place(params, specs, tp)
+    tp_grads = sharding.place(grads, specs, tp)
+    u_tp = update(tp, tp_params, tp_grads)
     d_tp, _, same_tp = max_diff(u_tp, u_mesh)
+    # the bucketed pipeline on both meshes, against the fused update
+    bucketed = {"mesh": max_diff(update(mesh, params, grads, "bucketed"),
+                                 u_mesh),
+                "param_specs": max_diff(update(tp, tp_params, tp_grads,
+                                               "bucketed"), u_tp)}
+    bucketed_ok = [None] * world
+    dist.all_gather_object(bucketed_ok, {k: v[2] for k, v in
+                                         bucketed.items()})
     if lead:
         emit({"phase": "mesh", "check": "same_gradient_update",
               "world": world, "mesh": [world, 1], "bitwise": same,
@@ -901,6 +1239,9 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
                                     for s in specs.values()),
               "bitwise": same_tp, "max_abs_diff": d_tp,
               "gate": SAME_GRADIENT_GATE})
+        emit({"phase": "mesh", "check": "same_gradient_bucketed_vs_fused",
+              "world": world, "bitwise_by_rank": bucketed_ok,
+              "max_abs_diff": {k: v[0] for k, v in bucketed.items()}})
         batch_invariance(torch, 32 // world if world > 1 else 8)
     if world == 1 and not same:
         raise AssertionError(f"mesh of one: update differs by {d:.3e}")
@@ -908,37 +1249,139 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses) -> None:
         if diff > SAME_GRADIENT_GATE:
             raise AssertionError(f"{what} update differs by {diff:.3e} > "
                                  f"{SAME_GRADIENT_GATE}")
-    del u_one, u_mesh, u_tp, params, grads
+    if not all(all(r.values()) for r in bucketed_ok):
+        raise AssertionError(f"bucketed update is not the fused one bitwise "
+                             f"on every rank: {bucketed_ok}")
+    del u_one, u_mesh, u_tp, params, grads, tp_params, tp_grads
 
     # 3: training under the mesh, every rank timed
     runs = {}
-    for variant, mode in [("muon", "owner"), ("muon", "gather"),
-                          ("adamw", "owner")]:
-        name = "adamw" if variant == "adamw" else mode
-        run = train_run(torch, variant, mode, mesh, capture=name == "owner")
+    for name, variant, mode, kw in MESH_RUNS:
+        owner = name == "owner"
+        run = train_run(torch, variant, mode, mesh,
+                        capture=True if owner else
+                        "host" if name in PIPELINE_PAIRS_RUNS else False,
+                        grads=owner,
+                        trace=(trace or {}).get(name) if lead else None,
+                        steps=MESH_STEPS, **kw)
         timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
-                                      "peak_mem_gb", "launches")}
+                                      "peak_mem_gb", "launches",
+                                      "allocator_by_step", "gc_by_step",
+                                      "trace")}
         per_rank = [None] * world
         dist.all_gather_object(per_rank, timing)
+        if not lead:
+            run.pop("first_grads")
         runs[name] = run
         if lead:
-            emit({"phase": "mesh", "mode": name, "world": world,
+            emit({"phase": "mesh", "mode": name, **kw, "world": world,
                   "mesh": [world, 1], "loss_ema": run["loss_ema"],
-                  "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                  "launches_per_step": {k: v // MESH_STEPS for k, v in
                                         run["launches"].items()},
                   "per_rank": per_rank})
         torch.cuda.empty_cache()
+    matrices = set(api.dedicate_params(shapes).leaves)
+    pairs = pipeline_pairs(torch, dist, runs, rank, world, matrices)
 
+    # 4: the one-card references of step 1 (rank 0): the whole batch in
+    # one step, and the same batch in ``world`` microbatches, microbatch r
+    # being rank r's rows (checked on every rank first)
+    split_ok = [None] * world
+    dist.all_gather_object(split_ok, microbatch_is_rank_rows(
+        torch, runs["owner"]["data"], mesh, world, rank))
     failure = None
     if lead:
-        single = train_run(torch, "muon", "owner", capture=True)
-        matrices = set(api.dedicate_params(shapes).leaves)
-        failure = train_vs_single(runs, single, world, train_losses,
-                                  matrices)
+        if not all(split_ok):
+            failure = f"microbatch r is not rank r's rows: {split_ok}"
+        else:
+            single = train_run(torch, "muon", "owner", capture=True,
+                               steps=MESH_STEPS)
+            torch.cuda.empty_cache()
+            accum = train_run(torch, "muon", "owner", capture=True,
+                              grads=True, accum_steps=world,
+                              steps=MESH_STEPS)
+            torch.cuda.empty_cache()
+            failure = train_vs_single(torch, runs, single, accum, world,
+                                      train_losses, matrices, pairs)
     failures = [None] * world
     dist.all_gather_object(failures, failure)
     if failures[0] is not None:
         raise AssertionError(failures[0])
+
+
+def pipeline_pairs(torch, dist, runs: dict, rank: int, world: int,
+                   matrices: set) -> dict:
+    """Every rank: the schedules that must not change a bit, and the
+    prestaged accumulation that changes rounding only.
+
+    * bucketed against fused, and prestaged with its collectives
+      overlapped against the same prestaged run with every move waited as
+      it is issued (``pipeline_barriers=False``): the same collectives on
+      the same data, so each step's loss_ema, this rank's first updates and
+      the last parameters must be bitwise equal.  A missing stream wait or
+      a buffer freed in flight would change values here.
+    * prestaged against unstaged at ``accum_steps=2`` ("reduce-scatter each
+      microbatch, then sum" against "sum, then reduce-scatter"): bitwise
+      at world 1 (no collective runs); on more ranks each step's loss_ema
+      within ``PAIR_LOSS_ATOL``, the first updates of the AdamW leaves
+      (reduced the same way on both sides) bitwise, and the Muon leaves'
+      largest first-update difference returned for ``train_vs_single`` to
+      hold against the one-ulp spread.  The last parameters' difference
+      is printed per leaf beside ``PAIR_PARAM_ATOL``, the gloo test's gate
+      on a reduced model after 2 steps, and is not a gate: at full width
+      five steps magnify the step-1 rounding difference past it.
+    Rank 0 prints every rank's rows; a miss on any rank fails the run."""
+    host = {"owner": {p: v.to("cpu") for p, v in
+                      runs["owner"]["first_updates"].items()}}
+    rows = {}
+    for name, ref in PIPELINE_PAIRS:
+        a, b = runs[name], runs[ref]
+        upd = leaf_diffs(a["first_updates"],
+                         host.get(ref, b["first_updates"]))
+        par = leaf_diffs(a["final_params"], b["final_params"])
+        loss = max(abs(x - y) for x, y in zip(a["loss_ema"], b["loss_ema"]))
+        bitwise = (a["loss_ema"] == b["loss_ema"]
+                   and all(r[2] for r in upd.values())
+                   and all(r[2] for r in par.values()))
+        row = {"bitwise": bitwise, "loss_ema_max_abs_diff": loss,
+               "first_update_max_abs_diff": max(r[0] for r in upd.values()),
+               "param_max_abs_diff": max(r[0] for r in par.values())}
+        if ref == "owner_accum2" and world > 1:
+            row["ok"] = loss <= PAIR_LOSS_ATOL and all(
+                r[2] for p, r in upd.items() if p not in matrices)
+            row["muon_first_update_max_abs_diff"] = max(
+                r[0] for p, r in upd.items() if p in matrices)
+            row["param_max_abs_diff_by_leaf"] = {p: r[0]
+                                                 for p, r in par.items()}
+        else:
+            row["ok"] = bitwise
+        rows[f"{name}_vs_{ref}"] = row
+    for name in PIPELINE_PAIRS_RUNS:
+        runs[name]["final_params"] = {}
+        if name != "owner":
+            runs[name]["first_updates"] = {}
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, rows)
+    if rank == 0:
+        emit({"phase": "mesh", "check": "pipeline_pairs", "world": world,
+              "loss_atol": PAIR_LOSS_ATOL,
+              "param_atol_printed": PAIR_PARAM_ATOL, "per_rank": per_rank})
+    missed = [(r, k) for r, rr in enumerate(per_rank)
+              for k, v in rr.items() if not v["ok"]]
+    if missed:
+        raise AssertionError(f"pipeline pairs missed (rank, pair): {missed}")
+    return rows
+
+
+def microbatch_is_rank_rows(torch, dcfg, mesh, world: int, rank: int
+                            ) -> bool:
+    """Microbatch ``rank`` of ``world`` of batch 0, as ``make_train_step``
+    splits it, equals this rank's rows from ``batch_for_step(mesh=)``."""
+    from repro_torch.data.pipeline import batch_for_step
+    whole = batch_for_step(dcfg, 0, device="cuda")
+    mine = batch_for_step(dcfg, 0, device="cuda", mesh=mesh)
+    return all(torch.equal(v.reshape((world, -1) + tuple(v.shape[1:]))[rank],
+                           mine[k]) for k, v in whole.items())
 
 
 def batch_invariance(torch, rows: int) -> None:
@@ -968,17 +1411,90 @@ def batch_invariance(torch, rows: int) -> None:
           "of": 32, "max_abs_diff_by_stage": out})
 
 
-def train_vs_single(runs: dict, single: dict, world: int, train_losses,
-                    matrices: set):
-    """Rank 0: emit the mesh runs against the same training on one card
-    without the mesh, then the first gate missed (None if none): losses
-    within 1e-5 relative (also of the train phase); step 1's updates
-    within 1e-4 · max|update| (the gradient sums change order with the
-    batch split), reported per leaf with the rule that made it (Muon's
-    Newton-Schulz and AdamW's first step, -lr · g / (|g| + eps), both
-    magnify a rounding-size change of the gradient).  The model's backward
-    may add with atomics, so two runs without the mesh may differ too
-    (``run_to_run_rel``)."""
+def step_gate(torch, mesh_g: dict, ref_g: dict, abs_sum: dict,
+              mesh_u: dict, ref_u: dict, spread: float, matrices: set,
+              world: int) -> dict:
+    """Step 1 of the ``world``-rank training against one card running the
+    same batch as ``world`` microbatches (microbatch r = rank r's rows), on
+    the same seed-0 parameters.  Three ratios, each at most 1 to pass:
+
+    * gradients: each entry of the averaged gradient within what reordering
+      a sum of ``world`` fp32 terms can change, (world − 1) · eps ·
+      Σ_r |g_r| / world (eps = 2⁻²³; ``abs_sum`` is Σ_r |g_r|): both sides
+      add the same per-rank gradients, in another order;
+    * Muon leaves: max|Δ update| within ``STEP_SPREAD`` times ``spread``,
+      what one ulp on half the one-card gradients moves the one-card update;
+    * AdamW leaves: each entry within 1e-4 · max|update| plus what its
+      gradient's relative difference rho explains, min(2·rho, 2) ·
+      max(|u|, |u_ref|) (AdamW's first step maps g to about −lr · sign(g),
+      so at most a sign flip where |g| is at rounding size).
+
+    Returns the ratios, ``factor`` (their largest) and per-leaf rows."""
+    eps = 2.0 ** -23
+    rows, ratios = {}, {"grad": 0.0, "muon": 0.0, "adamw": 0.0}
+
+    def ratio(d, bound):
+        r = torch.where(d == 0, torch.zeros_like(d), d / bound)
+        return float(r.max()) if r.numel() else 0.0
+
+    top_adamw = max((float(ref_u[p].float().abs().max()) for p in ref_u
+                     if p not in matrices), default=0.0)
+    d_muon = 0.0
+    for p, gr in ref_g.items():
+        gr, gm = gr.float(), mesh_g[p].float()
+        dg = (gm - gr).abs()
+        g_ratio = ratio(dg, (world - 1) * eps * abs_sum[p].float() / world)
+        ur, um = ref_u[p].float(), mesh_u[p].float()
+        du = (um - ur).abs()
+        row = {"grad_max_abs_diff": float(dg.max()),
+               "grad_ulps_of_max": float(dg.max()) / (
+                   float(gr.abs().max()) * eps or 1.0),
+               "grad_ratio": g_ratio, "update_max_abs_diff": float(du.max()),
+               "max_abs_update": float(ur.abs().max()),
+               "rule": "muon" if p in matrices else "adamw"}
+        ratios["grad"] = max(ratios["grad"], g_ratio)
+        if p in matrices:
+            d_muon = max(d_muon, float(du.max()))
+        else:
+            rho = torch.where(dg == 0, torch.zeros_like(dg),
+                              dg / gr.abs())
+            bound = STEP_UPDATE_GATE * top_adamw + torch.clamp(
+                2 * rho, max=2.0) * torch.maximum(um.abs(), ur.abs())
+            row["adamw_ratio"] = ratio(du, bound)
+            ratios["adamw"] = max(ratios["adamw"], row["adamw_ratio"])
+        rows[p] = row
+    ratios["muon"] = 0.0 if d_muon == 0 else d_muon / (STEP_SPREAD * spread)
+    return {"ratios": ratios, "factor": max(ratios.values()),
+            "muon_max_abs_diff": d_muon, "spread": spread,
+            "spread_factor": STEP_SPREAD, "adamw_floor": STEP_UPDATE_GATE,
+            "per_leaf": rows}
+
+
+def train_vs_single(torch, runs: dict, single: dict, accum: dict,
+                    world: int, train_losses, matrices: set, pairs: dict):
+    """Rank 0: emit the mesh runs against the same training on one card,
+    then the first gate missed (None if none).
+
+    * Losses within 1e-5 relative of the one-card run of the whole batch
+      (and of the train phase).
+    * Step 1's updates against that run, max|Δ| per leaf beside
+      1e-4 · max|update|: printed, not a gate (the batch split changes
+      each matmul's batch and the gradient sum's order, and Newton-Schulz
+      and AdamW's first step magnify a rounding-size change).
+    * The gate (``step_gate``): step 1's averaged gradients and updates
+      against the one-card run of the same batch in ``world``
+      microbatches.  Two planted faults, the sum where the mean belongs
+      and rank 0's gradient dropped, each taken through the one-card
+      optimizer, must miss it by ``STEP_FAULT``x (on more than one rank:
+      at world 1 the sum is the mean and the gate is vacuous).
+    * The prestaged run's step-1 Muon updates (``pairs``, rank 0's
+      ``pipeline_pairs`` rows) within ``STEP_SPREAD`` times the same
+      one-ulp spread of the unstaged run's, on more than one rank."""
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.models import transformer
+
     def rel_diff(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
@@ -993,16 +1509,18 @@ def train_vs_single(runs: dict, single: dict, world: int, train_losses,
     # steps 2-3: step 1 pays first-call costs
     steady = {name: {k: sum(r[k][1:]) / len(r[k][1:])
                      for k in ("step_ms", "optimizer_ms")}
-              for name, r in [*runs.items(), ("single_owner", single)]}
+              for name, r in [*runs.items(), ("single_owner", single),
+                              ("single_owner_accum", accum)]}
     emit({"phase": "mesh", "check": "train_vs_single", "world": world,
           "loss_ema_mesh": mesh_loss, "loss_ema_single": single["loss_ema"],
+          "loss_ema_single_accum": accum["loss_ema"],
           "train_phase_loss_ema": train_losses, "loss_rel_diff": rel,
           "loss_rel_diff_train_phase": rel_train,
           "run_to_run_rel": None if train_losses is None else
           rel_diff(single["loss_ema"], train_losses),
           "loss_gate": LOSS_GATE, "step1_update_max_abs_diff": d_up,
           "step1_max_abs_update": top_up,
-          "update_gate": STEP_UPDATE_GATE,
+          "update_floor_printed": STEP_UPDATE_GATE,
           "step1_per_leaf": {p: {"max_abs_diff": r[0], "max_abs_update": r[1],
                                  "bitwise": r[2],
                                  "rule": "muon" if p in matrices else "adamw"}
@@ -1017,14 +1535,67 @@ def train_vs_single(runs: dict, single: dict, world: int, train_losses,
           "mesh_minus_single_ms": {
               k: steady["owner"][k] - steady["single_owner"][k]
               for k in ("step_ms", "optimizer_ms")}})
+
+    # the gate: one-card updates of the accumulated run's gradients, their
+    # one-ulp spread, and the planted faults
+    plan, cfg = accum["plan"], accum["cfg"]
+    params = transformer.init(cfg, seed=0, device="cuda")
+    opt = api.Muon(plan, config=MuonConfig(
+        variant="muon", mode="owner", pipeline="fused",
+        ns=GramNSConfig(use_kernels=True)), device="cuda")
+
+    def update(grads: dict) -> dict:
+        u, _ = opt.update(tree.rebuild(params, grads), opt.init(params),
+                          params)
+        return dict(tree.flatten(u))
+
+    ref_g = {p: v[0] for p, v in accum["first_grads"].items()}
+    mesh = runs["owner"]["first_grads"]
+    mesh_g = {p: v[0] for p, v in mesh.items()}
+    abs_sum = {p: v[1] for p, v in mesh.items()}
+    ref_u = accum["first_updates"]
+    u_base = update(ref_g)
+    recomputed_bitwise = max_diff(u_base, ref_u)[2]
+    gen = torch.Generator("cuda").manual_seed(11)
+    u_ulp = update({p: one_ulp_up(torch, g, gen) for p, g in ref_g.items()})
+    spread = max(float((u_ulp[p] - u_base[p]).abs().max()) for p in matrices)
+    del u_ulp
+    gate = step_gate(torch, mesh_g, ref_g, abs_sum,
+                     runs["owner"]["first_updates"], ref_u, spread, matrices,
+                     world)
+    faults = {}
+    for fault, grads in [
+            ("sum_for_mean", {p: g * world for p, g in mesh_g.items()}),
+            ("rank0_dropped", {p: (g * world - mesh[p][2]) / world
+                               for p, g in mesh_g.items()})]:
+        fg = step_gate(torch, grads, ref_g, abs_sum, update(grads), ref_u,
+                       spread, matrices, world)
+        faults[fault] = {"factor": fg["factor"], "ratios": fg["ratios"]}
+    prestaged = pairs["owner_bucketed_prestaged_accum2_vs_owner_accum2"]
+    d_pre = prestaged.get("muon_first_update_max_abs_diff")
+    pre_ratio = None if d_pre is None else d_pre / (STEP_SPREAD * spread)
+    emit({"phase": "mesh", "check": "step_gate", "world": world,
+          "prestaged_vs_unstaged_muon_ratio": pre_ratio,
+          "reference": f"one card, accum_steps={world}",
+          "recomputed_update_bitwise": recomputed_bitwise,
+          "loss_ema_accum": accum["loss_ema"],
+          "fault_factor_required": STEP_FAULT if world > 1 else None,
+          **gate, "faults": faults})
+
     for name, r in [("the same run without the mesh", rel),
                     ("the train phase", rel_train)]:
         if r is not None and r > LOSS_GATE:
             return (f"mesh losses {mesh_loss} vs {name}: {r:.3e} relative "
                     f"> {LOSS_GATE}")
-    if d_up > STEP_UPDATE_GATE * top_up:
-        return (f"step 1 updates differ by {d_up:.3e} > "
-                f"{STEP_UPDATE_GATE} x {top_up:.3e}")
+    if gate["factor"] > 1:
+        return f"step 1 misses the step gate: ratios {gate['ratios']}"
+    if pre_ratio is not None and pre_ratio > 1:
+        return (f"prestaged step-1 Muon updates differ by {d_pre:.3e}, "
+                f"{pre_ratio:.3f} of {STEP_SPREAD}x the one-ulp spread")
+    weak = {f: v["factor"] for f, v in faults.items()
+            if v["factor"] < STEP_FAULT}
+    if world > 1 and weak:
+        return f"planted faults within {STEP_FAULT}x of the gate: {weak}"
     return None
 
 
@@ -1034,6 +1605,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--trace", default="",
+                    help="comma-separated mesh-phase runs (of "
+                         + ",".join(r[0] for r in MESH_RUNS) + ") to trace "
+                         "with torch.profiler (rank 0)")
+    ap.add_argument("--trace-dir", default=str(ROOT / "build" / "traces"),
+                    help="where --trace writes its .json.gz files")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
 
@@ -1076,18 +1653,25 @@ def main() -> int:
         phase_blocks(torch)
     if "gram_ns" in phases:
         phase_gram_ns(torch)
-    train_losses = None
+    train_losses = fused = None
     if "train" in phases:
         run = phase_train(torch, "muon")
         launches, train_losses = run["launches"], run["loss_ema"]
+        fused = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                     "peak_mem_gb")}
         del run
     if "adamw" in phases:
         torch.cuda.empty_cache()
         phase_train(torch, "adamw")
     if "variants" in phases:
         phase_variants(torch)
+    if "pipeline" in phases:
+        phase_pipeline(torch, fused)
     if "mesh" in phases:
-        phase_mesh(torch, train_losses)
+        world = torch.cuda.device_count()
+        phase_mesh(torch, train_losses, {
+            t: str(Path(args.trace_dir) / f"trace_{t}_mesh{world}.json.gz")
+            for t in args.trace.split(",") if t})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

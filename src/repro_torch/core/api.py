@@ -32,8 +32,13 @@ state:
                orthogonalized update, norm-preserving
     adamw    — elementwise AdamW baseline
 
-``register_variant`` plugs in further backends.  The bucketed pipeline and
-``update_staged`` wait for ROADMAP item 7.
+``register_variant`` plugs in further backends.
+
+Pipelines (``MuonConfig.pipeline``): ``"fused"`` runs the owner update as
+one phase; ``"bucketed"`` stages, computes and publishes one Gram bucket at
+a time with asynchronous collectives (``core/pipeline.py``), bit for bit
+the same updates.  ``update_staged`` takes gradients already staged to the
+owners (the train step's accumulation-overlapped mode).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from repro_torch.core import dedication
 from repro_torch.core.dedication import DedicationPlan, default_muon_predicate
 from repro_torch.core.gram_ns import GramNSConfig
 from repro_torch.core.muon import (AdamWState, MuonConfig, MuonState,
-                                   _resolve, muon_init, muon_update)
+                                   _resolve, muon_init, muon_update,
+                                   muon_update_staged)
 from repro_torch.core.orthogonalize import dion2_rank
 from repro_torch.core.update_rules import VariantSpec
 from repro_torch.device import DeviceLike, resolve_device
@@ -177,8 +183,10 @@ class Muon:
                            self.mesh)
 
     def update_staged(self, staged, rest_grads, state: MuonState, params):
-        raise ValueError("update_staged (the bucketed pipeline) is not ported "
-                         "yet (ROADMAP item 7)")
+        """Optimizer step from pre-staged owner-layout matrix gradients (the
+        accumulation-overlapped bucketed pipeline; see core/pipeline.py)."""
+        return muon_update_staged(self.plan, staged, rest_grads, state,
+                                  params, self.config, self.mesh)
 
     def state_dict(self, state: MuonState) -> dict:
         return {"step": state.step, "momentum": state.momentum,

@@ -78,10 +78,14 @@ class MuonConfig:
     #   'adamuon' — + elementwise second-moment adaptation (AdaMuon)
     #   'adamw'   — elementwise baseline (equivalent to mode='adamw')
     variant: str = "muon"
-    # 'fused': pack all → NS all → publish all.  'bucketed' waits for
-    # ROADMAP item 7.
+    # optimizer-step schedule for mode='owner' (core/pipeline.py):
+    #   'fused'    — pack all → NS all → publish all
+    #   'bucketed' — per-Gram-bucket stage_in / compute / publish with the
+    #                collectives issued asynchronously, double-buffered
     pipeline: str = "fused"
-    pipeline_barriers: bool = True       # read by the bucketed pipeline only
+    # overlap the bucketed schedule's collectives (only on a mesh of more
+    # than one rank; the values are the same either way)
+    pipeline_barriers: bool = True
     # pre-warm the kernel autotune cache for every shape of the plan at
     # optimizer construction (paper §3.3 workflow)
     autotune_prewarm: bool = True
@@ -118,11 +122,13 @@ def _resolve(cfg: MuonConfig):
         raise ValueError(
             f"variant {spec.name!r} requires the owner pipeline "
             "(mode='owner'); the gather baseline only supports 'muon'")
-    if cfg.pipeline == "bucketed":
-        raise ValueError("pipeline='bucketed' is not ported yet "
-                         "(ROADMAP item 7); use pipeline='fused'")
-    if cfg.pipeline != "fused":
-        raise ValueError(f"unknown pipeline {cfg.pipeline!r}; known: 'fused'")
+    if cfg.pipeline not in ("fused", "bucketed"):
+        raise ValueError(f"unknown pipeline {cfg.pipeline!r}; "
+                         "known: 'fused', 'bucketed'")
+    if cfg.pipeline == "bucketed" and mode == "gather":
+        raise ValueError(
+            "pipeline='bucketed' schedules the owner-layout stages; the "
+            "gather baseline has no staged comms to pipeline (mode='owner')")
     return spec, mode
 
 
@@ -227,15 +233,8 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
     if mode == "adamw":
         gr, pr, gm, pm = {**gr, **gm}, {**pr, **pm}, {}, {}
     gm_local, gm_pl = _split(layout, gm)
-    gr_local, gr_pl = _split(layout, gr)
     pm_local, _ = _split(layout, pm)
-    pr_local, _ = _split(layout, pr)
-    if mesh is not None:    # AdamW is elementwise: reduce first
-        gr_local = {p: reduce_partial(g, gr_pl[p], mesh)
-                    for p, g in gr_local.items()}
-
-    adam_updates, adamw_state = adamw_update(gr_local, state.adamw, pr_local,
-                                             state.step, cfg)
+    adam_updates, adamw_state = _adamw_step(layout, gr, pr, state, cfg)
     new_ef, new_vstate = state.error_feedback, state.variant_state
     if mode == "owner":
         matrix_updates, new_momentum, new_ef, new_vstate = _owner_update(
@@ -247,10 +246,25 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
         matrix_updates, new_momentum = {}, state.momentum
     updates = {p: _like(g, matrix_updates[p], gm_pl[p], mesh)
                for p, g in gm.items()}
-    updates.update({p: _like(g, adam_updates[p], gr_pl[p], mesh)
-                    for p, g in gr.items()})
-    return tree.rebuild(grads, updates), MuonState(
+    return tree.rebuild(grads, {**updates, **adam_updates}), MuonState(
         state.step + 1, new_momentum, adamw_state, new_ef, new_vstate)
+
+
+def _adamw_step(layout: OwnerLayout, gr, pr, state: MuonState,
+                cfg: MuonConfig):
+    """AdamW on the non-matrix leaves: gradients ``gr`` reduced first under
+    a mesh (AdamW is elementwise), updates in their gradients' form.
+    Returns ({path: update}, new AdamW state)."""
+    mesh = layout.mesh
+    gr_local, gr_pl = _split(layout, gr)
+    pr_local, _ = _split(layout, pr)
+    if mesh is not None:
+        gr_local = {p: reduce_partial(g, gr_pl[p], mesh)
+                    for p, g in gr_local.items()}
+    adam_updates, adamw_state = adamw_update(gr_local, state.adamw, pr_local,
+                                             state.step, cfg)
+    return {p: _like(g, adam_updates[p], gr_pl[p], mesh)
+            for p, g in gr.items()}, adamw_state
 
 
 def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
@@ -258,42 +272,66 @@ def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
     """DMuon path: pack (reduce-to-owner) → momentum → orthogonalize on the
     local owner rows by the variant's backend → unpack (publish) +
     scale/wd/lr.  Alg. 1 lines 10–15.  ``gm`` / ``pm`` hold local parts,
-    ``gm_pl`` the gradients' placements.  Returns (updates, momentum,
+    ``gm_pl`` the gradients' placements.  Both pipelines run through
+    ``BucketPipeline``: 'fused' as one stage over every group without
+    overlap, 'bucketed' per Gram bucket.  Returns (updates, momentum,
     error feedback, variant state)."""
     if cfg.compress_grads and any(
             p.is_partial() for pl in gm_pl.values() if pl for p in pl):
         raise ValueError(
             "compress_grads with Partial (data-parallel) gradients would "
             "reduce them in bf16; not ported yet (ROADMAP item 6)")
-    new_momentum: Dict[str, torch.Tensor] = {}
-    grads_for_pack, new_ef = compress_with_error_feedback(
-        gm, state.error_feedback, cfg)
+    from repro_torch.core.pipeline import BucketPipeline
+    return BucketPipeline(plan, cfg, layout.mesh, spec,
+                          fused=cfg.pipeline == "fused").run_from_grads(
+        gm, gm_pl, pm, state)
 
-    pdt = as_dtype(cfg.pack_dtype)
-    mdt = as_dtype(cfg.momentum_dtype)
-    packed_mom: Dict[str, torch.Tensor] = {}
-    skey_to_key = {group_key_str(key): key for key in plan.groups}
-    for key, g in plan.groups.items():
-        g_packed = layout.pack(key, {p: grads_for_pack[p].to(pdt)
-                                     for p in g.leaf_paths}, gm_pl)
-        skey = group_key_str(key)
-        mom, eff = momentum_update(state.momentum[skey].to(pdt), g_packed, cfg)
-        new_momentum[skey] = mom.to(mdt)
-        packed_mom[skey] = eff
 
-    ortho_fn = make_orthogonalizer(spec.orthogonalizer, cfg)
-    ortho, new_vstate = ortho_fn(packed_mom, step=state.step,
-                                 state=state.variant_state, layout=layout,
-                                 cfg=cfg)
+@torch.no_grad()
+def muon_update_staged(plan: DedicationPlan, staged, rest_grads,
+                       state: MuonState, params, cfg: MuonConfig, mesh=None):
+    """One optimizer step from PRE-STAGED owner-layout matrix gradients.
 
-    matrix_updates: Dict[str, torch.Tensor] = {}
-    for skey, o in ortho.items():
-        key = skey_to_key[skey]
-        m, n = plan.groups[key].key
-        s = scale_factor(m, n, cfg.scale_mode)
-        for p, upd in layout.unpack(key, o.to(pdt) * s, gm_pl).items():
-            matrix_updates[p] = apply_wd_and_lr(upd, pm[p], cfg)
-    return matrix_updates, new_momentum, new_ef, new_vstate
+    ``staged`` is ``{group_key_str: owner rows}`` (this rank's rows of the
+    owner-major gradient stack, already averaged over microbatches);
+    ``rest_grads`` is the ``{path: grad}`` dict of the non-matrix (AdamW)
+    leaves, reduced here first under a mesh, as ``muon_update`` reduces
+    them.  The entry point of the accumulation-overlapped bucketed
+    pipeline: ``train/step.py`` stages each microbatch's gradients to the
+    owners under the next microbatch's backward, then calls this to run
+    compute + publish only.  Updates are published to the matrix
+    parameters' training layouts.
+
+    In one process, bit-exact with ``muon_update`` on the packed-then-
+    averaged gradients: packing is a permutation + zero pad, so it commutes
+    with the microbatch sum, the 1/accum scaling and the pack-dtype cast.
+
+    Incompatible with ``compress_grads`` (error feedback needs the summed
+    gradient in the training layout): refused here."""
+    spec, mode = _resolve(cfg)
+    if mode != "owner":
+        raise ValueError(f"muon_update_staged requires mode='owner' "
+                         f"(got {mode!r})")
+    if cfg.compress_grads:
+        raise ValueError("pre-staged gradients are incompatible with "
+                         "compress_grads (error feedback is a training-layout "
+                         "residual)")
+    from repro_torch.core.pipeline import BucketPipeline
+    pipe = BucketPipeline(plan, cfg, mesh, spec)
+    layout = pipe.layout
+    pm, pr = _matrix_and_rest(plan, params)
+    pm_local, pm_pl = _split(layout, pm)
+    adam_updates, adamw_state = _adamw_step(layout, rest_grads, pr, state,
+                                            cfg)
+    matrix_updates, new_momentum, new_vstate = pipe.run_staged(
+        staged, pm_local, state, pm_pl)
+    updates = {p: _like(v, matrix_updates[p], pm_pl[p], mesh)
+               for p, v in pm.items()}
+    if isinstance(params, torch.nn.Module):
+        params = tree.from_named(params.named_parameters())
+    return tree.rebuild(params, {**updates, **adam_updates}), MuonState(
+        state.step + 1, new_momentum, adamw_state, state.error_feedback,
+        new_vstate)
 
 
 def _gather_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,

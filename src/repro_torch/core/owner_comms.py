@@ -27,6 +27,11 @@ padding of each group's stack, all on one process.  Under a
 * ``OwnerLayout.unpack`` publishes in reverse: an all-to-all back to the
   matrix dim, or an all-gather where the training layout replicates.
 
+``pack_async`` / ``unpack_async`` issue the same moves with
+``async_op=True`` and return a ``Pending`` (the bucketed schedule of
+``core/pipeline.py`` runs compute while they fly); ``pack`` / ``unpack``
+wait for it at once.
+
 Moving one axis per stage keeps every collective a same-shape exchange;
 resolving a two-axis move at once can go through replication (whole-tensor
 all-gathers).  Explicit ``torch.distributed`` calls do the moves:
@@ -197,55 +202,138 @@ def stacked_placements(info, placements: Placements) -> tuple:
 # --------------------------------------------------------------------------
 # One mesh dim's move (x is this rank's local part; i the mesh dim)
 # --------------------------------------------------------------------------
+#
+# Each move is issued with ``async_op=True`` and returns ``(work, finish,
+# held)``: the collective's ``Work`` (None for a move without
+# communication), a function that gives the move's result once the work is
+# done (the ``div_`` of an average, the ``movedim`` / ``flatten`` after an
+# all-to-all), and the collective's buffers, which ``Pending`` keeps
+# referenced until the work is waited, so the caching allocator cannot hand
+# their memory to anything else while the collective may still read or
+# write it.  ``Pending`` chains the moves of one tensor.  A mesh dim of one
+# rank moves nothing (a sum or mean over one rank is its own value), so it
+# issues no collective and cannot hold back the next dim's.
 
-def _to_rows(x: torch.Tensor, p, i: int, mesh) -> torch.Tensor:
+def _issue_to_rows(x: torch.Tensor, p, i: int, mesh):
     """Placement ``p`` on mesh dim ``i`` -> ``Shard(0)`` (rows split)."""
     s, group = mesh.size(i), mesh.get_group(i)
+    if s == 1:
+        return None, lambda: x, ()
     rows = x.shape[0] // s
     if p.is_shard():
         # all-to-all: chunk j of my rows goes to rank j, which sends back
         # its part of dim k of my chunk
         inp = x.reshape((s, rows) + tuple(x.shape[1:])).contiguous()
         out = torch.empty_like(inp)
-        dist.all_to_all_single(out, inp, group=group)
-        return out.movedim(0, p.dim).flatten(p.dim, p.dim + 1)
+        work = dist.all_to_all_single(out, inp, group=group, async_op=True)
+        return (work, lambda: out.movedim(0, p.dim).flatten(p.dim, p.dim + 1),
+                (inp, out))
     if p.is_partial():
+        inp = x.contiguous()
         out = x.new_empty((rows,) + tuple(x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
-        return out.div_(s) if _reduce_op(p) == "avg" else out
+        work = dist.reduce_scatter_tensor(out, inp, group=group,
+                                          async_op=True)
+        avg = _reduce_op(p) == "avg"
+        return work, lambda: out.div_(s) if avg else out, (inp, out)
     c = mesh.get_local_rank(i)
-    return x[c * rows:(c + 1) * rows]
+    return None, lambda: x[c * rows:(c + 1) * rows], ()
 
 
-def _from_rows(x: torch.Tensor, target, i: int, mesh) -> torch.Tensor:
+def _issue_from_rows(x: torch.Tensor, target, i: int, mesh):
     """``Shard(0)`` on mesh dim ``i`` -> ``target`` (``Shard(k)`` or
-    ``Replicate``): the publish direction of ``_to_rows``."""
+    ``Replicate``): the publish direction of ``_issue_to_rows``."""
     s, group = mesh.size(i), mesh.get_group(i)
+    if s == 1:
+        return None, lambda: x, ()
     if target.is_shard():
         k = target.dim
         inp = x.unflatten(k, (s, -1)).movedim(k, 0).contiguous()
         out = torch.empty_like(inp)
-        dist.all_to_all_single(out, inp, group=group)
-        return out.flatten(0, 1)
+        work = dist.all_to_all_single(out, inp, group=group, async_op=True)
+        return work, lambda: out.flatten(0, 1), (inp, out)
+    inp = x.contiguous()
     out = x.new_empty((s * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
+    work = dist.all_gather_into_tensor(out, inp, group=group, async_op=True)
+    return work, lambda: out, (inp, out)
+
+
+def _issue_replicate(x: torch.Tensor, p, i: int, mesh):
+    """Placement ``p`` on mesh dim ``i`` -> ``Replicate``: all-gather a
+    shard, all-reduce a partial sum (into a copy of ``x``); ``x`` itself on
+    a dim of one rank."""
+    s, group = mesh.size(i), mesh.get_group(i)
+    if s == 1:
+        return None, lambda: x, ()
+    if p.is_shard():
+        inp = x.contiguous()
+        out = x.new_empty((s * x.shape[0],) + tuple(x.shape[1:]))
+        work = dist.all_gather_into_tensor(out, inp, group=group,
+                                           async_op=True)
+        return work, lambda: out.unflatten(0, (s, x.shape[0])).movedim(
+            0, p.dim).flatten(p.dim, p.dim + 1), (inp, out)
+    if p.is_partial():
+        out = x.clone(memory_format=torch.contiguous_format)
+        work = dist.all_reduce(out, group=group, async_op=True)
+        avg = _reduce_op(p) == "avg"
+        return work, lambda: out.div_(s) if avg else out, (out,)
+    return None, lambda: x, ()
+
+
+class Pending:
+    """A tensor on its way through a chain of mesh moves.
+
+    ``moves`` are functions ``x -> (work, finish, held)`` (the ``_issue_*``
+    moves, one mesh dim each).  Construction runs the moves that need no
+    communication and issues the first collective; it returns at once.
+    ``wait()`` waits for that collective, finishes it, and runs the rest of
+    the chain, each later collective issued and waited in turn, then
+    applies ``then`` and returns the result (the same tensor the
+    synchronous call gives, bit for bit: the same collectives on the same
+    data).  So only the chain's first collective overlaps what the caller
+    enqueues before ``wait()``: a later move reads the earlier one's output,
+    so it can be issued only after that output is complete.  On NCCL,
+    ``Work.wait()`` makes the current stream wait for the collective's
+    stream and does not block the host; on gloo it blocks.  Every
+    ``Pending`` must be waited: its collective is issued on every rank, and
+    the next collectives of the same group are matched in issue order."""
+
+    def __init__(self, x, moves=(), then=None):
+        self._value = x
+        self._moves = list(moves)
+        self._then = then
+        self._flight = None            # (work, finish, held) of the move
+        self._done = False
+        self._advance()
+
+    def _advance(self) -> None:
+        """Run moves until one is in flight or none is left."""
+        while self._moves:
+            work, finish, held = self._moves.pop(0)(self._value)
+            if work is not None:
+                self._flight = (work, finish, held)
+                return
+            self._value = finish()
+
+    def wait(self):
+        """The result; the first call finishes the chain."""
+        if not self._done:
+            while self._flight is not None:
+                work, finish, _ = self._flight
+                work.wait()
+                self._flight = None
+                self._value = finish()
+                self._advance()
+            if self._then is not None:
+                self._value = self._then(self._value)
+            self._done = True
+        return self._value
 
 
 def replicate_dim(x: torch.Tensor, p, i: int, mesh) -> torch.Tensor:
     """Placement ``p`` on mesh dim ``i`` -> ``Replicate``: all-gather a
-    shard, all-reduce a partial sum."""
-    s, group = mesh.size(i), mesh.get_group(i)
-    if p.is_shard():
-        out = x.new_empty((s * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        out = out.unflatten(0, (s, x.shape[0]))
-        return out.movedim(0, p.dim).flatten(p.dim, p.dim + 1)
-    if p.is_partial():
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out.div_(s) if _reduce_op(p) == "avg" else out
-    return x
+    shard, all-reduce a partial sum (into a copy of ``x``; ``x`` itself
+    on a dim of one rank)."""
+    return Pending(x, [lambda v: _issue_replicate(v, p, i, mesh)]).wait()
 
 
 def shard_dim(x: torch.Tensor, target, i: int, mesh) -> torch.Tensor:
@@ -357,34 +445,54 @@ class OwnerLayout:
             st = pl
         return st
 
+    def pack_async(self, key, leaf_values: Dict[str, torch.Tensor],
+                   placements: Optional[Dict[str, Placements]] = None
+                   ) -> Pending:
+        """Training layout -> this rank's owner rows (reduce-to-owner),
+        issued: the stack is gathered now (on the current stream) and its
+        first collective issued; ``wait()`` gives the rows.  ``leaf_values``
+        are local parts; ``placements[path]`` their mesh placements
+        (missing: replicated, which needs no communication: ready at
+        once).  The moves run one mesh dim after another (``Pending``)."""
+        packed = pack_group(self.plan, key, leaf_values)
+        if self.mesh is None:
+            return Pending(packed)
+        cur, mesh = self._stacked(key, placements), self.mesh
+        moves = [lambda v, i=i: _issue_to_rows(v, cur[i], i, mesh)
+                 for i in self.owner_dims]
+        moves += [lambda v, i=i: _issue_replicate(v, cur[i], i, mesh)
+                  for i in self.other_dims]
+        return Pending(packed, moves)
+
     def pack(self, key, leaf_values: Dict[str, torch.Tensor],
              placements: Optional[Dict[str, Placements]] = None
              ) -> torch.Tensor:
-        """Training layout -> this rank's owner rows (reduce-to-owner).
-        ``leaf_values`` are local parts; ``placements[path]`` their mesh
-        placements (missing: replicated)."""
-        packed = pack_group(self.plan, key, leaf_values)
+        """``pack_async(...).wait()``: this rank's owner rows."""
+        return self.pack_async(key, leaf_values, placements).wait()
+
+    def unpack_async(self, key, packed: torch.Tensor,
+                     placements: Optional[Dict[str, Placements]] = None
+                     ) -> Pending:
+        """This rank's owner rows -> local parts of each leaf in its training
+        layout (``published(placements[path])``), the publish direction,
+        issued; ``wait()`` gives ``{path: local part}``."""
+        def leaves(rows):
+            return unpack_group(self.plan, key, rows)
         if self.mesh is None:
-            return packed
-        cur = list(self._stacked(key, placements))
-        for i in self.owner_dims:
-            packed = _to_rows(packed, cur[i], i, self.mesh)
-        for i in self.other_dims:
-            packed = replicate_dim(packed, cur[i], i, self.mesh)
-        return packed
+            return Pending(packed, then=leaves)
+        target, mesh = published(self._stacked(key, placements)), self.mesh
+        moves = [lambda v, i=i: (None, lambda: shard_dim(v, target[i], i,
+                                                         mesh), ())
+                 for i in self.other_dims]
+        moves += [lambda v, i=i: _issue_from_rows(v, target[i], i, mesh)
+                  for i in reversed(self.owner_dims)]
+        return Pending(packed, moves, then=leaves)
 
     def unpack(self, key, packed: torch.Tensor,
                placements: Optional[Dict[str, Placements]] = None
                ) -> Dict[str, torch.Tensor]:
-        """This rank's owner rows -> local parts of each leaf in its training
-        layout (``published(placements[path])``), the publish direction."""
-        if self.mesh is not None:
-            target = published(self._stacked(key, placements))
-            for i in self.other_dims:
-                packed = shard_dim(packed, target[i], i, self.mesh)
-            for i in reversed(self.owner_dims):
-                packed = _from_rows(packed, target[i], i, self.mesh)
-        return unpack_group(self.plan, key, packed)
+        """``unpack_async(...).wait()``: ``{path: local part}``."""
+        return self.unpack_async(key, packed, placements).wait()
 
     # ---------------------------------------------------------- local map
 

@@ -20,21 +20,26 @@ def flatten(tree) -> List[Tuple[str, Any]]:
     if isinstance(tree, torch.nn.Module):
         tree = from_named(tree.named_parameters())
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        if isinstance(node, Mapping):
-            for k in sorted(node):
-                walk(node[k], prefix + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, prefix + (str(i),))
-        else:
-            out.append(("/".join(prefix), node))
-
-    walk(tree, ())
+    _flatten_into(out, tree, ())
     return out
+
+
+# The walks are module functions, not closures: a nested function that
+# calls itself is a reference cycle (function -> cell -> function) holding
+# its enclosing variables, so every tensor of a flattened or rebuilt tree
+# would outlive the call until Python's cyclic collector ran.
+
+def _flatten_into(out: list, node, prefix: tuple) -> None:
+    if node is None:
+        return
+    if isinstance(node, Mapping):
+        for k in sorted(node):
+            _flatten_into(out, node[k], prefix + (str(k),))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten_into(out, v, prefix + (str(i),))
+    else:
+        out.append(("/".join(prefix), node))
 
 
 def from_named(named: Iterable[Tuple[str, Any]]) -> Dict[str, Any]:
@@ -52,16 +57,19 @@ def from_named(named: Iterable[Tuple[str, Any]]) -> Dict[str, Any]:
 def rebuild(tree_like, values: Dict[str, Any]):
     """A tree of ``tree_like``'s structure whose leaf at each path is
     ``values[path]``."""
-    def walk(node, prefix):
-        if isinstance(node, Mapping):
-            return {k: walk(v, prefix + (str(k),)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, prefix + (str(i),))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        return values["/".join(prefix)]
-    return walk(tree_like, ())
+    return _rebuild(tree_like, values, ())
+
+
+def _rebuild(node, values: Dict[str, Any], prefix: tuple):
+    if isinstance(node, Mapping):
+        return {k: _rebuild(v, values, prefix + (str(k),))
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, values, prefix + (str(i),))
+                          for i, v in enumerate(node))
+    if node is None:
+        return None
+    return values["/".join(prefix)]
 
 
 def tree_map(fn: Callable, tree, *rest):

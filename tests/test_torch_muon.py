@@ -170,12 +170,19 @@ def test_state_dict_roundtrip():
 
 
 def test_unported_settings_raise_naming_roadmap():
+    """The schedule of ROADMAP item 7 is ported: pipeline='bucketed' and
+    update_staged run; what is left unported or invalid still raises."""
     plan = tapi.dedicate_params(_to_torch(_tree()), num_owners=2)
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        tapi.Muon(plan, device="cpu", pipeline="bucketed")
-    opt = tapi.Muon(plan, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
+    assert tapi.Muon(plan, device="cpu",
+                     pipeline="bucketed").config.pipeline == "bucketed"
+    with pytest.raises(ValueError, match="known: 'fused', 'bucketed'"):
+        tapi.Muon(plan, device="cpu", pipeline="wavefront")
+    opt = tapi.Muon(plan, device="cpu", compress_grads=True)
+    with pytest.raises(ValueError, match="compress_grads"):
         opt.update_staged({}, {}, None, None)
+    with pytest.raises(ValueError, match="requires mode='owner'"):
+        tapi.Muon(plan, device="cpu", mode="gather").update_staged(
+            {}, {}, None, None)
     with pytest.raises(ValueError, match="unknown variant"):
         tapi.Muon(plan, device="cpu", variant="nope")
 

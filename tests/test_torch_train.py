@@ -259,6 +259,42 @@ def test_rope_and_chunked_attention_match_reference():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("pipeline,accum,prestage", [
+    ("fused", 1, False), ("bucketed", 2, True)])
+def test_train_step_leaves_no_tensor_in_a_reference_cycle(pipeline, accum,
+                                                          prestage):
+    """Every tensor a train step makes is freed by reference counting:
+    with Python's cyclic collector off for two steps, a collection
+    afterwards finds no tensor in a cycle (one left there would hold its
+    device memory until a full collection)."""
+    import gc
+    _, tcfg, _, _ = _init()
+    plan = tapi.dedicate_params(ttransformer.init(tcfg, device="meta"))
+    opt = tapi.Muon(plan, config=MuonConfig(pipeline=pipeline),
+                    device="cpu")
+    dcfg = tpipeline.DataConfig(vocab=tcfg.vocab, seq_len=16,
+                                global_batch=4)
+    gc.collect()
+    gc.disable()
+    try:
+        state = tstep.init_state(tcfg, opt, device="cpu")
+        step = tstep.make_train_step(tcfg, opt, accum_steps=accum,
+                                     prestage=prestage, device="cpu")
+        for i in range(2):
+            state = step(state, tpipeline.batch_for_step(dcfg, i,
+                                                         device="cpu"))
+        assert np.isfinite(float(state.loss_ema))
+        del state, step
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        cyclic = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert not cyclic, [tuple(t.shape) for t in cyclic]
+
+
 def test_init_shapes_match_reference_and_seed_is_deterministic():
     jcfg, tcfg, jparams, _ = _init()
     a = ttransformer.init(tcfg, seed=1, device="cpu")
@@ -328,8 +364,10 @@ def _imported_modules(path: Path):
 
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
+    assert ROOT / "examples" / "torch_quickstart.py" in files
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

@@ -9,6 +9,8 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --mesh 2,1 --out DIR
     python tests/torch_dist_check.py variants --rank R --world W \\
         --port P --mesh 2,2 --out DIR
+    python tests/torch_dist_check.py pipeline --rank R --world W \\
+        --port P --mesh 2,2 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_dist_check.py jax --mesh 2,4 --out DIR
 
@@ -17,9 +19,11 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
 plus the port's own invariants; ``train`` runs the data-parallel train step
 of the reduced smollm-360m; ``variants`` runs every stateful optimizer
 variant 3 steps on the mesh (and, on rank 0, in one process on the same
-plan); ``jax`` runs the reference's own multi-device owner update on an
-Auto-axis mesh.  Each writes ``rank<R>.npz`` and
-``rank<R>.json`` (``jax.npz``) into DIR; the tests read them.  Every
+plan); ``pipeline`` runs the bucketed schedule against the fused one, its
+event order, prestaged accumulation and AdamW's train step; ``jax`` runs
+the reference's own multi-device owner update on an Auto-axis mesh.  Each
+writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
+tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
 fails one test.
 """
@@ -418,6 +422,203 @@ def variants_rank(args) -> None:
         {"owner_index": owner_index, "num_owners": plan.num_owners}))
 
 
+PIPELINE_VARIANTS = ("muon", "normuon", "muonbp", "dion2", "adamuon",
+                     "adamw")
+PIPELINE_KINDS = ("tp", "partial")
+# dist_tree plus a (64, 32) leaf: a second Gram bucket (m = 32)
+PIPELINE_SPECS = {**SPECS, "blocks/wk": (None, None, "model")}
+
+
+def pipeline_tree() -> dict:
+    t = dist_tree()
+    t["blocks"]["wk"] = (np.random.default_rng(2).standard_normal(
+        (8, 64, 32)) * 0.02).astype(np.float32)
+    return t
+
+
+def pipeline_grads(seed: int) -> dict:
+    g = dist_grads(seed)
+    g["blocks"]["wk"] = (np.random.default_rng(1000 + seed).standard_normal(
+        (8, 64, 32)) * 0.1).astype(np.float32)
+    return g
+
+
+def _dp_grads(G, mesh, kind: str):
+    """``G`` placed by ``PIPELINE_SPECS`` ("tp") or, for "partial", as
+    gradients still to be averaged over 'data' (every data rank holds the
+    same part, so the average is exact) and sharded over 'model'."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.core import tree
+    from repro_torch.models.sharding import place, placements
+    Gd = place(G, PIPELINE_SPECS, mesh)
+    if kind == "tp":
+        return Gd
+    return tree.rebuild(G, {
+        p: DTensor.from_local(
+            g.to_local(), mesh,
+            (Partial("avg"),)
+            + tuple(placements(PIPELINE_SPECS[p], mesh))[1:],
+            run_check=False, shape=g.shape, stride=g.stride())
+        for p, g in tree.flatten(Gd)})
+
+
+def pipeline_rank(args) -> None:
+    """The bucketed schedule on the mesh.
+
+    1. Every registry variant (MuonBP period 2) 3 steps fused and bucketed
+       from tensor-parallel and ``Partial`` gradients: each step's update
+       and this rank's momentum / variant-state rows.
+    2. The collectives (op, bytes) of muon's first step, fused and
+       bucketed, for both kinds.
+    3. The schedule's issue / wait / compute events (``on_event``).
+    4. The reduced smollm-360m train step, bucketed, ``accum_steps=2``,
+       with and without prestaging, 2 steps.
+    5. AdamW's train step (3 steps) against the clone-and-all-reduce path
+       recomputed here: local gradients, each reduced by a copy,
+       ``all_reduce`` and ``div_``, then ``adamw_update``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig, _matrix_and_rest, _split
+    from repro_torch.core.pipeline import BucketPipeline
+    from repro_torch.core.update_rules import adamw_update
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import place
+    from repro_torch.train.step import (init_state, make_loss_fn,
+                                        make_train_step)
+
+    mesh = _setup(args)
+    P = tree.tree_map(torch.from_numpy, pipeline_tree())
+    Pd = place(P, PIPELINE_SPECS, mesh)
+    plan = api.dedicate_params(P, mesh=mesh, strategy="greedy")
+    base = MuonConfig(mode="owner", learning_rate=LR, momentum=MOMENTUM,
+                      muonbp_period=2, ns=GramNSConfig(num_steps=NS_STEPS))
+    arrays, info = {}, {"comm": {}}
+
+    # 1 + 2
+    for variant in PIPELINE_VARIANTS:
+        for kind in PIPELINE_KINDS:
+            for pipe in ("fused", "bucketed"):
+                opt = api.Muon(plan, mesh, config=dataclasses.replace(
+                    base, variant=variant, pipeline=pipe), device="cpu")
+                state, tag = opt.init(Pd), f"{variant}/{kind}/{pipe}"
+                for t in range(VARIANT_STEPS):
+                    G = _dp_grads(tree.tree_map(torch.from_numpy,
+                                                pipeline_grads(1 + t)),
+                                  mesh, kind)
+                    if variant == "muon" and t == 0:
+                        rec = CommRecorder()
+                        with rec:
+                            upd, state = opt.update(G, state, Pd)
+                        info["comm"][tag] = rec.records
+                    else:
+                        upd, state = opt.update(G, state, Pd)
+                    arrays.update(_flat_np(f"{tag}/upd{t}", upd))
+                    arrays.update({f"{tag}/state{t}/mom/{k}": v.numpy()
+                                   for k, v in state.momentum.items()})
+                    arrays.update({f"{tag}/state{t}/vs/{p}": v.numpy()
+                                   for p, v in
+                                   tree.flatten(state.variant_state)})
+
+    # 3
+    opt = api.Muon(plan, mesh, config=dataclasses.replace(
+        base, pipeline="bucketed"), device="cpu")
+    pipe = BucketPipeline(plan, opt.config, mesh, opt.variant)
+    events = []
+    pipe.on_event = lambda what, b: events.append([what, b])
+    G = _dp_grads(tree.tree_map(torch.from_numpy, pipeline_grads(1)), mesh,
+                  "partial")
+    gm, _ = _matrix_and_rest(plan, G)
+    pm, _ = _matrix_and_rest(plan, Pd)
+    gm_local, gm_pl = _split(pipe.layout, gm)
+    pm_local, _ = _split(pipe.layout, pm)
+    pipe.run_from_grads(gm_local, gm_pl, pm_local, opt.init(Pd))
+    info.update({"events": events, "overlap": pipe.overlap,
+                 "buckets": len(pipe.schedule)})
+
+    # 4
+    cfg = configs.get("smollm-360m", reduced=True)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8)
+    shapes = transformer.init(cfg, device="meta")
+    tplan = api.dedicate_params(shapes, mesh=mesh)
+    losses, scatters = {}, {}
+    for prestage in (False, True):
+        opt = api.Muon(tplan, mesh, config=MuonConfig(
+            learning_rate=0.02, momentum=0.95, pipeline="bucketed"),
+            device="cpu")
+        state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+        step = make_train_step(cfg, opt, mesh, accum_steps=2,
+                               prestage=prestage, device="cpu")
+        losses[str(prestage)] = []
+        for i in range(2):
+            before = {p: v.detach().clone()
+                      for p, v in tree.flatten(state.params)}
+            batch = batch_for_step(dcfg, i, device="cpu", mesh=mesh)
+            if i == 0:
+                rec = CommRecorder()
+                with rec:
+                    state = step(state, batch)
+                scatters[str(prestage)] = sum(
+                    op == "_reduce_scatter_base_" for op, _ in rec.records)
+            else:
+                state = step(state, batch)
+            losses[str(prestage)].append(float(state.loss_ema))
+            arrays.update({f"prestage{prestage}/upd{i}/{p}":
+                           (v.detach() - before[p]).numpy()
+                           for p, v in tree.flatten(state.params)})
+        arrays.update({f"prestage{prestage}/params/{p}": v.detach().numpy()
+                       for p, v in tree.flatten(state.params)})
+    info.update({"prestage_losses": losses,
+                 "prestage_reduce_scatters": scatters})
+
+    # 5
+    opt = api.Muon(tplan, mesh, config=MuonConfig(variant="adamw"),
+                   device="cpu")
+    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    step = make_train_step(cfg, opt, mesh, device="cpu")
+    ref = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    loss_fn = make_loss_fn(cfg)
+    data = mesh.get_group(0)
+    ref_adamw = ref.opt_state.adamw
+    for i in range(3):
+        batch = batch_for_step(dcfg, i, device="cpu", mesh=mesh)
+        state = step(state, batch)
+        paths, leaves = zip(*tree.flatten(ref.params))
+        grads = torch.autograd.grad(loss_fn(ref.params, batch), leaves)
+        reduced = {}
+        for p, g in zip(paths, grads):
+            out = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(out, group=data)
+            reduced[p] = out.div_(mesh.size(0))
+        upd, ref_adamw = adamw_update(reduced, ref_adamw,
+                                      dict(zip(paths, leaves)), i,
+                                      opt.config)
+        with torch.no_grad():
+            for p, v in zip(paths, leaves):
+                v.add_(upd[p])
+    for name, params, adamw, n in [
+            ("adamw_step", state.params, state.opt_state.adamw,
+             state.opt_state.step),
+            ("adamw_clone", ref.params, ref_adamw, 3)]:
+        arrays.update({f"{name}/params/{p}": v.detach().numpy()
+                       for p, v in tree.flatten(params)})
+        arrays.update({f"{name}/mu/{p}": v.numpy()
+                       for p, v in adamw.mu.items()})
+        arrays.update({f"{name}/nu/{p}": v.numpy()
+                       for p, v in adamw.nu.items()})
+        info[f"{name}_opt_step"] = n
+
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
 def jax_reference(args) -> None:
     """The reference's owner update inside jit on an Auto-axis mesh (jax
     0.9's ``make_mesh`` default is Explicit axes, which its owner layout's
@@ -458,7 +659,8 @@ def jax_reference(args) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("owner", "train", "variants", "jax"))
+    ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
+                                     "jax"))
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--port", type=int, default=0)
@@ -474,7 +676,7 @@ def main() -> None:
     import torch.distributed as dist
     try:
         {"owner": owner_rank, "train": train_rank,
-         "variants": variants_rank}[args.mode](args)
+         "variants": variants_rank, "pipeline": pipeline_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
