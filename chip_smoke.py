@@ -54,6 +54,24 @@ Phases, each printing one JSON line and asserting what it checks:
            step), timed beside the train phase; one update from the same
            full-width gradients bucketed and fused, and two saved microbatch
            gradients accumulated prestaged and unstaged: bitwise equal.
+  resilience
+           the resilient loop (``runtime/resilient.py``) at full width,
+           muon with 4 owners in one process, kernels on, through the
+           drill slow@4:r3x4.0; unslow@10:r3; kill@12:r1; readd@16;
+           preempt@22 over 24 steps with a checkpoint every 8 (keep 2,
+           under the ignored ``build/``, deleted at the end; the free
+           disk checked first): 30 executed steps, a rebalance, one kill,
+           readd and preempt each (the preempt restores the step-16
+           checkpoint written at 3 owners through
+           ``reshard_owner_state``), 7 / 35 / 84 launches in every
+           executed step; parameters, loss curve and logical momentum rows
+           bitwise equal to an unfaulted 24-step run.  Prints each save's
+           synchronous snapshot and asynchronous write, each restore and
+           reshard, each recovery's latency and the steady step.  Then
+           ``python -m repro_torch.launch.train`` (greedy, batch 8 x 512)
+           as subprocesses: 3 steps with a checkpoint, resumed to 6, and 6
+           straight: loss_ema and every parameter's float64 sum bitwise
+           equal.  Prints the phase's seconds.
   mesh     every visible card, one NCCL process each (spawned; they load
            the kernels the parent built), on a ("data", "model") =
            (cards, 1) mesh: one Muon update from the same full-width
@@ -85,7 +103,11 @@ Phases, each printing one JSON line and asserting what it checks:
            where the mean belongs and a dropped rank must each miss by
            >= 10x on more than one card.  ``--trace adamw,owner`` writes
            ``torch.profiler`` traces of those mesh runs (rank 0) into
-           ``--trace-dir`` (default ``build/traces``).
+           ``--trace-dir`` (default ``build/traces``).  The owner run's
+           last state is saved by every rank with the checkpoint manager
+           (owner rows in row blocks) and restored by rank 0 in one
+           process onto a plan of ``cards`` owners: its logical momentum
+           rows bitwise those of an all-gather taken in the run.
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran), the nvidia-smi line (the first card's; the device line
@@ -133,7 +155,7 @@ KERNELS = {
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "pipeline", "mesh")
+          "pipeline", "resilience", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -637,7 +659,7 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               knobs: dict | None = None,
               trace: str | None = None, pipeline: str = "fused",
               accum_steps: int = 1, prestage: bool | None = None,
-              steps: int = TRAIN_STEPS) -> dict:
+              steps: int = TRAIN_STEPS, keep_state: bool = False) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on)
     ``steps`` steps with ``variant`` / ``mode`` / ``pipeline`` and
     the MuonConfig fields ``knobs``, under ``mesh`` when given (each rank
@@ -658,7 +680,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     back after them (``gc.unfreeze``), so nothing of the run outlives it.
     With ``trace`` (a file path) the steps run under ``torch.profiler``
     (host and device), the Chrome trace is written there and a per-step
-    summary returned."""
+    summary returned.  With ``keep_state`` the last ``TrainState`` is
+    returned too."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
@@ -774,7 +797,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "first_updates": first, "first_grads": first_grads,
             "final_params": {p: v.detach().to("cpu") for p, v in
                              tree.flatten(state.params)} if capture else {},
-            "plan": plan, "cfg": cfg, "data": dcfg}
+            "plan": plan, "cfg": cfg, "data": dcfg,
+            "state": state if keep_state else None}
 
 
 def phase_train(torch, variant: str) -> dict:
@@ -1078,6 +1102,308 @@ def phase_pipeline(torch, fused=None) -> None:
             f"unstaged {d_st:.3e} (momentum {same_st_mom}): not bitwise")
 
 
+# -------------------------------------------------------------- resilience
+
+RESILIENCE_DRILL = ("slow@4:r3x4.0; unslow@10:r3; kill@12:r1; readd@16; "
+                    "preempt@22")
+RESILIENCE_STEPS = 24
+RESILIENCE_OWNERS = 4
+RESILIENCE_RUN = dict(ckpt_every=8, window=4, cooldown=4, threshold=1.3)
+RESILIENCE_KEEP = 2
+# steps 0..21, then 16..23 again from the step-16 checkpoint
+RESILIENCE_EXECUTED = 30
+RESILIENCE_RESUMED = 16
+# the launcher: 3 steps with a checkpoint, resumed to 6, against 6 straight
+LAUNCHER_STEPS, LAUNCHER_CKPT_EVERY = 6, 3
+LAUNCHER_TIMEOUT_S = 300
+
+
+def logical_rows(torch, plan, bufs: dict) -> dict:
+    """{group: the logical (count, m, n) rows of an owner-major buffer}."""
+    from repro_torch.core.owner_comms import group_key_str
+    return {group_key_str(k): bufs[group_key_str(k)].index_select(
+        0, torch.as_tensor(g.unpack_index, device=bufs[group_key_str(k)].device))
+        for k, g in plan.groups.items()}
+
+
+def tree_nbytes(torch, t) -> int:
+    """Bytes of every tensor and array leaf of a checkpoint tree."""
+    import numpy as np
+    out = 0
+    stack = [t]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, tuple):
+            stack.extend(node)
+        elif isinstance(node, torch.Tensor):
+            out += node.numel() * node.element_size()
+        elif isinstance(node, np.ndarray):
+            out += node.nbytes
+    return out
+
+
+def resilient_loop(torch, faults, ckpt_dir, launches: list, events: dict):
+    """A ``ResilientLoop`` at full width (seed 0, batch 8 x 512, muon,
+    ``RESILIENCE_OWNERS`` owners in this process, kernels on) whose step
+    function records each step's kernel launches into ``launches``
+    (counters set to 0 just before the step and read just after), and
+    whose restores and ``reshard_owner_state`` calls are timed into
+    ``events`` (synchronised host clock)."""
+    from repro_torch import configs
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
+
+    class Counted(ResilientLoop):
+        def _install(self, plan):
+            super()._install(plan)
+            step_fn = self.step_fn
+
+            def counted(state, batch):
+                reset_launches()
+                out = step_fn(state, batch)
+                launches.append(dict(LAUNCHES))
+                return out
+            self.step_fn = counted
+
+        def _restore_from_checkpoint(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events["context"] = "restore"
+            try:
+                return super()._restore_from_checkpoint()
+            finally:
+                events["context"] = "live"
+                torch.cuda.synchronize()
+                events["restore_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+
+    cfg = configs.get("smollm-360m")
+    return Counted(
+        cfg, DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8),
+        muon=MuonConfig(variant="muon", ns=GramNSConfig(use_kernels=True)),
+        run=ResilientConfig(steps=RESILIENCE_STEPS, **(
+            RESILIENCE_RUN if ckpt_dir else {})),
+        num_owners=RESILIENCE_OWNERS,
+        ckpt_dir=None if ckpt_dir is None else str(ckpt_dir),
+        ckpt_keep=RESILIENCE_KEEP, faults=faults, device="cuda")
+
+
+def timed_reshard(torch, events: dict):
+    """Wrap ``api.reshard_owner_state`` (looked up at each call by the
+    loop) to time each call into ``events['reshards']``; returns the
+    original to put back."""
+    from repro_torch.core import api
+    inner = api.reshard_owner_state
+
+    def reshard(state, old_plan, new_plan, mesh=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(state, old_plan, new_plan, mesh)
+        torch.cuda.synchronize()
+        events["reshards"].append({
+            "context": events["context"],
+            "owners": [old_plan.num_owners, new_plan.num_owners],
+            "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+    api.reshard_owner_state = reshard
+    return inner
+
+
+def phase_resilience(torch, smi: str) -> None:
+    """The resilient loop at full width on one card, then the launcher.
+
+    1. The drill ``RESILIENCE_DRILL`` over ``RESILIENCE_STEPS`` steps with a
+       checkpoint every 8 into a fresh directory under the ignored
+       ``build/`` (``keep=2``; deleted at the end; the free disk checked
+       first against three checkpoints): 30 executed steps, at least one
+       rebalance (its makespans printed, not gated: they rest on
+       wall-clock speeds), one kill, readd and preempt each, the preempt
+       resuming the step-16 checkpoint written at 3 owners (so the restore
+       goes through ``reshard_owner_state``), 7 / 35 / 84 launches in every
+       executed step.  Parameters, loss curve and logical momentum rows
+       bitwise equal to an unfaulted ``RESILIENCE_STEPS``-step run.
+       Printed: each save's synchronous snapshot and asynchronous write,
+       each restore and reshard, each recovery's latency, the steady step.
+    2. ``python -m repro_torch.launch.train --strategy greedy --batch 8
+       --seq 512`` as subprocesses: 3 steps with a checkpoint, ``--resume``
+       to 6, and 6 straight: the final loss_ema and every parameter's
+       float64 sum bitwise equal, 7 / 35 / 84 launches a step."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import api, tree
+    from repro_torch.runtime.faults import FaultPlan
+
+    t_phase = time.perf_counter()
+    ckpt = ROOT / "build" / "resilience_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    events = {"context": "live", "reshards": [], "restore_ms": []}
+    inner = timed_reshard(torch, events)
+    try:
+        launches: list = []
+        loop = resilient_loop(torch, FaultPlan.parse(RESILIENCE_DRILL), ckpt,
+                              launches, events)
+        nbytes = tree_nbytes(torch, loop._checkpoint_tree())
+        free = shutil.disk_usage(ckpt).free
+        emit({"phase": "resilience", "check": "disk",
+              "checkpoint_bytes": nbytes, "checkpoint_gb": nbytes / 1e9,
+              "disk_free_gb": free / 1e9,
+              "need_gb": (RESILIENCE_KEEP + 1) * nbytes / 1e9})
+        if free < (RESILIENCE_KEEP + 1) * nbytes:
+            raise AssertionError(f"{free / 1e9:.1f} GB free under build/, "
+                                 f"the drill needs "
+                                 f"{(RESILIENCE_KEEP + 1) * nbytes / 1e9:.1f}")
+        report = loop.run()
+        saves = list(loop.mgr.timings)
+        faulted = {"params": {p: v.detach() for p, v in
+                              tree.flatten(loop.state.params)},
+                   "rows": logical_rows(torch, loop.plan,
+                                        loop.state.opt_state.momentum),
+                   "losses": report.loss_curve(), "plan": loop.plan}
+        del loop
+        torch.cuda.empty_cache()
+        plain_launches: list = []
+        plain = resilient_loop(torch, None, None, plain_launches, events)
+        plain_report = plain.run()
+    finally:
+        api.reshard_owner_state = inner
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    kinds = [r["kind"] for r in report.recoveries]
+    preempt = next((r for r in report.recoveries if r["kind"] == "preempt"),
+                   {})
+    restore_reshards = [r for r in events["reshards"]
+                        if r["context"] == "restore"]
+    params_same = all(torch.equal(v, dict(tree.flatten(
+        plain.state.params))[p]) for p, v in faulted["params"].items())
+    plain_rows = logical_rows(torch, plain.plan,
+                              plain.state.opt_state.momentum)
+    rows_same = faulted["rows"].keys() == plain_rows.keys() and all(
+        torch.equal(v, plain_rows[k]) for k, v in faulted["rows"].items())
+    losses_same = faulted["losses"] == plain_report.loss_curve()
+    want = dict(LAUNCHES_PER_STEP)
+    bad_launches = [i for i, d in enumerate(launches) if d != want]
+    bad_plain = [i for i, d in enumerate(plain_launches) if d != want]
+    emit({"phase": "resilience", "check": "drill", "nvidia_smi": smi,
+          "drill": RESILIENCE_DRILL, "steps": report.steps,
+          "executed_steps": report.executed_steps,
+          "recoveries": [{**r, "latency_ms": r["latency_s"] * 1e3}
+                         for r in report.recoveries],
+          "rebalances": [{**r, "latency_ms": r["latency_s"] * 1e3}
+                         for r in report.rebalances],
+          "checkpoints": report.checkpoints,
+          "saves": [{"step": t["step"],
+                     "snapshot_ms": t["snapshot_s"] * 1e3,
+                     "write_ms": t.get("write_s", float("nan")) * 1e3}
+                    for t in saves],
+          "restore_ms": events["restore_ms"],
+          "reshards": events["reshards"],
+          "launches_per_step": launches,
+          "steady_step_ms": float(np.median(report.step_times[1:]) * 1e3),
+          "plain_steady_step_ms": float(
+              np.median(plain_report.step_times[1:]) * 1e3),
+          "step_ms": [t * 1e3 for t in report.step_times],
+          "losses": faulted["losses"],
+          "bitwise": {"params": params_same, "momentum_rows": rows_same,
+                      "loss_curve": losses_same}})
+    failures = []
+    if report.steps != RESILIENCE_STEPS or \
+            report.executed_steps != RESILIENCE_EXECUTED:
+        failures.append(f"steps {report.steps}, executed "
+                        f"{report.executed_steps}")
+    if not report.rebalances:
+        failures.append("no rebalance")
+    if sorted(kinds) != ["kill", "preempt", "readd"]:
+        failures.append(f"recoveries {kinds}")
+    if preempt.get("resumed_step") != RESILIENCE_RESUMED:
+        failures.append(f"preempt resumed at {preempt.get('resumed_step')}")
+    if [r["owners"] for r in restore_reshards] != [[3, RESILIENCE_OWNERS]]:
+        failures.append(f"restore reshards {restore_reshards}")
+    if bad_launches or bad_plain or \
+            len(launches) != RESILIENCE_EXECUTED:
+        failures.append(f"launches off {want} at executed steps "
+                        f"{bad_launches} (drill), {bad_plain} (plain)")
+    if not (params_same and rows_same and losses_same):
+        failures.append(f"drill not bitwise the unfaulted run: params "
+                        f"{params_same}, momentum rows {rows_same}, loss "
+                        f"curve {losses_same}")
+    del faulted, plain, plain_rows
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("resilience drill: " + "; ".join(failures))
+    launcher_restart(torch, smi)
+    emit({"phase": "resilience", "check": "seconds",
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
+def launcher_run(args: list, tag: str) -> dict:
+    """One ``python -m repro_torch.launch.train`` subprocess at full width
+    on the card; its ``[result]`` line and its seconds."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--strategy",
+           "greedy", "--batch", "8", "--seq", "512", *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=LAUNCHER_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launcher {tag} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    if not line.startswith("[result] "):
+        raise AssertionError(f"launcher {tag}: no result line:\n"
+                             f"{out.stdout[-3000:]}")
+    return {**json.loads(line[len("[result] "):]), "seconds": seconds}
+
+
+def launcher_restart(torch, smi: str) -> None:
+    """The launcher stopped after a checkpoint and resumed, against the same
+    steps in one run: bitwise (loss_ema, every parameter's float64 sum)."""
+    import shutil
+    ckpt = ROOT / "build" / "launcher_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        first = launcher_run(["--steps", str(LAUNCHER_CKPT_EVERY),
+                              "--ckpt-dir", str(ckpt), "--ckpt-every",
+                              str(LAUNCHER_CKPT_EVERY)], "first")
+        # resumed with no checkpoint due before its end (a save costs ≈ 4 s)
+        resumed = launcher_run(["--steps", str(LAUNCHER_STEPS), "--resume",
+                                "--ckpt-dir", str(ckpt), "--ckpt-every",
+                                str(LAUNCHER_STEPS + 1)], "resumed")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    straight = launcher_run(["--steps", str(LAUNCHER_STEPS)], "straight")
+    runs = {"first": first, "resumed": resumed, "straight": straight}
+    emit({"phase": "resilience", "check": "launcher", "nvidia_smi": smi,
+          "runs": {k: {f: r[f] for f in ("steps", "executed_steps",
+                                         "loss_ema", "launches", "seconds")}
+                   for k, r in runs.items()},
+          "bitwise": {"loss_ema": resumed["loss_ema"] == straight["loss_ema"],
+                      "param_sums": resumed["param_sums"]
+                      == straight["param_sums"]}})
+    for k, r in runs.items():
+        want = {n: v * r["executed_steps"] for n, v in
+                LAUNCHES_PER_STEP.items()}
+        if r["launches"] != want:
+            raise AssertionError(f"launcher {k}: launches {r['launches']}, "
+                                 f"expected {want}")
+    if resumed["executed_steps"] != LAUNCHER_STEPS - LAUNCHER_CKPT_EVERY:
+        raise AssertionError(f"resumed run executed "
+                             f"{resumed['executed_steps']} steps")
+    if resumed["loss_ema"] != straight["loss_ema"] or \
+            resumed["param_sums"] != straight["param_sums"]:
+        raise AssertionError("the resumed launcher run is not bitwise the "
+                             "straight one")
+
+
 # -------------------------------------------------------------------- mesh
 
 MESH_TIMEOUT_S = 180           # every NCCL collective of the phase
@@ -1261,9 +1587,12 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses,
         run = train_run(torch, variant, mode, mesh,
                         capture=True if owner else
                         "host" if name in PIPELINE_PAIRS_RUNS else False,
-                        grads=owner,
+                        grads=owner, keep_state=owner,
                         trace=(trace or {}).get(name) if lead else None,
                         steps=MESH_STEPS, **kw)
+        if owner:
+            mesh_checkpoint(torch, dist, run.pop("state"), run["plan"], mesh,
+                            rank, world, shapes)
         timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
                                       "peak_mem_gb", "launches",
                                       "allocator_by_step", "gc_by_step",
@@ -1303,6 +1632,66 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses,
             torch.cuda.empty_cache()
             failure = train_vs_single(torch, runs, single, accum, world,
                                       train_losses, matrices, pairs)
+    failures = [None] * world
+    dist.all_gather_object(failures, failure)
+    if failures[0] is not None:
+        raise AssertionError(failures[0])
+
+
+def mesh_checkpoint(torch, dist, state, plan, mesh, rank: int, world: int,
+                    shapes) -> None:
+    """Every rank saves the owner run's last state with the checkpoint
+    manager (its owner rows as row blocks, rank 0 the replicated leaves),
+    after an all-gather of every rank's momentum rows; rank 0 restores the
+    checkpoint in one process onto a plan of ``world`` owners, whose
+    logical momentum rows must be bitwise those of the all-gather."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager, RowBlocks
+    from repro_torch.core import api
+    from repro_torch.core.owner_comms import OwnerLayout
+    from repro_torch.runtime.resilient import OWNER_PREFIXES
+
+    d = ROOT / "build" / "mesh_ckpt"
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    dist.barrier()
+    layout = OwnerLayout(plan, mesh)
+    gathered = {k: layout.gather_rows(v)
+                for k, v in state.opt_state.momentum.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(str(d), keep=1).save(
+        state.step, {"train": state._asdict(),
+                     "meta": {"num_owners": np.asarray(world, np.int64)}},
+        block=True, row_blocks=RowBlocks(OWNER_PREFIXES,
+                                         layout.owner_index(), world))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    failure = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        restored = CheckpointManager(str(d)).restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        one = api.dedicate_params(shapes, num_owners=world,
+                                  strategy="greedy")
+        got = logical_rows(torch, one,
+                           restored["train"]["opt_state"].momentum)
+        want = logical_rows(torch, plan, gathered)
+        same = got.keys() == want.keys() and all(
+            torch.equal(got[k], v) for k, v in want.items())
+        emit({"phase": "mesh", "check": "checkpoint", "world": world,
+              "step": restored["train"]["step"], "save_ms": save_ms,
+              "restore_one_process_ms": restore_ms,
+              "momentum_rows_bitwise": same})
+        del restored, got, want
+        shutil.rmtree(d, ignore_errors=True)
+        if not same:
+            failure = ("the checkpoint restored in one process differs from "
+                       "the all-gathered momentum rows")
+    del gathered
     failures = [None] * world
     dist.all_gather_object(failures, failure)
     if failures[0] is not None:
@@ -1667,6 +2056,9 @@ def main() -> int:
         phase_variants(torch)
     if "pipeline" in phases:
         phase_pipeline(torch, fused)
+    if "resilience" in phases:
+        torch.cuda.empty_cache()
+        phase_resilience(torch, smi[0])
     if "mesh" in phases:
         world = torch.cuda.device_count()
         phase_mesh(torch, train_losses, {

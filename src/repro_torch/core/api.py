@@ -55,13 +55,15 @@ from repro_torch.core.muon import (AdamWState, MuonConfig, MuonState,
                                    _resolve, muon_init, muon_update,
                                    muon_update_staged)
 from repro_torch.core.orthogonalize import dion2_rank
+from repro_torch.core.owner_comms import OwnerLayout, group_key_str, repack_rows
 from repro_torch.core.update_rules import VariantSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import axis_sizes
 
 __all__ = ["dedicate_params", "Muon", "MuonConfig", "GramNSConfig",
            "DedicationPlan", "default_muon_predicate", "VariantSpec",
-           "VARIANTS", "register_variant", "get_variant"]
+           "VARIANTS", "register_variant", "get_variant",
+           "reshard_owner_state"]
 
 
 VARIANTS: Dict[str, VariantSpec] = {}
@@ -199,3 +201,62 @@ class Muon:
                          adamw=AdamWState(d["adamw_mu"], d["adamw_nu"]),
                          error_feedback=d.get("error_feedback"),
                          variant_state=d.get("variant_state"))
+
+
+def map_owner_buffers(state: MuonState, fn) -> MuonState:
+    """``state`` with ``fn(group_key_str, buffer)`` applied to every
+    owner-major buffer: the momentum and each non-None variant-state field
+    (None fields stay None, so the tree matches a fresh ``muon_init``'s).
+    AdamW moments and error feedback are training-layout trees and pass
+    through as they are."""
+    vstate = state.variant_state
+    if vstate is not None:
+        vstate = {field: None if bufs is None else
+                  {skey: fn(skey, buf) for skey, buf in bufs.items()}
+                  for field, bufs in vstate.items()}
+    return MuonState(step=state.step,
+                     momentum={skey: fn(skey, buf)
+                               for skey, buf in state.momentum.items()},
+                     adamw=state.adamw, error_feedback=state.error_feedback,
+                     variant_state=vstate)
+
+
+def reshard_owner_state(state: MuonState, old_plan: DedicationPlan,
+                        new_plan: DedicationPlan, mesh=None) -> MuonState:
+    """Elastic restart across owner counts (fault-tolerance substrate).
+
+    Owner-layout buffers are padded to ``D·cap`` rows, so a state taken at D
+    owners cannot be used verbatim at D′ owners after a node failure.  Each
+    group's owner-major buffers are unpacked to their logical (count, ...)
+    rows under the OLD plan and repacked / padded under the NEW plan
+    (``owner_comms.repack_rows``): an exact permutation of the logical rows,
+    the pad rows zero.  This covers the momentum and every per-variant
+    state buffer (NorMuon / AdaMuon moments, MuonBP polar caches, Dion2
+    bases), which share the owner-major row layout.  AdamW moments and
+    error feedback are training-layout trees and pass through as they are.
+
+    Under ``mesh`` each rank holds only its own rows (``OwnerLayout.
+    local_rows``): the group's D·cap rows are all-gathered over the owner
+    axes, repacked, and this rank keeps its block of the new layout.  Both
+    plans must then be plans of this mesh (the rebalance case, equal owner
+    counts); a move across world sizes goes through a checkpoint
+    (``checkpoint/manager.py``), whose restore assembles every row."""
+    skey_to_key = {group_key_str(k): k for k in old_plan.groups}
+    old_layout = OwnerLayout(old_plan, mesh)
+    new_layout = OwnerLayout(new_plan, mesh)
+
+    def repack(skey, buf):
+        old_g = old_plan.groups[skey_to_key[skey]]
+        new_g = new_plan.groups[skey_to_key[skey]]
+        if old_g.count != new_g.count:
+            raise ValueError(
+                f"reshard_owner_state: group {skey!r} has {old_g.count} "
+                f"logical rows under the old plan but {new_g.count} under "
+                f"the new plan — the plans describe different parameter "
+                f"sets, not an owner-count change")
+        full = repack_rows(old_g, new_g, old_layout.gather_rows(buf))
+        if mesh is None:
+            return full
+        return new_layout.local_block(full).clone()   # free the others' rows
+
+    return map_owner_buffers(state, repack)

@@ -386,6 +386,7 @@ class OwnerLayout:
         self.mesh = mesh
         self.device = device
         self.shards = 1
+        self.owner_dims, self.other_dims = [], []
         if mesh is None:
             return
         names = tuple(mesh.mesh_dim_names)
@@ -410,6 +411,29 @@ class OwnerLayout:
             return None
         return tuple(Shard(0) if i in self.owner_dims else Replicate()
                      for i in range(self.mesh.ndim))
+
+    def owner_index(self) -> int:
+        """This rank's owner slot: its coordinates on the owner axes,
+        row-major, the order of its rows in the owner-major stack (0
+        without a mesh)."""
+        index = 0
+        for i in self.owner_dims:
+            index = index * self.mesh.size(i) + self.mesh.get_local_rank(i)
+        return index
+
+    def local_block(self, buf: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a buffer holding all D·cap rows."""
+        rows = buf.shape[0] // self.shards
+        i = self.owner_index()
+        return buf[i * rows:(i + 1) * rows]
+
+    def gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """All D·cap rows of an owner-major buffer from every rank's own
+        rows (all-gathers over the owner axes; ``local`` itself without a
+        mesh)."""
+        if self.mesh is None:
+            return local
+        return replicate(local, self.buffer_placements(), self.mesh)
 
     def local_rows(self, key) -> int:
         """Rows of group ``key``'s owner-major buffers on this rank."""

@@ -333,12 +333,16 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import repro_torch
 from repro_torch import configs, device
+from repro_torch.checkpoint import manager
 from repro_torch.core import (api, coefficients, dedication, gram_ns, layout,
                               load_balance, muon, newton_schulz, orthogonalize,
-                              owner_comms, tree, update_rules)
+                              owner_comms, pipeline as bucket_pipeline, tree,
+                              update_rules)
 from repro_torch.data import pipeline
 from repro_torch.kernels import autotune, build, gram_syrk, ops, ref, symmul
-from repro_torch.models import layers, transformer
+from repro_torch.launch import mesh, train
+from repro_torch.models import layers, sharding, transformer
+from repro_torch.runtime import elastic, faults, resilient
 from repro_torch.train import step, train_state
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules), "reference module imported"
@@ -368,6 +372,10 @@ def test_source_scan_finds_no_jax_or_reference_import():
         sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
     assert ROOT / "examples" / "torch_quickstart.py" in files
+    for sub in ("checkpoint/manager.py", "runtime/faults.py",
+                "runtime/elastic.py", "runtime/resilient.py",
+                "launch/train.py"):
+        assert ROOT / "src" / "repro_torch" / sub in files, sub
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

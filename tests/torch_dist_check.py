@@ -11,6 +11,10 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 2,2 --out DIR
     python tests/torch_dist_check.py pipeline --rank R --world W \\
         --port P --mesh 2,2 --out DIR
+    python tests/torch_dist_check.py checkpoint --rank R --world W \\
+        --port P --mesh 2,2 --out DIR
+    python tests/torch_dist_check.py restore --rank R --world W \\
+        --port P --mesh 1,2 --out DIR/restore
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_dist_check.py jax --mesh 2,4 --out DIR
 
@@ -20,7 +24,12 @@ plus the port's own invariants; ``train`` runs the data-parallel train step
 of the reduced smollm-360m; ``variants`` runs every stateful optimizer
 variant 3 steps on the mesh (and, on rank 0, in one process on the same
 plan); ``pipeline`` runs the bucketed schedule against the fused one, its
-event order, prestaged accumulation and AdamW's train step; ``jax`` runs
+event order, prestaged accumulation and AdamW's train step;
+``checkpoint`` runs the resilient loop on the mesh (a rebalance, then a
+checkpoint written in owner row blocks into DIR/ckpt), reshards an
+owner-layout state on the mesh against the one-process reshard, and
+kills an owner on the mesh; ``restore`` resumes that checkpoint on
+another mesh (the checkpoint of DIR's parent); ``jax`` runs
 the reference's own multi-device owner update on an Auto-axis mesh.  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
@@ -619,6 +628,141 @@ def pipeline_rank(args) -> None:
     (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
 
 
+CKPT_LAYERS, CKPT_STEPS = 4, 4
+CKPT_SPEED = (1.0, 1.0, 1.0, 0.25)
+
+
+def _resilient_loop(mesh, ckpt_dir=None, *, faults=None, steps=CKPT_STEPS,
+                    resume=False, **run):
+    """The port's resilient loop on the reduced smollm-360m (NorMuon, so a
+    variant-state buffer rides beside the momentum)."""
+    from repro_torch import configs
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
+    cfg = configs.get("smollm-360m", reduced=True, n_layers=CKPT_LAYERS)
+    return ResilientLoop(
+        cfg, DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4),
+        muon=MuonConfig(variant="normuon"),
+        run=ResilientConfig(steps=steps, ckpt_every=steps, **run),
+        mesh=mesh, ckpt_dir=None if ckpt_dir is None else str(ckpt_dir),
+        faults=None if faults is None else FaultPlan.parse(faults),
+        resume=resume, device="cpu")
+
+
+def _owner_arrays(loop) -> dict:
+    """This rank's owner rows of the momentum and NorMuon's ``v``, and the
+    parameters."""
+    from repro_torch.core import tree
+    st = loop.state.opt_state
+    out = {f"mom/{k}": v.numpy() for k, v in st.momentum.items()}
+    out.update({f"v/{k}": v.numpy()
+                for k, v in st.variant_state["v"].items()})
+    out.update({f"params/{p}": v.detach().numpy()
+                for p, v in tree.flatten(loop.state.params)})
+    return out
+
+
+def _mesh_info(loop) -> dict:
+    from repro_torch.core.owner_comms import OwnerLayout
+    return {"owner_index": OwnerLayout(loop.plan, loop.mesh).owner_index(),
+            "num_owners": loop.num_owners, "step": loop.state.step}
+
+
+def checkpoint_rank(args) -> None:
+    """1. The resilient loop on the mesh, NorMuon, ``CKPT_STEPS`` steps,
+       slow@0 on owner slot 3 (a rebalance, decided alike on every rank),
+       a checkpoint at the end written in owner row blocks into
+       DIR/ckpt; this rank's owner rows and parameters saved.
+    2. An owner-layout state on the 'assignment' physical layout resharded
+       on the mesh onto a plan re-solved with slow owner speeds, against
+       the one-process reshard of the same rows: bitwise, every group.
+    3. A kill on the mesh raises NotImplementedError."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.muon import AdamWState, MuonState
+    from repro_torch.core.owner_comms import OwnerLayout, group_key_str
+    from repro_torch.data.pipeline import Pipeline, batch_for_step
+
+    mesh = _setup(args)
+    loop = _resilient_loop(mesh, Path(args.out) / "ckpt",
+                           faults="slow@0:r3x4.0", window=2, cooldown=1)
+    report = loop.run()
+    arrays = _owner_arrays(loop)
+    info = {**_mesh_info(loop), "rebalances": len(report.rebalances),
+            "rebalance_steps": [r["step"] for r in report.rebalances],
+            "checkpoints": report.checkpoints,
+            "losses": report.loss_curve()}
+
+    # 2: reshard on the mesh against one process, non-trivial layouts
+    plans = [api.dedicate_params(loop.shapes, mesh=mesh, strategy="greedy",
+                                 speed=speed, physical_layout="assignment")
+             for speed in (None, np.asarray(CKPT_SPEED))]
+    rng = np.random.default_rng(5)
+    full = {group_key_str(k): torch.from_numpy(rng.standard_normal(
+        (g.packed_size,) + tuple(g.key)).astype(np.float32))
+        for k, g in plans[0].groups.items()}
+
+    def state(bufs):
+        return MuonState(0, bufs, AdamWState({}, {}), None, None)
+    old = OwnerLayout(plans[0], mesh)
+    got = api.reshard_owner_state(
+        state({k: old.local_block(v) for k, v in full.items()}),
+        plans[0], plans[1], mesh)
+    want = api.reshard_owner_state(state(full), plans[0], plans[1])
+    new = OwnerLayout(plans[1], mesh)
+    info["mesh_reshard_bitwise"] = {
+        k: bool(torch.equal(got.momentum[k], new.local_block(v)))
+        for k, v in want.momentum.items()}
+    info["layouts_differ"] = any(
+        not np.array_equal(plans[0].groups[k].pack_index,
+                           plans[1].groups[k].pack_index)
+        for k in plans[0].groups)
+
+    # the prefetching pipeline yields this rank's rows of each batch
+    pipe = Pipeline(loop.data_cfg, mesh=mesh, start_step=3, device="cpu")
+    try:
+        info["pipeline_rows"] = all(
+            all(torch.equal(v, want[k]) for k, v in next(pipe).items())
+            for want in (batch_for_step(loop.data_cfg, s, device="cpu",
+                                        mesh=mesh) for s in (3, 4)))
+    finally:
+        pipe.close()
+
+    # remesh over the world and over a subset of it
+    from repro_torch.runtime.elastic import remesh
+    full, flat, sub = (remesh(device_type="cpu"),
+                       remesh(prefer_model=1, device_type="cpu"),
+                       remesh(ranks=[0, 1], device_type="cpu"))
+    info["remesh"] = {
+        "full": [list(full.shape), list(full.mesh_dim_names)],
+        "flat": list(flat.shape), "sub": list(sub.shape),
+        "sub_coordinate": sub.get_coordinate()}
+
+    # 3: kill on a live world
+    try:
+        _resilient_loop(mesh, faults="kill@1:r1", steps=2).run()
+        info["kill_error"] = None
+    except NotImplementedError as e:
+        info["kill_error"] = str(e)
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def restore_rank(args) -> None:
+    """Resume the ``checkpoint`` mode's checkpoint (DIR's parent/ckpt) on
+    this mesh: the owner count may differ; save this rank's rows."""
+    mesh = _setup(args)
+    loop = _resilient_loop(mesh, Path(args.out).parent / "ckpt",
+                           resume=True)
+    loop.pipe.close()
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **_owner_arrays(loop))
+    (Path(args.out) / f"rank{args.rank}.json").write_text(
+        json.dumps(_mesh_info(loop)))
+
+
 def jax_reference(args) -> None:
     """The reference's owner update inside jit on an Auto-axis mesh (jax
     0.9's ``make_mesh`` default is Explicit axes, which its owner layout's
@@ -660,7 +804,7 @@ def jax_reference(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
-                                     "jax"))
+                                     "checkpoint", "restore", "jax"))
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--port", type=int, default=0)
@@ -676,7 +820,9 @@ def main() -> None:
     import torch.distributed as dist
     try:
         {"owner": owner_rank, "train": train_rank,
-         "variants": variants_rank, "pipeline": pipeline_rank}[args.mode](args)
+         "variants": variants_rank, "pipeline": pipeline_rank,
+         "checkpoint": checkpoint_rank,
+         "restore": restore_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
