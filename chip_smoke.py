@@ -15,8 +15,10 @@ Phases, each printing one JSON line and asserting what it checks:
            block-invariance cases, on inputs whose products are O(1) so the
            tolerance is small against every term of each product
            (asserted).  Every fp32 product (3xTF32 on the tensor cores)
-           must be within 1e-5 · max|want|, which one TF32 pass misses by
-           >= 10x (asserted on the plain emulation of one TF32 product).
+           must be within 5e-6 · max|exact| of the exact (float64)
+           product, which one TF32 pass misses by >= 10x (asserted on the
+           plain emulation of one TF32 product); the plain fp32 version's
+           own distance from it is printed beside.
            The syrk's rows are heavy-tailed (cubed Gaussians, unit norm):
            Gaussian rows give G near I, where the contraction averages one
            TF32 pass's rounding away and the gate could not tell it from
@@ -72,6 +74,23 @@ Phases, each printing one JSON line and asserting what it checks:
            as subprocesses: 3 steps with a checkpoint, resumed to 6, and 6
            straight: loss_ema and every parameter's float64 sum bitwise
            equal.  Prints the phase's seconds.
+  moe      DeepSeek-V3 at its published widths (d_model 7168, 128 heads,
+           MLA ranks 1536 / 512, qk 128 + 64, v 128, d_expert 2048, top-8,
+           1 shared, vocab 129280, bf16), cut to 2 layers and 16 routed
+           experts: its 19 Gram kernel shapes (SYRK at the 7 (B, m, n) of
+           its 11 groups, symmul and gram_poly at their 6 (B, m, m)) held
+           like the kernels phase's, median of 20; the sort-based dispatch
+           in fp32 on 64 tokens against a per-token loop (1e-5 of max, at a
+           capacity factor that drops nothing; drops at 1.25 printed);
+           whether two forward / backward passes agree bitwise (printed);
+           the first Muon update of every group with the kernels against
+           the plain Gram NS, in fp32, within 10x the plain path's one-ulp
+           spread per group, one TF32 pass >= 10x outside; bucketed ==
+           fused, bitwise; then 3 Muon steps (owner, fused, one owner,
+           11 / 55 / 132 launches asserted per step, from the plan) and 3
+           AdamW steps, batch 4 x 1024, remat, seed 0, the optimizer
+           releasing each spent state (``donate``), timed with tokens/s and
+           peak memory.
   mesh     every visible card, one NCCL process each (spawned; they load
            the kernels the parent built), on a ("data", "model") =
            (cards, 1) mesh: one Muon update from the same full-width
@@ -139,7 +158,13 @@ HBM_BYTES_PER_S = 3.35e12
 # fp32 at fp32 accuracy on the tensor cores takes three TF32 products
 # (3xTF32); bf16 one bf16 product.
 TENSOR_CORE_PASSES = {"float32": (3, TF32_FLOPS), "bfloat16": (1, BF16_FLOPS)}
-SCALED_GATE = 1e-5     # fp32 products: max err <= 1e-5 · max|want|
+SCALED_GATE = 1e-5     # fp32 products against each other: 1e-5 · max|want|
+# fp32 products against the exact product (the plain version in float64):
+# max err <= 5e-6 · max|exact|.  Against the plain fp32 version the gate
+# was 1e-5, which the plain version's own rounding misses at contractions
+# past ~16k (2.2e-5 at n = 24576, 2.7e-5 at 32768: PERF.md §6); one
+# TF32 pass stays >= 10x outside this one at every shape
+EXACT_GATE = 5e-6
 
 KERNELS = {
     "gram_syrk": dict(source="src/repro_torch/kernels/csrc/gram_syrk.cu",
@@ -152,10 +177,11 @@ KERNELS = {
                              replaces="src/repro/kernels/symmul.py:105",
                              counter="gram_poly"),
 }
+# smollm-360m's launches a step (``plan_launches`` of its 7 groups)
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "pipeline", "resilience", "mesh")
+          "pipeline", "resilience", "moe", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -275,7 +301,12 @@ def bound(name: str, shape, dtype: str, out_bytes: int
 
 
 def max_abs_err(got, want) -> float:
-    return float((got.float() - want.float()).abs().max())
+    return float((got.double() - want.double()).abs().max())
+
+
+def rms_err(got, want) -> float:
+    """Root mean square of got − want, in float64."""
+    return float((got.double() - want.double()).square().mean().sqrt())
 
 
 def check_sensitive(tag: str, term, want, rtol: float, atol: float) -> None:
@@ -358,12 +389,34 @@ def syrk_inputs(torch, gen, b, m, n):
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
+def exact_syrk(x):
+    """X Xᵀ in float64: the exact product of fp32 inputs, to fp32 output
+    precision."""
+    xd = x.double()
+    return xd @ xd.mT
+
+
+def exact_symmul(a, b):
+    return a.double() @ b.double()
+
+
+def exact_gram_poly(g, coeffs):
+    """a·I + b·G + c·G² in float64."""
+    a, b, c = coeffs
+    gd = g.double()
+    out = c * (gd @ gd) + b * gd
+    out.diagonal(dim1=-2, dim2=-1).add_(a)
+    return out
+
+
 def kernel_cases(torch, gen):
     """(kernel name, shape, dtype, tol, kernel fn, plain fn, library fn,
-    product term, one-TF32-pass fn or None) at the slice's shapes, plus
-    bf16 and unaligned cases.  The product term is what the kernel's product
-    adds to the output: all of it for syrk and symmul, c·G² for gram_poly.
-    ``tol`` is rtol/atol, or ``scaled`` for the fp32 tensor-core products."""
+    product term, one-TF32-pass fn or None, exact fn or None) at the
+    slice's shapes, plus bf16 and unaligned cases.  The product term is
+    what the kernel's product adds to the output: all of it for syrk and
+    symmul, c·G² for gram_poly.  ``tol`` is rtol/atol against the plain
+    version (bf16), or ``scaled`` against the exact product for the fp32
+    tensor-core products."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
@@ -371,7 +424,7 @@ def kernel_cases(torch, gen):
 
     coeffs = get_coefficients("polar_express", 5)[0]   # largest: 8.3/-23.6/17.3
 
-    tc32 = dict(scaled=SCALED_GATE)
+    tc32 = dict(scaled=EXACT_GATE)
     bf16 = dict(rtol=2e-2, atol=2e-2)
     cases = []
     # muon's shapes, then Dion2's r×n factors (r = 240, 80)
@@ -393,7 +446,8 @@ def kernel_cases(torch, gen):
                       lambda x=x: torch.matmul(x, x.mT),
                       lambda x=x: syrk_plain(x),
                       (lambda x=x: syrk_tf32_emulated(x, passes=1))
-                      if tc else None))
+                      if tc else None,
+                      (lambda x=x: exact_syrk(x)) if tc else None))
     for (b, m), dtype, tol in [((32, 960), torch.float32, tc32),
                                ((32, 320), torch.float32, tc32),
                                ((32, 240), torch.float32, tc32),
@@ -409,7 +463,8 @@ def kernel_cases(torch, gen):
                       lambda p=p, g=g: torch.matmul(p, g),
                       lambda p=p, g=g: symmul_plain(p, g),
                       (lambda p=p, g=g: symmul_tf32_emulated(p, g, passes=1))
-                      if tc else None))
+                      if tc else None,
+                      (lambda p=p, g=g: exact_symmul(p, g)) if tc else None))
         cases.append(("symmul_gram_poly", (b, m, m), dtype, tol,
                       lambda g=g: ops.gram_poly(g, *coeffs),
                       lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
@@ -419,46 +474,65 @@ def kernel_cases(torch, gen):
                                                            g.float()),
                       (lambda g=g: symmul_tf32_emulated(
                           g, g, epilogue="gram_poly", coeffs=coeffs,
-                          passes=1)) if tc else None))
+                          passes=1)) if tc else None,
+                      (lambda g=g: exact_gram_poly(g, coeffs))
+                      if tc else None))
     return cases
+
+
+def check_kernel_case(torch, case, reps: int = 10) -> dict:
+    """Hold one ``kernel_cases`` case to the gate its ``tol`` names: the
+    fp32 tensor-core products against the exact (float64) product, where
+    one TF32 pass must miss the gate by >= 10x, and the plain fp32
+    version's own distance is printed beside; the others against the plain
+    version.  Times the kernel, the plain version and the library product
+    (median of ``reps``), beside the bounds.  Returns the row."""
+    from repro_torch.device import dtype_name
+    from repro_torch.kernels import autotune, ref
+    name, shape, dtype, tol, kern, plain, lib, term, one_pass, exact = case
+    got = kern()
+    torch.cuda.synchronize()
+    want = ref.mirror_lower(plain())
+    tag = f"{name}{list(shape)} {dtype}"
+    row = {}
+    if "scaled" in tol:
+        truth = exact()
+        allowance = scaled_allowance(truth, tol["scaled"])
+        check_sensitive(tag, term(), truth, 0.0, allowance)
+        err = check_scaled(tag, got, truth, tol["scaled"])
+        row["plain_err"] = max_abs_err(want, truth)
+        row["kernel_vs_plain"] = max_abs_err(got, want)
+        row["tf32_one_pass_x_allowance"] = check_rejects_tf32(
+            tag, ref.mirror_lower(one_pass()), truth, tol["scaled"])
+        want = truth
+        del truth
+    else:
+        check_sensitive(tag, term(), want, **tol)
+        err = check_close(tag, got, want, **tol)
+    dt = dtype_name(dtype)
+    b_ms, b_by, ffma_ms = bound(name, shape, dt, got.element_size())
+    blocks = autotune.lookup(KERNELS[name]["counter"], shape[1], shape[2],
+                             dt, arch=autotune.device_arch("cuda"))
+    max_want = float(want.float().abs().max())
+    del got, want
+    return {"kernel": name, "shape": list(shape), "blocks": list(blocks),
+            "dtype": dt, "max_err": err, "max_abs_want": max_want,
+            **tol, **row,
+            "kernel_ms": time_ms(kern, reps), "plain_ms": time_ms(plain, reps),
+            "library_ms": time_ms(lib, reps), "reps": reps, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ffma_ms": ffma_ms}
 
 
 def phase_kernels(torch) -> dict:
     from repro_torch.core.coefficients import get_coefficients
-    from repro_torch.device import dtype_name
     from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels.gram_syrk import syrk_plain
     from repro_torch.kernels.symmul import symmul_plain
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
-    for (name, shape, dtype, tol, kern, plain, lib, term,
-         one_pass) in kernel_cases(torch, gen):
-        got = kern()
-        torch.cuda.synchronize()
-        want = ref.mirror_lower(plain())
-        tag = f"{name}{list(shape)} {dtype}"
-        row = {}
-        if "scaled" in tol:
-            allowance = scaled_allowance(want, tol["scaled"])
-            check_sensitive(tag, term(), want, 0.0, allowance)
-            err = check_scaled(tag, got, want, tol["scaled"])
-            row["tf32_one_pass_x_allowance"] = check_rejects_tf32(
-                tag, ref.mirror_lower(one_pass()), want, tol["scaled"])
-        else:
-            check_sensitive(tag, term(), want, **tol)
-            err = check_close(tag, got, want, **tol)
-        dt = dtype_name(dtype)
-        b_ms, b_by, ffma_ms = bound(name, shape, dt, got.element_size())
-        blocks = autotune.lookup(KERNELS[name]["counter"], shape[1], shape[2],
-                                 dt, arch=autotune.device_arch("cuda"))
-        rows.append({"phase": "kernels", "kernel": name, "shape": list(shape),
-                     "blocks": list(blocks), "dtype": dt, "max_err": err,
-                     "max_abs_want": float(want.float().abs().max()),
-                     **tol, **row,
-                     "kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
-                     "library_ms": time_ms(lib), "bound_ms": b_ms,
-                     "bound_by": b_by, "bound_ffma_ms": ffma_ms})
+    for case in kernel_cases(torch, gen):
+        rows.append({"phase": "kernels", **check_kernel_case(torch, case)})
         emit(rows[-1])
 
     # summary per kernel: its largest main-path shape (fp32, batch 32), with
@@ -557,18 +631,30 @@ def phase_gram_ns(torch) -> None:
 
 # ------------------------------------------------------------------- train
 
+def plan_launches(plan, ns_steps: int = 5) -> dict:
+    """Kernel launches of one owner Gram NS step over ``plan``'s groups
+    (``core/gram_ns.py``): per group one SYRK, one gram_poly per NS step,
+    and three symmul per step but the first (Q' = PQ, T = PG, G' = PT;
+    the last step needs no T or G', the first no Q')."""
+    g = len(plan.groups)
+    return {"syrk": g, "gram_poly": g * ns_steps,
+            "symmul": g * 3 * (ns_steps - 1)}
+
+
 def expected_launches(variant: str, mode: str, step: int,
-                      knobs: dict) -> dict:
-    """Kernel launches of one train step: ``LAUNCHES_PER_STEP`` for every
-    Gram NS variant in owner mode (Dion2 runs the same iteration on its
-    factors), none on MuonBP's reuse steps (one plain matmul), none for
-    AdamW or the gather baseline (full-matrix NS, no kernel)."""
-    none = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+                      knobs: dict, per_step: dict | None = None) -> dict:
+    """Kernel launches of one train step: ``per_step`` (``plan_launches``;
+    default ``LAUNCHES_PER_STEP``, smollm-360m's) for every Gram NS variant
+    in owner mode (Dion2 runs the same iteration on its factors), none on
+    MuonBP's reuse steps (one plain matmul), none for AdamW or the gather
+    baseline (full-matrix NS, no kernel)."""
+    per_step = per_step or LAUNCHES_PER_STEP
+    none = dict.fromkeys(per_step, 0)
     if variant == "adamw" or mode != "owner":
         return none
     if variant == "muonbp" and step % knobs.get("muonbp_period", 4):
         return none
-    return dict(LAUNCHES_PER_STEP)
+    return dict(per_step)
 
 
 def allocator_counts(torch) -> dict:
@@ -659,15 +745,19 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               knobs: dict | None = None,
               trace: str | None = None, pipeline: str = "fused",
               accum_steps: int = 1, prestage: bool | None = None,
-              steps: int = TRAIN_STEPS, keep_state: bool = False) -> dict:
-    """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on)
+              steps: int = TRAIN_STEPS, keep_state: bool = False,
+              cfg=None, dcfg=None, donate: bool = False) -> dict:
+    """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on; or
+    the model ``cfg`` on the data ``dcfg``, the optimizer releasing each
+    spent state with ``donate``)
     ``steps`` steps with ``variant`` / ``mode`` / ``pipeline`` and
     the MuonConfig fields ``knobs``, under ``mesh`` when given (each rank
     on its rows of the batch), in ``accum_steps`` microbatches, staged to
     the owners per microbatch when ``prestage`` (``make_train_step``).  The
     launch counters are set to 0 before each step and read after it, and
-    must equal ``expected_launches``.  Returns losses, times (synchronised
-    host clock around each step and around ``opt.update`` /
+    must equal ``expected_launches`` of the plan (``plan_launches``).
+    Returns losses, times (synchronised host clock around each step and
+    around ``opt.update`` /
     ``opt.update_staged``), launches, the caching allocator's device calls
     and Python's garbage collections per step, peak memory, the plan and
     the model config; with ``capture``, the first step's updates (this
@@ -693,17 +783,18 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     from repro_torch.models import transformer
     from repro_torch.train.step import init_state, make_train_step
 
-    cfg = configs.get("smollm-360m")
+    cfg = cfg or configs.get("smollm-360m")
     plan = api.dedicate_params(transformer.init(cfg, device="meta"),
                                mesh=mesh)
+    per_step = plan_launches(plan)
     knobs = knobs or {}
     opt = api.Muon(plan, mesh, config=MuonConfig(
         variant=variant, mode=mode, pipeline=pipeline,
         ns=GramNSConfig(use_kernels=True), **knobs), device="cuda")
     state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
     step = make_train_step(cfg, opt, mesh, accum_steps=accum_steps,
-                           prestage=prestage, device="cuda")
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
+                           prestage=prestage, donate=donate, device="cuda")
+    dcfg = dcfg or DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
 
     # time the optimizer transform inside the step (synchronised around it)
     opt_ms, first, first_grads = [], {}, {}
@@ -781,7 +872,7 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{tag}: parameter {p} is not finite")
     for i, got in enumerate(launches):
-        want = expected_launches(variant, mode, i, knobs)
+        want = expected_launches(variant, mode, i, knobs, per_step)
         if got != want:
             raise AssertionError(f"{tag} step {i}: kernel launches {got}, "
                                  f"expected {want}")
@@ -789,7 +880,7 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "seq_len": dcfg.seq_len, "global_batch": dcfg.global_batch,
             "loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
             "launches": {k: sum(d[k] for d in launches)
-                         for k in LAUNCHES_PER_STEP},
+                         for k in per_step},
             "launches_by_step": launches, "allocator_by_step": allocator,
             "gc_by_step": collector,
             "trace": traced,
@@ -1288,7 +1379,7 @@ def phase_resilience(torch, smi: str) -> None:
     rows_same = faulted["rows"].keys() == plain_rows.keys() and all(
         torch.equal(v, plain_rows[k]) for k, v in faulted["rows"].items())
     losses_same = faulted["losses"] == plain_report.loss_curve()
-    want = dict(LAUNCHES_PER_STEP)
+    want = plan_launches(plain.plan)
     bad_launches = [i for i, d in enumerate(launches) if d != want]
     bad_plain = [i for i, d in enumerate(plain_launches) if d != want]
     emit({"phase": "resilience", "check": "drill", "nvidia_smi": smi,
@@ -1990,6 +2081,356 @@ def train_vs_single(torch, runs: dict, single: dict, accum: dict,
 
 # -------------------------------------------------------------------- main
 
+# --------------------------------------------------------------------- moe
+
+# DeepSeek-V3 at its published widths, cut in depth and experts: 2 layers
+# (every layer is MoE, so one is a whole period; two keep L > 1 in every
+# stacked group) and 16 routed experts (each layer's 256 as if divided
+# over 16 cards: the reference's own MoEConfig override, 16 router outputs)
+MOE_LAYERS, MOE_EXPERTS = 2, 16
+MOE_BATCH, MOE_SEQ = 4, 1024
+MOE_ADAMW_STEPS = 3
+MOE_REPS = 20
+# its Gram groups: SYRK (B, m, n), and (B, m) of symmul / gram_poly
+MOE_SYRK = [(32, 2048, 7168), (2, 2048, 7168), (2, 1536, 7168),
+            (2, 1536, 24576), (2, 576, 7168), (2, 512, 32768),
+            (2, 7168, 16384)]
+MOE_GRAM = [(32, 2048), (2, 2048), (2, 1536), (2, 576), (2, 512), (2, 7168)]
+MOE_DISPATCH_TOKENS = 64
+MOE_DISPATCH_RTOL = 1e-5
+# the kernel update's RMS distance from the exact (float64) update, at most
+# this many times the plain fp32 path's own: the kernels are no less
+# accurate than IEEE fp32 math.  The variants phase's gate (10x the plain
+# path's one-ulp spread) assumes the plain path's rounding is below that
+# spread, which its fp32 sums over n up to 32768 are not (PERF.md §6)
+EXACT_UPDATE_FACTOR = 1
+
+
+def moe_config():
+    """DeepSeek-V3 at its published widths, ``MOE_LAYERS`` layers and
+    ``MOE_EXPERTS`` routed experts (bf16, remat, capacity factor 1.25)."""
+    from repro_torch import configs
+    base = configs.get("deepseek-v3-671b")
+    return configs.get("deepseek-v3-671b", n_layers=MOE_LAYERS,
+                       moe=dataclasses.replace(base.moe,
+                                               n_experts=MOE_EXPERTS))
+
+
+def moe_kernel_cases(torch, gen):
+    """``kernel_cases`` tuples at DeepSeek-V3's Gram shapes, one at a time
+    (their inputs reach 1.9 GB each), fp32 under the scaled gate."""
+    from repro_torch.core.coefficients import get_coefficients
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
+    from repro_torch.kernels.symmul import symmul_plain, symmul_tf32_emulated
+    coeffs = get_coefficients("polar_express", 5)[0]
+    tc32 = dict(scaled=EXACT_GATE)
+    for shape in MOE_SYRK:
+        x = syrk_inputs(torch, gen, *shape)
+        yield ("gram_syrk", shape, torch.float32, tc32,
+               lambda x=x: ops.syrk(x), lambda x=x: syrk_plain(x),
+               lambda x=x: torch.matmul(x, x.mT), lambda x=x: syrk_plain(x),
+               lambda x=x: syrk_tf32_emulated(x, passes=1),
+               lambda x=x: exact_syrk(x))
+        del x
+    for b, m in MOE_GRAM:
+        _, g, p = gram_inputs(torch, gen, b, m, 2 * m, torch.float32, coeffs)
+        yield ("symmul_plain", (b, m, m), torch.float32, tc32,
+               lambda p=p, g=g: ops.symmul(p, g),
+               lambda p=p, g=g: symmul_plain(p, g),
+               lambda p=p, g=g: torch.matmul(p, g),
+               lambda p=p, g=g: symmul_plain(p, g),
+               lambda p=p, g=g: symmul_tf32_emulated(p, g, passes=1),
+               lambda p=p, g=g: exact_symmul(p, g))
+        yield ("symmul_gram_poly", (b, m, m), torch.float32, tc32,
+               lambda g=g: ops.gram_poly(g, *coeffs),
+               lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
+                                        coeffs=coeffs),
+               lambda g=g: torch.matmul(g, g),
+               lambda g=g: coeffs[2] * symmul_plain(g, g),
+               lambda g=g: symmul_tf32_emulated(
+                   g, g, epilogue="gram_poly", coeffs=coeffs, passes=1),
+               lambda g=g: exact_gram_poly(g, coeffs))
+        del g, p
+
+
+def moe_dispatch(torch, cfg, gen) -> dict:
+    """The sort-based dispatch at full width in fp32 on
+    ``MOE_DISPATCH_TOKENS`` tokens, at a capacity factor that drops nothing
+    (C = T), against a per-token loop: softmax, top-k, gates renormalised,
+    the chosen experts' SwiGLU outputs summed in k order plus the shared
+    expert's; within ``MOE_DISPATCH_RTOL`` · max|want|.  Counts the
+    assignments dropped at the configured capacity factor, on these tokens
+    and on a batch of the training phase's size."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers, moe as moe_lib
+    c = cfg.moe
+    nodrop = dataclasses.replace(c, capacity_factor=c.n_experts / c.top_k)
+    p = moe_lib.moe_init(gen, c, dtype=torch.float32, device="cuda")
+    x = torch.randn(1, MOE_DISPATCH_TOKENS, c.d_model, generator=gen,
+                    device="cuda")
+    ex = p["experts"]
+    with torch.no_grad():
+        got = moe_lib.moe(p, nodrop, x)[0]
+        rows = []
+        for v in x[0]:
+            g, e = torch.topk(torch.softmax(v @ p["router_w"], -1), c.top_k)
+            g = g / g.sum()
+            y = torch.zeros_like(v)
+            for gk, ek in zip(g, e.tolist()):
+                h = F.silu(v @ ex["gate_proj"]["w"][ek]) * \
+                    (v @ ex["up_proj"]["w"][ek])
+                y = y + gk * (h @ ex["down_proj"]["w"][ek])
+            rows.append(y + layers.mlp(p["shared"], v, "swiglu"))
+        want = torch.stack(rows)
+        err = max_abs_err(got, want)
+        top = float(want.abs().max())
+        big = torch.randn(MOE_BATCH, MOE_SEQ, c.d_model, generator=gen,
+                          device="cuda")
+        out = {"tokens": MOE_DISPATCH_TOKENS, "max_abs_err": err,
+               "max_abs_want": top, "rtol": MOE_DISPATCH_RTOL,
+               "dropped_nodrop_cf": moe_lib.dropped(p, nodrop, x),
+               "capacity_factor": c.capacity_factor,
+               "dropped": moe_lib.dropped(p, c, x),
+               "assignments": MOE_DISPATCH_TOKENS * c.top_k,
+               "dropped_train_size": moe_lib.dropped(p, c, big),
+               "assignments_train_size": MOE_BATCH * MOE_SEQ * c.top_k,
+               "capacity_train_size": moe_lib.capacity(c, MOE_BATCH
+                                                       * MOE_SEQ)}
+    if not (err <= MOE_DISPATCH_RTOL * top and out["dropped_nodrop_cf"] == 0):
+        raise AssertionError(f"moe dispatch vs per-token loop: {out}")
+    return out
+
+
+def moe_grads(torch, cfg, dcfg, plan):
+    """Seed-0 parameters and batch 0's gradients, twice: whether the two
+    forward / backward passes agree bit for bit (printed, not gated), and
+    the Muon matrices' gradients and parameters in fp32 (exact casts of
+    the bf16 ones)."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.models import transformer
+    from repro_torch.train.step import make_loss_fn
+    params = transformer.init(cfg, seed=0, device="cuda")
+    paths, leaves = zip(*tree.flatten(params))
+    for v in leaves:
+        v.requires_grad_(True)
+    batch = batch_for_step(dcfg, 0, device="cuda")
+    loss_fn = make_loss_fn(cfg)
+    runs = []
+    for _ in range(2):
+        loss = loss_fn(params, batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (l0, g0), (l1, g1) = runs
+    same = bool(torch.equal(l0, l1)) and all(
+        torch.equal(a, b) for a, b in zip(g0, g1))
+    differ = [p for p, a, b in zip(paths, g0, g1) if not torch.equal(a, b)]
+    del runs, g1
+    grads = {p: g.float() for p, g in zip(paths, g0) if p in plan.leaves}
+    pm = {p: v.detach().float() for p, v in zip(paths, leaves)
+          if p in plan.leaves}
+    return grads, pm, {"bitwise": same, "loss": float(l0),
+                       "leaves_differing": differ}
+
+
+def exact_gram_ns(x, coeffs):
+    """``core/gram_ns.py``'s recurrence in float64 without kernels: X₀ =
+    X / (‖X‖_F + 1e-7) per matrix, G₀ = X₀X₀ᵀ, per step P = aI + bG + cG²,
+    Q' = PQ, T = PG, G' = PT, then Q_k X₀; ``x`` (B, m, n) with m <= n."""
+    x0 = x / (x.square().sum(dim=(-2, -1), keepdim=True).sqrt() + 1e-7)
+    g = x0 @ x0.mT
+    q = None
+    for i, (a, b, c) in enumerate(coeffs):
+        p = c * (g @ g) + b * g
+        p.diagonal(dim1=-2, dim2=-1).add_(a)
+        q = p if q is None else p @ q
+        if i != len(coeffs) - 1:
+            g = p @ (p @ g)
+    return q @ x0
+
+
+def exact_updates(torch, plan, grads, pm, cfg):
+    """{path: update} of one group at a time: the first Muon update (zero
+    momentum) computed in float64, the exact value the fp32 paths
+    approximate."""
+    from repro_torch.core.owner_comms import pack_group, unpack_group
+    from repro_torch.core.update_rules import momentum_update, scale_factor
+    coeffs = cfg.ns.coeffs()
+    for key, grp in plan.groups.items():
+        eff = {}
+        for p in grp.leaf_paths:
+            g64 = grads[p].double()
+            eff[p] = momentum_update(torch.zeros_like(g64), g64, cfg)[1]
+        o = exact_gram_ns(pack_group(plan, key, eff), coeffs)
+        del eff
+        o *= scale_factor(*grp.key, cfg.scale_mode)
+        yield key, {p: -cfg.learning_rate * (
+            u + cfg.weight_decay * pm[p].double())
+            for p, u in unpack_group(plan, key, o).items()}
+        del o
+
+
+def moe_updates(torch, plan, grads, pm) -> tuple[dict, list]:
+    """The first Muon update of every group from the same gradients, in
+    fp32 (the parameters passed as fp32 copies, so no bf16 rounding hides
+    a difference): with the kernels, with the plain Gram NS, and with the
+    plain Gram NS at one TF32 pass per product, each held against the
+    exact (float64) update by the RMS of the difference (a max over
+    entries swings with the few entries along a matrix's smallest
+    singular directions).  Per group the kernel path must be within
+    ``EXACT_UPDATE_FACTOR`` times the plain fp32 path's own distance from
+    it, and one TF32 pass at least ``VARIANT_SPREAD`` times outside that
+    allowance over all groups.  The variants phase's gate (the kernel
+    update within ``VARIANT_SPREAD`` times what one ulp on half the
+    gradients moves the plain update) is printed per group.  Then
+    ``pipeline="bucketed"`` (one stage per Gram bucket) against the fused
+    update, bitwise."""
+    from repro_torch.core import api
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def opt_for(use_kernels, pipeline="fused"):
+        return api.Muon(plan, config=MuonConfig(
+            pipeline=pipeline, ns=GramNSConfig(use_kernels=use_kernels)),
+            device="cuda")
+
+    def update(use_kernels, g=grads, tf32=False, pipeline="fused"):
+        opt = opt_for(use_kernels, pipeline)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            return opt.update(g, opt.init(pm), pm, donate=True)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    plain = update(False)
+    g_ulp = {p: one_ulp_up(torch, g, gen) for p, g in grads.items()}
+    spread = leaf_diffs(update(False, g_ulp), plain)
+    del g_ulp
+    tf32 = update(False, tf32=True)
+    kern = update(True)
+    bucketed = update(True, pipeline="bucketed")
+    same_bucketed = all(torch.equal(bucketed[p], v) for p, v in kern.items())
+    del bucketed
+    rows, failures = {}, []
+    top_allow = top_tf32 = 0.0
+    for key, exact in exact_updates(torch, plan, grads, pm,
+                                    opt_for(False).config):
+        for p, want in exact.items():
+            e_kern = rms_err(kern[p], want)
+            e_plain = rms_err(plain[p], want)
+            e_tf32 = rms_err(tf32[p], want)
+            d = max_abs_err(kern[p], plain[p])
+            allow = EXACT_UPDATE_FACTOR * e_plain
+            top_allow, top_tf32 = max(top_allow, allow), max(top_tf32,
+                                                             e_tf32)
+            rows[p] = {"kernel_vs_exact_rms": e_kern,
+                       "plain_vs_exact_rms": e_plain,
+                       "tf32_vs_exact_rms": e_tf32,
+                       "kernel_vs_exact_max": max_abs_err(kern[p], want),
+                       "plain_vs_exact_max": max_abs_err(plain[p], want),
+                       "rms_update": float(want.square().mean().sqrt()),
+                       "kernel_over_plain": e_kern / e_plain
+                       if e_plain else math.inf,
+                       "kernel_vs_plain": d,
+                       "plain_one_ulp_spread": spread[p][0],
+                       "kernel_over_spread": d / spread[p][0]
+                       if spread[p][0] else math.inf}
+            if e_kern > allow:
+                failures.append(f"{p}: kernel update {e_kern:.3e} from the "
+                                f"exact one, the plain path {e_plain:.3e}")
+        del exact
+    tf32_over_gate = top_tf32 / top_allow if top_allow else math.inf
+    if tf32_over_gate < VARIANT_SPREAD:
+        failures.append(f"one TF32 pass {top_tf32:.3e} is only "
+                        f"{tf32_over_gate:.1f}x the allowance")
+    if not same_bucketed:
+        failures.append("bucketed update != fused update")
+    return {"groups": rows, "factor": EXACT_UPDATE_FACTOR,
+            "tf32_over_gate": tf32_over_gate,
+            "bucketed_bitwise_fused": same_bucketed,
+            "buckets": len(plan.buckets)}, failures
+
+
+def phase_moe(torch, smi: str) -> dict:
+    """DeepSeek-V3 at its published widths (``moe_config``) on one card:
+    the kernels at its Gram shapes, the dispatch against a per-token loop,
+    the kernel update against the plain one and bucketed against fused,
+    then ``TRAIN_STEPS`` Muon steps (owner, fused, one owner, kernels on,
+    launches asserted per step from the plan) and ``MOE_ADAMW_STEPS``
+    AdamW steps, batch ``MOE_BATCH`` x ``MOE_SEQ``, remat on, seed 0, the
+    optimizer releasing each spent state (``donate``).  Returns the Muon
+    run's launches."""
+    from repro_torch.core import api
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                      global_batch=MOE_BATCH)
+    plan = api.dedicate_params(transformer.init(cfg, device="meta"))
+    cut = {"arch": cfg.name, "n_layers": [cfg.n_layers, 61],
+           "n_experts": [cfg.moe.n_experts, 256],
+           "note": "[cut, published]; every width as published",
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "mla": dataclasses.asdict(cfg.mla), "d_expert": cfg.moe.d_expert,
+           "top_k": cfg.moe.top_k, "n_shared": cfg.moe.n_shared,
+           "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+           "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           "groups": {k: [plan.groups[k].count, *plan.groups[k].key]
+                      for k in plan.groups},
+           "buckets": sorted(plan.buckets),
+           "launches_per_step": plan_launches(plan)}
+    emit({"phase": "moe", "config": cut, "nvidia_smi": smi})
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    for case in moe_kernel_cases(torch, gen):
+        emit({"phase": "moe", "nvidia_smi": smi,
+              **check_kernel_case(torch, case, MOE_REPS)})
+        del case
+        torch.cuda.empty_cache()
+
+    emit({"phase": "moe", "check": "dispatch",
+          **moe_dispatch(torch, cfg, gen)})
+    torch.cuda.empty_cache()
+
+    grads, pm, passes = moe_grads(torch, cfg, dcfg, plan)
+    emit({"phase": "moe", "check": "two_passes", **passes})
+    torch.cuda.empty_cache()
+    cmp, failures = moe_updates(torch, plan, grads, pm)
+    del grads, pm
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "check": "update", "ok": not failures, **cmp})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    lines = {}
+    for variant, steps in (("muon", TRAIN_STEPS), ("adamw", MOE_ADAMW_STEPS)):
+        torch.cuda.empty_cache()
+        run = train_run(torch, variant, cfg=cfg, dcfg=dcfg, steps=steps,
+                        donate=True)
+        tokens = MOE_BATCH * MOE_SEQ
+        lines[variant] = {
+            "phase": "moe", "variant": variant, "arch": run["arch"],
+            "steps": steps, "loss_ema": run["loss_ema"],
+            "step_ms": run["step_ms"], "optimizer_ms": run["optimizer_ms"],
+            "tokens_per_s": [tokens / (t / 1e3) for t in run["step_ms"]],
+            "peak_mem_gb": run["peak_mem_gb"],
+            "launches_by_step": run["launches_by_step"],
+            "nvidia_smi": smi}
+        emit(lines[variant])
+        if variant == "muon":
+            launches = run["launches"]
+        del run
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2059,6 +2500,12 @@ def main() -> int:
     if "resilience" in phases:
         torch.cuda.empty_cache()
         phase_resilience(torch, smi[0])
+    moe_launches = None
+    if "moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_launches = phase_moe(torch, smi[0])
+        torch.cuda.empty_cache()
     if "mesh" in phases:
         world = torch.cuda.device_count()
         phase_mesh(torch, train_losses, {
@@ -2072,7 +2519,9 @@ def main() -> int:
          "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "shape": row["shape"]}
+         "shape": row["shape"],
+         "launches_moe": None if moe_launches is None
+         else moe_launches[meta["counter"]]}
         for name, meta in KERNELS.items()
         if (row := summary.get(name)) is not None]})
     print(smi[0], flush=True)

@@ -180,15 +180,19 @@ class Muon:
         return muon_init(self.plan, params, self.config, self.mesh,
                          device=self.device)
 
-    def update(self, grads, state: MuonState, params):
+    def update(self, grads, state: MuonState, params, *,
+               donate: bool = False):
+        """``donate``: ``state`` is spent (see ``muon_update``)."""
         return muon_update(self.plan, grads, state, params, self.config,
-                           self.mesh)
+                           self.mesh, donate=donate)
 
-    def update_staged(self, staged, rest_grads, state: MuonState, params):
+    def update_staged(self, staged, rest_grads, state: MuonState, params, *,
+                      donate: bool = False):
         """Optimizer step from pre-staged owner-layout matrix gradients (the
         accumulation-overlapped bucketed pipeline; see core/pipeline.py)."""
         return muon_update_staged(self.plan, staged, rest_grads, state,
-                                  params, self.config, self.mesh)
+                                  params, self.config, self.mesh,
+                                  donate=donate)
 
     def state_dict(self, state: MuonState) -> dict:
         return {"step": state.step, "momentum": state.momentum,

@@ -51,8 +51,8 @@ from repro_torch.core.dedication import DedicationPlan
 from repro_torch.core.gram_ns import GramNSConfig
 from repro_torch.core.orthogonalize import FullMatrixNS, make_orthogonalizer
 from repro_torch.core.owner_comms import (  # noqa: F401 — re-exports
-    OwnerLayout, group_key_str, local_shard, pack_group, published,
-    reduce_partial, replicate, unpack_group)
+    OwnerLayout, _lead_perm, group_key_str, local_shard, pack_group,
+    published, reduce_partial, replicate, stacked_placements, unpack_group)
 from repro_torch.core.update_rules import (  # noqa: F401 — re-exports
     AdamWState, adamw_init, adamw_update, apply_wd_and_lr, momentum_update,
     scale_factor)
@@ -223,9 +223,12 @@ def muon_init(plan: DedicationPlan, params, cfg: MuonConfig, mesh=None,
 
 @torch.no_grad()
 def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
-                cfg: MuonConfig, mesh=None):
+                cfg: MuonConfig, mesh=None, *, donate: bool = False):
     """One optimizer step.  Returns (updates, new_state); updates are deltas
-    to be *added* to params."""
+    to be *added* to params.  ``donate`` (the reference's buffer donation):
+    ``state``'s momentum and AdamW moments are released as their successors
+    are made, so the old and new state never coexist whole; ``state`` must
+    not be used afterwards."""
     spec, mode = _resolve(cfg)
     layout = OwnerLayout(plan, mesh)
     gm, gr = _matrix_and_rest(plan, grads)
@@ -234,14 +237,16 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
         gr, pr, gm, pm = {**gr, **gm}, {**pr, **pm}, {}, {}
     gm_local, gm_pl = _split(layout, gm)
     pm_local, _ = _split(layout, pm)
-    adam_updates, adamw_state = _adamw_step(layout, gr, pr, state, cfg)
+    adam_updates, adamw_state = _adamw_step(layout, gr, pr, state, cfg,
+                                            donate)
     new_ef, new_vstate = state.error_feedback, state.variant_state
     if mode == "owner":
         matrix_updates, new_momentum, new_ef, new_vstate = _owner_update(
-            plan, gm_local, gm_pl, pm_local, state, cfg, layout, spec)
+            plan, gm_local, gm_pl, pm_local, state, cfg, layout, spec,
+            donate)
     elif mode == "gather":
         matrix_updates, new_momentum = _gather_update(
-            plan, gm_local, gm_pl, pm_local, state, cfg, layout)
+            plan, gm_local, gm_pl, pm_local, state, cfg, layout, donate)
     else:
         matrix_updates, new_momentum = {}, state.momentum
     updates = {p: _like(g, matrix_updates[p], gm_pl[p], mesh)
@@ -251,7 +256,7 @@ def muon_update(plan: DedicationPlan, grads, state: MuonState, params,
 
 
 def _adamw_step(layout: OwnerLayout, gr, pr, state: MuonState,
-                cfg: MuonConfig):
+                cfg: MuonConfig, donate: bool = False):
     """AdamW on the non-matrix leaves: gradients ``gr`` reduced first under
     a mesh (AdamW is elementwise), updates in their gradients' form.
     Returns ({path: update}, new AdamW state)."""
@@ -262,13 +267,14 @@ def _adamw_step(layout: OwnerLayout, gr, pr, state: MuonState,
         gr_local = {p: reduce_partial(g, gr_pl[p], mesh)
                     for p, g in gr_local.items()}
     adam_updates, adamw_state = adamw_update(gr_local, state.adamw, pr_local,
-                                             state.step, cfg)
+                                             state.step, cfg, donate=donate)
     return {p: _like(g, adam_updates[p], gr_pl[p], mesh)
             for p, g in gr.items()}, adamw_state
 
 
 def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
-                  cfg: MuonConfig, layout: OwnerLayout, spec):
+                  cfg: MuonConfig, layout: OwnerLayout, spec,
+                  donate: bool = False):
     """DMuon path: pack (reduce-to-owner) → momentum → orthogonalize on the
     local owner rows by the variant's backend → unpack (publish) +
     scale/wd/lr.  Alg. 1 lines 10–15.  ``gm`` / ``pm`` hold local parts,
@@ -284,12 +290,13 @@ def _owner_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
     from repro_torch.core.pipeline import BucketPipeline
     return BucketPipeline(plan, cfg, layout.mesh, spec,
                           fused=cfg.pipeline == "fused").run_from_grads(
-        gm, gm_pl, pm, state)
+        gm, gm_pl, pm, state, donate=donate)
 
 
 @torch.no_grad()
 def muon_update_staged(plan: DedicationPlan, staged, rest_grads,
-                       state: MuonState, params, cfg: MuonConfig, mesh=None):
+                       state: MuonState, params, cfg: MuonConfig, mesh=None,
+                       *, donate: bool = False):
     """One optimizer step from PRE-STAGED owner-layout matrix gradients.
 
     ``staged`` is ``{group_key_str: owner rows}`` (this rank's rows of the
@@ -322,9 +329,9 @@ def muon_update_staged(plan: DedicationPlan, staged, rest_grads,
     pm, pr = _matrix_and_rest(plan, params)
     pm_local, pm_pl = _split(layout, pm)
     adam_updates, adamw_state = _adamw_step(layout, rest_grads, pr, state,
-                                            cfg)
+                                            cfg, donate)
     matrix_updates, new_momentum, new_vstate = pipe.run_staged(
-        staged, pm_local, state, pm_pl)
+        staged, pm_local, state, pm_pl, donate=donate)
     updates = {p: _like(v, matrix_updates[p], pm_pl[p], mesh)
                for p, v in pm.items()}
     if isinstance(params, torch.nn.Module):
@@ -335,7 +342,8 @@ def muon_update_staged(plan: DedicationPlan, staged, rest_grads,
 
 
 def _gather_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
-                   cfg: MuonConfig, layout: OwnerLayout):
+                   cfg: MuonConfig, layout: OwnerLayout,
+                   donate: bool = False):
     """Muon-AG baseline: momentum in training layout; under a mesh each
     gradient is reduced, its momentum look-ahead all-gathered, and every
     rank runs the full-matrix standard NS of every leaf."""
@@ -346,7 +354,9 @@ def _gather_update(plan: DedicationPlan, gm, gm_pl, pm, state: MuonState,
     for p, g in gm.items():
         if mesh is not None:
             g = reduce_partial(g, gm_pl[p], mesh)
-        mom, eff = momentum_update(state.momentum[p].float(), g.float(), cfg)
+        old = state.momentum.pop(p) if donate else state.momentum[p]
+        mom, eff = momentum_update(old.float(), g.float(), cfg)
+        del old
         new_momentum[p] = mom.to(mdt)
         eff_all[p] = eff if mesh is None else \
             replicate(eff, published(gm_pl[p]), mesh)

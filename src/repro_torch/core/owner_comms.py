@@ -39,8 +39,15 @@ all-gathers).  Explicit ``torch.distributed`` calls do the moves:
 all-gather.  Gloo on CPU tensors and NCCL on CUDA tensors run the same
 calls; nothing is moved to the host to communicate.
 
-Leaves with sharded *leading* dims (MoE expert parallelism) wait for
-ROADMAP item 9.  This module knows nothing about optimization:
+A leaf may shard one *leading* dim (MoE expert parallelism: ``(L, E, m,
+n)`` experts sharded on E).  ``_lead_perm`` makes that dim major before
+the leaf is flattened, so its shard is a contiguous block of the stack
+(``Shard(0)`` of the stacked view) and every reshape stays local.  The
+block a rank then holds after the other owner axes have cut it is the
+owner block of another rank unless the sharding axes lead the owner
+order; one exchange of whole owner blocks (``_issue_permute``, one send
+and one receive per rank) puts each block on its owner.  This module
+knows nothing about optimization:
 ``core/muon.py`` composes an :class:`OwnerLayout` with an orthogonalizer
 and an update rule.
 """
@@ -67,17 +74,59 @@ def group_key_str(key) -> str:
         f"{key[0]}x{key[1]}"
 
 
-def _leaf_to_matrices(arr: torch.Tensor, info) -> torch.Tensor:
-    """(lead..., m0, n0) -> (count, m, n) with m <= n.  Reads the trailing
-    dims off ``arr``, so a local shard reshapes as the whole leaf does."""
+def _sharded_lead(info, placements) -> Optional[int]:
+    """The leading dim of ``info``'s leaf that ``placements`` shard, or
+    None.  At most one may be (the sharded dim becomes the stack's major
+    dim; a second would be split inside each stack block)."""
+    if placements is None:
+        return None
+    n_lead = len(info.shape) - 2
+    dims = {p.dim % len(info.shape) for p in placements if p.is_shard()}
+    lead = sorted(d for d in dims if d < n_lead)
+    if len(lead) > 1:
+        raise ValueError(f"{info.path}: leading dims {lead} are sharded; "
+                         "the owner layout moves one sharded leading dim")
+    return lead[0] if lead else None
+
+
+def _lead_perm(info, placements=None) -> tuple:
+    """Permutation of the leaf's leading dims putting the sharded one first
+    (major).  Flattening a sharded-MAJOR dim keeps the stack's sharding a
+    split of its rows and every reshape local."""
+    n_lead = len(info.shape) - 2
+    d = _sharded_lead(info, placements)
+    if d is None or n_lead <= 1:
+        return tuple(range(n_lead))
+    return (d,) + tuple(i for i in range(n_lead) if i != d)
+
+
+def _leaf_to_matrices(arr: torch.Tensor, info, perm=None) -> torch.Tensor:
+    """(lead..., m0, n0) -> (count, m, n) with m <= n, the leading dims in
+    ``perm`` order (``_lead_perm``).  Reads the trailing dims off ``arr``,
+    so a local shard reshapes as the whole leaf does."""
+    n_lead = arr.ndim - 2
+    if perm is not None and tuple(perm) != tuple(range(n_lead)):
+        arr = arr.permute(tuple(perm) + (n_lead, n_lead + 1))
     flat = arr.reshape((-1,) + tuple(arr.shape[-2:]))
     return flat.mT if info.transpose else flat
 
 
-def _matrices_to_leaf(flat: torch.Tensor, info) -> torch.Tensor:
+def _matrices_to_leaf(flat: torch.Tensor, info, perm=None) -> torch.Tensor:
+    """Inverse of ``_leaf_to_matrices``.  The first of the ``perm``-ordered
+    leading dims is read off ``flat`` (a shard of the sharded one), the
+    others off ``info``."""
     if info.transpose:
         flat = flat.mT
-    return flat.reshape(tuple(info.shape[:-2]) + tuple(flat.shape[-2:]))
+    n_lead = len(info.shape) - 2
+    perm = tuple(range(n_lead)) if perm is None else tuple(perm)
+    if n_lead == 0:
+        return flat.reshape(tuple(flat.shape[-2:]))
+    lead = (-1,) + tuple(info.shape[i] for i in perm[1:])
+    out = flat.reshape(lead + tuple(flat.shape[-2:]))
+    if perm != tuple(range(n_lead)):
+        inv = tuple(int(i) for i in np.argsort(perm))
+        out = out.permute(inv + (n_lead, n_lead + 1))
+    return out
 
 
 def _index(idx: np.ndarray, device) -> torch.Tensor:
@@ -85,12 +134,16 @@ def _index(idx: np.ndarray, device) -> torch.Tensor:
 
 
 def pack_group(plan: DedicationPlan, key,
-               leaf_values: Dict[str, torch.Tensor]) -> torch.Tensor:
+               leaf_values: Dict[str, torch.Tensor],
+               perms: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
     """Stack a shape group's matrices into the owner-major padded layout:
     (num_owners * capacity, m, n); position p belongs to owner p // capacity.
-    On one process; ``OwnerLayout.pack`` moves the result across ranks."""
+    ``perms[path]`` orders a leaf's leading dims (``_lead_perm``; default
+    as stored).  On one process; ``OwnerLayout.pack`` moves the result
+    across ranks."""
     g = plan.groups[key]
-    parts = [_leaf_to_matrices(leaf_values[p], plan.leaves[p])
+    perms = perms or {}
+    parts = [_leaf_to_matrices(leaf_values[p], plan.leaves[p], perms.get(p))
              for p in g.leaf_paths]
     flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
     pad_shape = tuple(flat.shape[1:])
@@ -105,10 +158,12 @@ def pack_group(plan: DedicationPlan, key,
     return flat_ext.index_select(0, _index(idx, flat.device))
 
 
-def unpack_group(plan: DedicationPlan, key,
-                 packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+def unpack_group(plan: DedicationPlan, key, packed: torch.Tensor,
+                 perms: Optional[Dict[str, tuple]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Inverse of pack_group: owner-major stack -> per-leaf tensors."""
     g = plan.groups[key]
+    perms = perms or {}
     if np.array_equal(g.unpack_index, np.arange(g.count)):
         flat = packed[:g.count]            # contiguous layout: pure slice
     else:
@@ -117,7 +172,8 @@ def unpack_group(plan: DedicationPlan, key,
     start = 0
     for p in g.leaf_paths:
         info = plan.leaves[p]
-        out[p] = _matrices_to_leaf(flat[start:start + info.count], info)
+        out[p] = _matrices_to_leaf(flat[start:start + info.count], info,
+                                   perms.get(p))
         start += info.count
     return out
 
@@ -175,17 +231,18 @@ def _reduce_op(p) -> str:
 def stacked_placements(info, placements: Placements) -> tuple:
     """Placements of the (count, m, n) stacked view of a leaf placed by
     ``placements``: a shard of the leaf's row / column dim becomes a shard
-    of stack dim 1 / 2 (swapped for a transposed leaf)."""
+    of stack dim 1 / 2 (swapped for a transposed leaf), a shard of its one
+    sharded leading dim (an expert dim) a shard of stack dim 0, which
+    ``_lead_perm`` makes major."""
     n_lead = len(info.shape) - 2
+    _sharded_lead(info, placements)
     out, seen = [], set()
     for p in placements:
         if p.is_shard():
             d = p.dim % len(info.shape)
             if d < n_lead:
-                raise ValueError(
-                    f"{info.path}: leading dim {d} is sharded (expert "
-                    "parallelism); owner layouts of such leaves wait for "
-                    "ROADMAP item 9")
+                out.append(Shard(0))
+                continue
             k = d - n_lead + 1
             k = 3 - k if info.transpose else k
             if k in seen:
@@ -277,6 +334,31 @@ def _issue_replicate(x: torch.Tensor, p, i: int, mesh):
         avg = _reduce_op(p) == "avg"
         return work, lambda: out.div_(s) if avg else out, (out,)
     return None, lambda: x, ()
+
+
+class _Works:
+    """The ``Work`` handles of one batch of point-to-point ops, waited as
+    one."""
+
+    def __init__(self, works):
+        self.works = works
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+
+
+def _issue_permute(x: torch.Tensor, to: int, frm: int):
+    """Send this rank's rows to global rank ``to`` and take the rows of
+    ``frm`` in their place (same shape): one owner block each way.  A rank
+    that keeps its own block moves nothing."""
+    if to == dist.get_rank():
+        return None, lambda: x, ()
+    inp = x.contiguous()
+    out = torch.empty_like(inp)
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, inp, to),
+                                    dist.P2POp(dist.irecv, out, frm)])
+    return _Works(works), lambda: out, (inp, out)
 
 
 class Pending:
@@ -469,6 +551,70 @@ class OwnerLayout:
             st = pl
         return st
 
+    def _perms(self, key, placements) -> Dict[str, tuple]:
+        """``_lead_perm`` of each leaf of group ``key`` under its
+        placements."""
+        return {p: _lead_perm(self.plan.leaves[p], (placements or {}).get(p))
+                for p in self.plan.groups[key].leaf_paths}
+
+    def _row_dims(self, key, cur) -> list:
+        """The mesh dims that split the stack's rows in the training layout
+        (a sharded expert dim), in mesh order, the order ``DTensor`` splits
+        a dim over several.  They must be owner dims, and the stack must
+        need no padding: each training shard is then a whole number of
+        owner blocks."""
+        dims = [i for i, p in enumerate(cur) if p.is_shard() and p.dim == 0]
+        if not dims:
+            return dims
+        g = self.plan.groups[key]
+        names = self.mesh.mesh_dim_names
+        if any(i not in self.owner_dims for i in dims):
+            raise ValueError(
+                f"group {key!r}: its leading dim is sharded over "
+                f"{[names[i] for i in dims]}, not all owner axes "
+                f"{[names[i] for i in self.owner_dims]}")
+        if g.packed_size != g.count or not np.array_equal(
+                g.pack_index, np.arange(g.count)):
+            raise ValueError(
+                f"group {key!r}: a sharded leading dim needs the contiguous "
+                f"layout without padding ({g.count} matrices, "
+                f"{self.plan.num_owners} owners)")
+        return dims
+
+    def _block_peers(self, row_dims) -> Optional[tuple]:
+        """(to, from) global ranks of the exchange that puts owner blocks
+        on their owners, or None when none is needed.  After the owner dims
+        that do not split the rows have cut this rank's training rows, it
+        holds block A: row-major over ``row_dims`` then those dims; its
+        owner block B is row-major over the owner dims.  The block goes to
+        the rank whose B is this A, and this rank's B comes from the rank
+        whose A it is; both share this rank's other coordinates."""
+        mesh = self.mesh
+        order_a = list(row_dims) + [i for i in self.owner_dims
+                                    if i not in row_dims]
+        order_b = list(self.owner_dims)
+        if order_a == order_b:
+            return None
+        me = [mesh.get_local_rank(i) for i in range(mesh.ndim)]
+
+        def index(coord, order):
+            out = 0
+            for i in order:
+                out = out * mesh.size(i) + coord[i]
+            return out
+
+        def coord(idx, order):
+            out = list(me)
+            for i in reversed(order):
+                out[i] = idx % mesh.size(i)
+                idx //= mesh.size(i)
+            return out
+
+        def rank(c):
+            return int(mesh.mesh[tuple(c)])
+        return (rank(coord(index(me, order_a), order_b)),
+                rank(coord(index(me, order_b), order_a)))
+
     def pack_async(self, key, leaf_values: Dict[str, torch.Tensor],
                    placements: Optional[Dict[str, Placements]] = None
                    ) -> Pending:
@@ -477,13 +623,21 @@ class OwnerLayout:
         first collective issued; ``wait()`` gives the rows.  ``leaf_values``
         are local parts; ``placements[path]`` their mesh placements
         (missing: replicated, which needs no communication: ready at
-        once).  The moves run one mesh dim after another (``Pending``)."""
-        packed = pack_group(self.plan, key, leaf_values)
+        once).  The moves run one mesh dim after another (``Pending``); a
+        stack whose rows are split by a sharded expert dim keeps that split
+        (those dims move nothing), is cut by the other owner dims, then
+        exchanges whole owner blocks (``_block_peers``)."""
+        packed = pack_group(self.plan, key, leaf_values,
+                            self._perms(key, placements))
         if self.mesh is None:
             return Pending(packed)
         cur, mesh = self._stacked(key, placements), self.mesh
+        row_dims = self._row_dims(key, cur)
         moves = [lambda v, i=i: _issue_to_rows(v, cur[i], i, mesh)
-                 for i in self.owner_dims]
+                 for i in self.owner_dims if i not in row_dims]
+        peers = self._block_peers(row_dims) if row_dims else None
+        if peers is not None:
+            moves.append(lambda v: _issue_permute(v, *peers))
         moves += [lambda v, i=i: _issue_replicate(v, cur[i], i, mesh)
                   for i in self.other_dims]
         return Pending(packed, moves)
@@ -500,16 +654,23 @@ class OwnerLayout:
         """This rank's owner rows -> local parts of each leaf in its training
         layout (``published(placements[path])``), the publish direction,
         issued; ``wait()`` gives ``{path: local part}``."""
+        perms = self._perms(key, placements)
+
         def leaves(rows):
-            return unpack_group(self.plan, key, rows)
+            return unpack_group(self.plan, key, rows, perms)
         if self.mesh is None:
             return Pending(packed, then=leaves)
         target, mesh = published(self._stacked(key, placements)), self.mesh
+        row_dims = self._row_dims(key, target)
         moves = [lambda v, i=i: (None, lambda: shard_dim(v, target[i], i,
                                                          mesh), ())
                  for i in self.other_dims]
+        peers = self._block_peers(row_dims) if row_dims else None
+        if peers is not None:
+            to, frm = peers
+            moves.append(lambda v: _issue_permute(v, frm, to))
         moves += [lambda v, i=i: _issue_from_rows(v, target[i], i, mesh)
-                  for i in reversed(self.owner_dims)]
+                  for i in reversed(self.owner_dims) if i not in row_dims]
         return Pending(packed, moves, then=leaves)
 
     def unpack(self, key, packed: torch.Tensor,

@@ -192,17 +192,20 @@ class BucketPipeline:
                 for k in self.plan.groups}
 
     def compute(self, keys, staged: Dict[str, torch.Tensor], momentum, step,
-                vstate):
+                vstate, donate: bool = False):
         """Momentum + the variant's orthogonalizer for one bucket, on the
-        owner-local rows only.  Returns (ortho, new momentum, new variant
+        owner-local rows only.  Consumes ``staged`` (each group's rows leave
+        it as they are read); with ``donate`` each old momentum leaves
+        ``momentum`` likewise.  Returns (ortho, new momentum, new variant
         state slice)."""
         cfg = self.cfg
         pdt, mdt = as_dtype(cfg.pack_dtype), as_dtype(cfg.momentum_dtype)
+        take = dict.pop if donate else dict.__getitem__
         new_mom, eff = {}, {}
         for key in keys:
             skey = group_key_str(key)
-            mom, e = momentum_update(momentum[skey].to(pdt),
-                                     staged[skey].to(pdt), cfg)
+            mom, e = momentum_update(take(momentum, skey).to(pdt),
+                                     staged.pop(skey).to(pdt), cfg)
             new_mom[skey] = mom.to(mdt)
             eff[skey] = e
         skeys = [group_key_str(k) for k in keys]
@@ -215,24 +218,36 @@ class BucketPipeline:
                 placements=None) -> Pending:
         """Scale each bucket stack, issue its moves back to the training
         layout (``published(placements)``), and return a ``Pending`` whose
-        ``wait()`` gives ``{path: update}`` with wd / lr applied."""
+        ``wait()`` gives ``{path: update}`` with wd / lr applied.  Consumes
+        ``ortho``; without overlap each group's update is finished as its
+        move is waited, so one group's scaled stack is alive at a time."""
         cfg = self.cfg
         pdt = as_dtype(cfg.pack_dtype)
-        pend = {}
+        done, pend = {}, []
+
+        def apply(leaves):
+            return {p: apply_wd_and_lr(upd, params_matrix[p], cfg)
+                    for p, upd in leaves.items()}
         for key in keys:
             m, n = self.plan.groups[key].key
             s = scale_factor(m, n, cfg.scale_mode)
-            pend[key] = self._issued(self.layout.unpack_async(
-                key, ortho[group_key_str(key)].to(pdt) * s, placements))
+            moving = self._issued(self.layout.unpack_async(
+                key, ortho.pop(group_key_str(key)).to(pdt) * s, placements))
+            if self.overlap:
+                pend.append(moving)
+            else:
+                done.update(apply(moving.wait()))
+            del moving
 
         def finish(_):
-            return {p: apply_wd_and_lr(upd, params_matrix[p], cfg)
-                    for pl in pend.values() for p, upd in pl.wait().items()}
+            for moving in pend:
+                done.update(apply(moving.wait()))
+            return done
         return Pending(None, then=finish)
 
     # ---------------------------------------------------------- schedules
 
-    def _run(self, staged_for, pm, placements, state):
+    def _run(self, staged_for, pm, placements, state, donate=False):
         """compute(b) on ``staged_for(b)``'s rows, bucket by bucket, with
         publish(b) issued before compute(b+1) and waited after it.
         Returns ``(matrix_updates, new_momentum, new_variant_state)``."""
@@ -244,7 +259,8 @@ class BucketPipeline:
             cur = staged_for(b)
             self._note("compute", b)
             ortho, mom_b, vs_b = self.compute(keys, cur, state.momentum,
-                                              state.step, state.variant_state)
+                                              state.step, state.variant_state,
+                                              donate)
             del cur
             if published is not None:
                 self._note("wait_publish", b - 1)
@@ -258,7 +274,7 @@ class BucketPipeline:
             updates.update(published.wait())
         return updates, new_momentum, new_vstate
 
-    def run_from_grads(self, gm, gm_pl, pm, state):
+    def run_from_grads(self, gm, gm_pl, pm, state, donate=False):
         """The pipelined step from training-layout gradients (local parts
         ``gm``, placements ``gm_pl``; ``pm`` the matrix parameters' local
         parts).  Same math per group as the fused path, staged per bucket:
@@ -286,11 +302,11 @@ class BucketPipeline:
             return cur
 
         updates, new_momentum, new_vstate = self._run(staged_for, pm, gm_pl,
-                                                      state)
+                                                      state, donate)
         return updates, new_momentum, new_ef, new_vstate
 
     def run_staged(self, staged: Dict[str, torch.Tensor], pm, state,
-                   placements=None):
+                   placements=None, donate=False):
         """Compute + publish over pre-staged owner-layout gradients
         (``{group_key_str: this rank's rows}``, already averaged), with
         publish(b−1) in flight under compute(b).  ``placements`` are the
@@ -299,4 +315,4 @@ class BucketPipeline:
         def staged_for(b):
             return {group_key_str(k): staged[group_key_str(k)]
                     for k in self.schedule[b][1]}
-        return self._run(staged_for, pm, placements, state)
+        return self._run(staged_for, pm, placements, state, donate)

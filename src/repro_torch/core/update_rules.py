@@ -88,17 +88,21 @@ def adamw_init(params: Dict[str, Any]) -> AdamWState:
     return AdamWState(mu=zeros(), nu=zeros())
 
 
-def adamw_update(grads, state: AdamWState, params, step: int, cfg):
-    """One AdamW step over {path: tensor} dicts; returns (updates, state)."""
+def adamw_update(grads, state: AdamWState, params, step: int, cfg, *,
+                 donate: bool = False):
+    """One AdamW step over {path: tensor} dicts; returns (updates, state).
+    ``donate``: each old moment leaves ``state`` as its new one is made, so
+    the two never coexist whole (the old state is spent)."""
     b1, b2, eps = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps
     t = float(step) + 1.0
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
     mu, nu, updates = {}, {}, {}
+    take = dict.pop if donate else dict.__getitem__
     for p, g in grads.items():
         g32 = g.float()
-        mu[p] = b1 * state.mu[p] + (1 - b1) * g32
-        nu[p] = b2 * state.nu[p] + (1 - b2) * torch.square(g32)
+        mu[p] = b1 * take(state.mu, p) + (1 - b1) * g32
+        nu[p] = b2 * take(state.nu, p) + (1 - b2) * torch.square(g32)
         u = (mu[p] / bc1) / (torch.sqrt(nu[p] / bc2) + eps)
         u = u + cfg.adam_weight_decay * params[p].detach().float()
         updates[p] = (-cfg.adam_lr * u).to(params[p].dtype)

@@ -27,10 +27,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def strict_fp32() -> None:
-    """fp32 matmuls in full IEEE precision: TF32 keeps ~3 decimal digits and
-    cannot meet the port's 1e-4 parity with the reference."""
+    """Matmuls accumulate as the reference's ``dot`` does
+    (``preferred_element_type=float32``): fp32 matmuls in full IEEE
+    precision (TF32 keeps ~3 decimal digits and cannot meet the port's 1e-4
+    parity with the reference), and bf16 matmuls with fp32 partial sums
+    (cuBLAS may otherwise reduce bf16 split-K partials in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def as_dtype(name) -> torch.dtype:

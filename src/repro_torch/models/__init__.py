@@ -1,4 +1,5 @@
-"""Model zoo (port of ``repro.models``): the dense decoder backbone."""
+"""Model zoo (port of ``repro.models``): the decoder backbone of the dense
+and MoE families."""
 
 from repro_torch.models.transformer import ArchConfig  # noqa: F401
 

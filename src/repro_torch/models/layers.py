@@ -1,5 +1,6 @@
-"""Dense model building blocks (port of the dense subset of
-``repro.models.layers``), as plain tensor functions over dict parameters.
+"""Model building blocks (port of the training paths of
+``repro.models.layers``: linear, norms, rotary, GQA attention, DeepSeek's
+MLA and the MLPs), as plain tensor functions over dict parameters.
 
 Conventions kept from the reference so both packages compute the same thing:
   * linear weights are stored (in_dim, out_dim) and apply as ``x @ w``;
@@ -223,6 +224,71 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
     out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd), qpos=pos, kpos=pos,
                 causal=cfg.causal, window=cfg.sliding_window)
     return linear(p["o_proj"], out.reshape(B, S, H * hd))
+
+
+# -------------------------------------------------------- MLA (DeepSeek-V3)
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def mla_init(gen, cfg: MLAConfig, *, lead: tuple = (), dtype=torch.float32,
+             device="cpu") -> Params:
+    H = cfg.n_heads
+    qh = cfg.qk_nope_dim + cfg.qk_rope_dim
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    return {
+        "q_a_proj": linear_init(gen, cfg.d_model, cfg.q_lora_rank, **kw),
+        "q_a_norm": rmsnorm_init(cfg.q_lora_rank, **kw),
+        "q_b_proj": linear_init(gen, cfg.q_lora_rank, H * qh, **kw),
+        "kv_a_proj": linear_init(gen, cfg.d_model,
+                                 cfg.kv_lora_rank + cfg.qk_rope_dim, **kw),
+        "kv_a_norm": rmsnorm_init(cfg.kv_lora_rank, **kw),
+        "kv_b_proj": linear_init(gen, cfg.kv_lora_rank,
+                                 H * (cfg.qk_nope_dim + cfg.v_head_dim), **kw),
+        "o_proj": linear_init(gen, H * cfg.v_head_dim, cfg.d_model, **kw),
+    }
+
+
+def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
+                  rope_cs=None) -> torch.Tensor:
+    """Multi-head Latent Attention of the training forward (no cache): q
+    through the rank-``q_lora_rank`` bottleneck, k and v expanded from the
+    normalised latent ``c_kv`` plus one rope key shared by every head.  The
+    v head dim may differ from the qk dim (``_sdpa`` reads it off v)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    q = linear(p["q_b_proj"], rmsnorm(p["q_a_norm"], linear(p["q_a_proj"], x)))
+    q = q.reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+
+    kv_a = linear(p["kv_a_proj"], x)
+    c_kv, k_rope = kv_a[..., :cfg.kv_lora_rank], kv_a[..., cfg.kv_lora_rank:]
+    c_kv = rmsnorm(p["kv_a_norm"], c_kv)
+    k_rope = k_rope.reshape(B, S, 1, rd)
+    if rope_cs is not None:
+        cos_q, sin_q, cos_k, sin_k = rope_cs
+        q_rope = apply_rope(q_rope, cos_q, sin_q)
+        k_rope = apply_rope(k_rope, cos_k, sin_k)
+
+    kv = linear(p["kv_b_proj"], c_kv).reshape(B, S, H, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    pos = torch.arange(S, device=x.device)
+    out = _sdpa(qf, k, v, scale=1.0 / math.sqrt(nd + rd), qpos=pos, kpos=pos,
+                causal=True)
+    return linear(p["o_proj"], out.reshape(B, S, H * vd))
 
 
 # --------------------------------------------------------------------- MLPs

@@ -1,15 +1,18 @@
-"""Dense decoder-LM backbone (port of the dense path of
-``repro.models.transformer``): ``ArchConfig``, ``init`` and ``forward``.
+"""Decoder-LM backbone of the dense and MoE families (port of their paths
+in ``repro.models.transformer``): ``ArchConfig``, ``init`` and ``forward``.
+
+  dense — GQA/MHA attention + MLP (swiglu or squared-relu, optional biases)
+  moe   — attention (MLA for deepseek) + MoE FFN with shared experts
 
 Parameters are a nested dict of tensors laid out as the reference's pytree:
-per-layer leaves stacked ``(L, ...)`` under ``blocks``, linear weights
-``(in, out)``.  The reference's ``lax.scan`` over the stacked blocks is a
-Python loop over the layers, each stacked leaf cut into its L layers once
-per forward (``unbind``: its backward stacks the L gradients once, where
-indexing ``w[l]`` per layer would zero-fill a full-size gradient of every
-leaf L times); its ``jax.checkpoint`` is ``torch.utils.checkpoint``
-(non-reentrant).  Other families (moe, hybrid,
-ssm, vlm, encoder-decoder) wait for ROADMAP item 9.
+per-layer leaves stacked ``(L, ...)`` under ``blocks`` (MoE experts
+``(L, E, m, n)``), linear weights ``(in, out)``.  The reference's
+``lax.scan`` over the stacked blocks is a Python loop over the layers, each
+stacked leaf cut into its L layers once per forward (``unbind``: its
+backward stacks the L gradients once, where indexing ``w[l]`` per layer
+would zero-fill a full-size gradient of every leaf L times); its
+``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant).  The
+hybrid, ssm, vlm and encoder-decoder families wait for ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike, as_dtype, resolve_device
-from repro_torch.models import layers
-from repro_torch.models.layers import AttnConfig
+from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models.layers import AttnConfig, MLAConfig
 
 Params = Dict[str, Any]
 
@@ -34,7 +37,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # only 'dense' is ported
+    family: str                     # 'dense' | 'moe' are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,7 +50,12 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # attention variants
+    attn_kind: str = "gqa"          # gqa | mla
+    mla: Optional[MLAConfig] = None
     sliding_window: Optional[int] = None
+    # moe
+    moe: Optional[moe_lib.MoEConfig] = None
     # dtype policy
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -68,11 +76,21 @@ class ArchConfig:
         params = init(self, device="meta")
         return int(sum(math.prod(v.shape) for _, v in tree.flatten(params)))
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: shared + top_k experts only)."""
+        n = self.param_count()
+        if self.moe is None:
+            return n
+        c = self.moe
+        per_expert = 3 * c.d_model * c.d_expert
+        inactive = (c.n_experts - c.top_k) * per_expert * self.n_layers
+        return n - inactive
+
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         "(ROADMAP item 9); only 'dense' is")
+                         "(ROADMAP item 9); 'dense' and 'moe' are")
 
 
 def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> Params:
@@ -90,19 +108,32 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> Params:
                  "final_norm": layers.rmsnorm_init(d, **kw)}
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.embed_init(gen, cfg.vocab, d, **kw)
-    p["blocks"] = {
-        "attn_norm": layers.rmsnorm_init(d, lead=(L,), **kw),
-        "mlp_norm": layers.rmsnorm_init(d, lead=(L,), **kw),
-        "attn": layers.attention_init(gen, cfg.attn_cfg(), lead=(L,), **kw),
-        "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.act, lead=(L,), **kw),
-    }
+    blocks = {"attn_norm": layers.rmsnorm_init(d, lead=(L,), **kw),
+              "mlp_norm": layers.rmsnorm_init(d, lead=(L,), **kw)}
+    if cfg.attn_kind == "mla":
+        blocks["attn"] = layers.mla_init(gen, cfg.mla, lead=(L,), **kw)
+    else:
+        blocks["attn"] = layers.attention_init(gen, cfg.attn_cfg(),
+                                               lead=(L,), **kw)
+    if cfg.moe is not None:
+        blocks["moe"] = moe_lib.moe_init(gen, cfg.moe, lead=(L,), **kw)
+    else:
+        blocks["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, cfg.act,
+                                        lead=(L,), **kw)
+    p["blocks"] = blocks
     return p
 
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs):
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    x = x + layers.attention(p["attn"], cfg.attn_cfg(), h, rope_cs=rope_cs)
+    if cfg.attn_kind == "mla":
+        x = x + layers.mla_attention(p["attn"], cfg.mla, h, rope_cs=rope_cs)
+    else:
+        x = x + layers.attention(p["attn"], cfg.attn_cfg(), h,
+                                 rope_cs=rope_cs)
     h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_lib.moe(p["moe"], cfg.moe, h)
     return x + layers.mlp(p["mlp"], h, cfg.act)
 
 
@@ -115,7 +146,8 @@ def _rope_angles(hd: int, positions: torch.Tensor, theta: float):
 
 def _rope_for(cfg: ArchConfig, positions: torch.Tensor):
     """Self-attention rope: q and k share the same positions."""
-    cos, sin = _rope_angles(cfg.hd, positions, cfg.rope_theta)
+    hd = cfg.mla.qk_rope_dim if cfg.attn_kind == "mla" else cfg.hd
+    cos, sin = _rope_angles(hd, positions, cfg.rope_theta)
     return (cos, sin, cos, sin)
 
 
@@ -144,11 +176,18 @@ def forward(cfg: ArchConfig, params: Params,
 def params_from_numpy(t, device: DeviceLike = None,
                       requires_grad: bool = False) -> Params:
     """The port's parameters from the reference's ``init`` output converted
-    to a nested dict of numpy arrays (same paths, same layout)."""
+    to a nested dict of numpy arrays (same paths, same layout).  bf16 arrays
+    (numpy's ``bfloat16`` extension type, which torch cannot read) cross
+    bit for bit through their 16-bit patterns."""
     device = resolve_device(device)
 
     def conv(a):
-        v = torch.from_numpy(np.array(a)).to(device)
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":
+            v = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            v = torch.from_numpy(a)
+        v = v.to(device)
         return v.requires_grad_(requires_grad) if v.is_floating_point() else v
     return tree.tree_map(conv, t)
 

@@ -72,6 +72,7 @@ def make_loss_fn(cfg) -> Callable:
 def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                     pipeline: Optional[str] = None,
                     prestage: Optional[bool] = None,
+                    donate: bool = False,
                     device: DeviceLike = None):
     """Returns ``step(state, batch) -> state`` running on ``device`` (CUDA
     unless given; it must be where ``init_state`` put the parameters).
@@ -83,7 +84,13 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
     a mesh of more than one rank, where the staged reduce-scatters are real
     transfers to hide.  It runs only with ``pipeline="bucketed"``,
     ``accum_steps > 1``, owner mode and no ``compress_grads`` (whose error
-    feedback needs the summed gradient in the training layout)."""
+    feedback needs the summed gradient in the training layout).
+
+    ``donate`` (the reference's ``donate``, off by default here): the
+    optimizer releases the incoming state's momentum and AdamW moments as
+    it makes their successors (``Muon.update(..., donate=True)``), so a
+    step holds one optimizer state, not two; the state passed to ``step``
+    is spent."""
     device = resolve_device(device)
     if pipeline is not None and pipeline != opt.config.pipeline:
         opt = opt.replace(pipeline=pipeline)
@@ -184,12 +191,12 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
         if prestage:
             updates, opt_state = opt.update_staged(
                 staged, {p: as_grad(g) for p, g in rest.items()},
-                state.opt_state, state.params)
+                state.opt_state, state.params, donate=donate)
         else:
             grads = tree.rebuild(state.params, {
                 p: as_grad(g) for p, g in zip(paths, grads)})
             updates, opt_state = opt.update(grads, state.opt_state,
-                                            state.params)
+                                            state.params, donate=donate)
         with torch.no_grad():
             for (_, p), (_, u) in zip(tree.flatten(state.params),
                                       tree.flatten(updates)):

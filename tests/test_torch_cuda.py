@@ -155,3 +155,43 @@ def test_fp32_symmul_dion2_factor_shapes(cuda_device, m, bm, bk):
                    ref.mirror_lower(symmul_plain(p, g)))
     _assert_scaled(symmul_lower(g, g, epilogue="gram_poly", coeffs=c,
                                 block_m=bm, block_k=bk), p)
+
+
+# DeepSeek-V3's Gram groups at its published widths, at batch 2: SYRK
+# (m, n) and the Gram dims of symmul / gram_poly (m up to 7168 = 112 tiles
+# of 64; n up to 32768 k-slices of the kv_b_proj group).  Held against the
+# exact (float64) product at 5e-6 · max|exact| (chip_smoke.EXACT_GATE):
+# the plain fp32 version's own rounding exceeds 1e-5 past n ~ 16k.
+MOE_SYRK = [(2048, 7168), (1536, 7168), (1536, 24576), (576, 7168),
+            (512, 32768), (7168, 16384)]
+MOE_GRAM = [2048, 1536, 576, 512, 7168]
+EXACT_GATE = 5e-6
+
+
+def _assert_exact(got, exact):
+    err = float((got.double() - exact).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= EXACT_GATE * float(exact.abs().max()), err
+
+
+@pytest.mark.parametrize("m,n", MOE_SYRK)
+def test_fp32_syrk_moe_shapes(cuda_device, m, n):
+    x = _heavy_rows(cuda_device, (2, m, n), seed=6)
+    xd = x.double()
+    _assert_exact(ops.syrk(x), xd @ xd.mT)
+
+
+@pytest.mark.parametrize("m", MOE_GRAM)
+def test_fp32_symmul_moe_shapes(cuda_device, m):
+    """symmul and gram_poly at DeepSeek-V3's Gram dims against the exact
+    products, on O(1) products (G = X Xᵀ near I)."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    x = torch.randn(2, m, 2 * m, generator=gen, device=cuda_device)
+    g = ref.mirror_lower(syrk_plain(x / (2 * m) ** 0.5))
+    c = (8.287, -23.6, 17.3)
+    p = ref.mirror_lower(symmul_plain(g, g, epilogue="gram_poly", coeffs=c))
+    gd, pd = g.double(), p.double()
+    _assert_exact(ref.mirror_lower(ops.symmul(p, g)), pd @ gd)
+    poly = c[2] * (gd @ gd) + c[1] * gd
+    poly.diagonal(dim1=-2, dim2=-1).add_(c[0])
+    _assert_exact(ref.mirror_lower(ops.gram_poly(g, *c)), poly)

@@ -188,3 +188,84 @@ def test_measured_cost_model_times_the_port():
     assert {k: len(v) for k, v in asn.owner_of.items()} == \
         {(8, 16): 4, (16, 32): 2}
     assert set(np.concatenate(list(asn.owner_of.values())).tolist()) <= {0, 1}
+
+
+# ---------------------------------------------------------------- MoE census
+# Expert leaves (L, E, m, n) carry L·E matrices each, one group per leaf;
+# the census handed to the load balancer aggregates by (m, n) across leaves.
+
+MOE_ARCHS = ["deepseek-v3-671b", "kimi-k2-1t-a32b"]
+
+
+def _arch_shapes(arch: str, reduced: bool, **overrides):
+    jcfg = jconfigs.get(arch, reduced=reduced, **overrides)
+    tcfg = tconfigs.get(arch, reduced=reduced, **overrides)
+    if reduced:
+        jparams = jtransformer.init(jcfg, jax.random.PRNGKey(0))
+        tparams = ttransformer.params_from_numpy(
+            jax.tree.map(np.asarray, jparams), device="cpu")
+    else:
+        jparams = jax.eval_shape(lambda k: jtransformer.init(jcfg, k),
+                                 jax.random.PRNGKey(0))
+        tparams = ttransformer.init(tcfg, device="meta")
+    return jparams, tparams
+
+
+@pytest.mark.parametrize("num_owners", OWNERS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_plan_identical_to_reference(arch, num_owners):
+    """Reduced DeepSeek-V3 / Kimi-K2 (the MILP's default strategy)."""
+    jparams, tparams = _arch_shapes(arch, reduced=True)
+    tplan = tapi.dedicate_params(tparams, num_owners=num_owners)
+    _assert_same_plan(japi.dedicate_params(jparams, num_owners=num_owners),
+                      tplan)
+    L, E = 2, tconfigs.get(arch, reduced=True).moe.n_experts
+    for part in ("gate_proj", "up_proj", "down_proj"):
+        g = tplan.groups[f"blocks/moe/experts/{part}/w"]
+        assert g.count == L * E
+        assert tplan.leaves[f"blocks/moe/experts/{part}/w"].shape[:2] == (L, E)
+
+
+# the chip phase's cut: two layers, 16 experts (the router has 16 outputs)
+FULL_WIDTH = {"published": {},
+              "cut": dict(n_layers=2, moe_experts=16)}
+
+
+def _full_overrides(cut: dict):
+    if not cut:
+        return {}, {}
+    import dataclasses
+    jm = dataclasses.replace(jconfigs.get("deepseek-v3-671b").moe,
+                             n_experts=cut["moe_experts"])
+    tm = dataclasses.replace(tconfigs.get("deepseek-v3-671b").moe,
+                             n_experts=cut["moe_experts"])
+    return (dict(n_layers=cut["n_layers"], moe=jm),
+            dict(n_layers=cut["n_layers"], moe=tm))
+
+
+@pytest.mark.parametrize("num_owners", OWNERS)
+@pytest.mark.parametrize("size", sorted(FULL_WIDTH))
+def test_full_width_deepseek_census_identical(size, num_owners):
+    """DeepSeek-V3 at its published widths, planned from meta tensors
+    against ``jax.eval_shape``, greedy: 11 groups in 5 Gram buckets, the
+    expert groups of L·E matrices, the census aggregated by (m, n)."""
+    jo, to = _full_overrides(FULL_WIDTH[size])
+    jcfg = jconfigs.get("deepseek-v3-671b", **jo)
+    tcfg = tconfigs.get("deepseek-v3-671b", **to)
+    jparams = jax.eval_shape(lambda k: jtransformer.init(jcfg, k),
+                             jax.random.PRNGKey(0))
+    tparams = ttransformer.init(tcfg, device="meta")
+    kw = dict(num_owners=num_owners, strategy="greedy")
+    tplan = tapi.dedicate_params(tparams, **kw)
+    _assert_same_plan(japi.dedicate_params(jparams, **kw), tplan)
+    L, E = tcfg.n_layers, tcfg.moe.n_experts
+    assert len(tplan.groups) == 11
+    assert sorted(tplan.buckets) == [512, 576, 1536, 2048, 7168]
+    assert {k: g.key for k, g in tplan.groups.items()
+            if "experts" in k} == dict.fromkeys(
+        [f"blocks/moe/experts/{p}/w" for p in ("down_proj", "gate_proj",
+                                               "up_proj")], (2048, 7168))
+    census = {k: len(v) for k, v in tplan.assignment.owner_of.items()}
+    assert census == {(2048, 7168): 3 * L * E + 3 * L, (1536, 7168): L,
+                      (1536, 24576): L, (576, 7168): L, (512, 32768): L,
+                      (7168, 16384): L}

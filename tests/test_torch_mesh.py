@@ -26,7 +26,8 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core import api as tapi, tree  # noqa: E402
 from repro_torch.core.dedication import LeafInfo  # noqa: E402
 from repro_torch.core.owner_comms import (OwnerLayout,  # noqa: E402
-                                          published, stacked_placements)
+                                          _lead_perm, published,
+                                          stacked_placements)
 from repro_torch.data import pipeline as tpipeline  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import sharding as tsharding  # noqa: E402
@@ -175,8 +176,9 @@ def test_stacked_placements():
 
 def test_stacked_placements_refuse_what_cannot_move():
     moe = _info((2, 4, 64, 256))
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        stacked_placements(moe, (Shard(1), Replicate()))
+    # an expert dim sharded (expert parallelism): stack dim 0, made major
+    assert stacked_placements(moe, (Shard(1), Replicate())) == \
+        (Shard(0), Replicate())
     with pytest.raises(ValueError, match="more than one mesh axis"):
         stacked_placements(_info((8, 64, 256)), (Shard(2), Shard(2)))
     with pytest.raises(ValueError, match="'max'"):
@@ -228,3 +230,74 @@ def test_mesh_modules_import_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ------------------------------------------------------------ MoE layouts
+
+MOE_ARCHS = ["deepseek-v3-671b", "kimi-k2-1t-a32b"]
+
+
+def _moe_shapes(arch, reduced):
+    jcfg = jconfigs.get(arch, reduced=reduced)
+    tcfg = tconfigs.get(arch, reduced=reduced)
+    jshapes = jax.eval_shape(lambda k: jtransformer.init(jcfg, k),
+                             jax.random.PRNGKey(0))
+    return jcfg, tcfg, jshapes, ttransformer.init(tcfg, device="meta")
+
+
+@pytest.mark.parametrize("zero3", [False, True], ids=["tp", "zero3"])
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_specs_and_stacked_views_match_reference(arch, reduced,
+                                                           zero3):
+    """``param_specs`` of both MoE configs on a (2, 4) mesh equal the
+    reference's (experts sharded on E over 'model'), and for every Muon
+    leaf the port's ``_lead_perm`` and ``stacked_placements`` are the
+    reference's ``_lead_perm`` and ``_stacked_spec`` (as placements)."""
+    from repro.core.owner_comms import _lead_perm as jlead_perm
+    from repro.core.owner_comms import _stacked_spec
+    jcfg, tcfg, jshapes, tshapes = _moe_shapes(arch, reduced)
+    mesh = FakeMesh((2, 4))
+    want = _jpaths(jsharding.param_specs(
+        jcfg, jshapes, AbstractMesh((2, 4), AXES), zero3=zero3))
+    got = tsharding.param_specs(tcfg, tshapes, mesh, zero3=zero3)
+    assert set(got) == set(want)
+    for p, spec in want.items():
+        assert got[p] == tuple(spec), p
+    plan = tapi.dedicate_params(tshapes, num_owners=8, strategy="greedy")
+    jplan = japi.dedicate_params(jshapes, num_owners=8, strategy="greedy")
+    experts = 0
+    for p, info in plan.leaves.items():
+        pl = tsharding.placements(got[p], mesh)
+        jinfo, jspec = jplan.leaves[p], want[p]
+        assert _lead_perm(info, pl) == jlead_perm(jinfo, jspec), p
+        assert stacked_placements(info, pl) == tsharding.placements(
+            tuple(_stacked_spec(jinfo, jspec)), mesh), p
+        if "experts" in p:
+            experts += 1
+            assert _lead_perm(info, pl) == (1, 0), p
+            assert stacked_placements(info, pl)[1] == Shard(0), p
+    assert experts == 3
+
+
+def test_lead_perm_roundtrip_of_an_expert_shard():
+    """An (L, E, m, n) leaf sharded on E: its local shard flattens E-major
+    into a contiguous block of the E-major stack, and back."""
+    from repro_torch.core.owner_comms import (_leaf_to_matrices,
+                                              _matrices_to_leaf)
+    info = LeafInfo("blocks/moe/experts/up_proj/w", (3, 4, 16, 8), 12, True,
+                    (8, 16), 0)
+    leaf = torch.arange(3 * 4 * 16 * 8, dtype=torch.float32).reshape(
+        3, 4, 16, 8)
+    perm = _lead_perm(info, (Replicate(), Shard(1)))
+    assert perm == (1, 0)
+    full = _leaf_to_matrices(leaf, info, perm)
+    assert full.shape == (12, 8, 16)
+    for c in range(2):
+        part = _leaf_to_matrices(leaf[:, 2 * c:2 * c + 2], info, perm)
+        assert torch.equal(part, full[6 * c:6 * c + 6])
+        assert torch.equal(_matrices_to_leaf(part, info, perm),
+                           leaf[:, 2 * c:2 * c + 2])
+    assert torch.equal(_matrices_to_leaf(full, info, perm), leaf)
+    with pytest.raises(ValueError, match="leading dims"):
+        _lead_perm(info, (Shard(0), Shard(1)))

@@ -341,7 +341,9 @@ from repro_torch.core import (api, coefficients, dedication, gram_ns, layout,
 from repro_torch.data import pipeline
 from repro_torch.kernels import autotune, build, gram_syrk, ops, ref, symmul
 from repro_torch.launch import mesh, train
-from repro_torch.models import layers, sharding, transformer
+from repro_torch.models import layers, moe, sharding, transformer
+from repro_torch.configs import (deepseek_v3_671b, kimi_k2_1t, nemotron4_340b,
+                                 qwen2p5_14b, stablelm_1p6b)
 from repro_torch.runtime import elastic, faults, resilient
 from repro_torch.train import step, train_state
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -374,9 +376,47 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert ROOT / "examples" / "torch_quickstart.py" in files
     for sub in ("checkpoint/manager.py", "runtime/faults.py",
                 "runtime/elastic.py", "runtime/resilient.py",
-                "launch/train.py"):
+                "launch/train.py", "models/moe.py",
+                "configs/deepseek_v3_671b.py", "configs/kimi_k2_1t.py"):
         assert ROOT / "src" / "repro_torch" / sub in files, sub
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), f"{f}: {mod}"
+
+
+@pytest.mark.parametrize("pipeline", ["fused", "bucketed"])
+def test_donated_state_gives_the_same_steps(pipeline):
+    """``donate=True`` releases the incoming state's momentum and AdamW
+    moments as their successors are made: two steps give the same loss,
+    parameters and state bit for bit, and the spent state is empty."""
+    _, tcfg, _, tparams = _init()
+    plan = tapi.dedicate_params(tparams)
+    dcfg = _dcfg(tcfg)
+    runs = []
+    for donate in (False, True):
+        params = tree.tree_map(
+            lambda v: v.detach().clone().requires_grad_(True), tparams)
+        opt = tapi.Muon(plan, config=MuonConfig(pipeline=pipeline),
+                        device="cpu")
+        state = TrainState(0, params, opt.init(params), torch.zeros(()))
+        fn = tstep.make_train_step(tcfg, opt, donate=donate, device="cpu")
+        spent = []
+        for i in range(2):
+            spent.append(state.opt_state)
+            state = fn(state, tpipeline.batch_for_step(dcfg, i,
+                                                       device="cpu"))
+        runs.append(state)
+        if donate:
+            for old in spent:
+                assert not old.momentum and not old.adamw.mu \
+                    and not old.adamw.nu
+    a, b = runs
+    assert torch.equal(a.loss_ema, b.loss_ema)
+    for (p, x), (_, y) in zip(tree.flatten(a.params), tree.flatten(b.params)):
+        assert torch.equal(x, y), p
+    for part in ("momentum",):
+        for k, v in getattr(a.opt_state, part).items():
+            assert torch.equal(v, getattr(b.opt_state, part)[k]), k
+    for k, v in a.opt_state.adamw.nu.items():
+        assert torch.equal(v, b.opt_state.adamw.nu[k]), k

@@ -15,8 +15,12 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 2,2 --out DIR
     python tests/torch_dist_check.py restore --rank R --world W \\
         --port P --mesh 1,2 --out DIR/restore
+    python tests/torch_dist_check.py moe --rank R --world W \\
+        --port P --mesh 2,2 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_dist_check.py jax --mesh 2,4 --out DIR
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/torch_dist_check.py jax_moe --mesh 2,4 --out DIR
 
 ``owner`` is the twin of ``dist_check.py``'s checks 1–5 on a
 ("data", "model") mesh with its tree, gradients and tensor-parallel specs,
@@ -29,8 +33,11 @@ event order, prestaged accumulation and AdamW's train step;
 checkpoint written in owner row blocks into DIR/ckpt), reshards an
 owner-layout state on the mesh against the one-process reshard, and
 kills an owner on the mesh; ``restore`` resumes that checkpoint on
-another mesh (the checkpoint of DIR's parent); ``jax`` runs
-the reference's own multi-device owner update on an Auto-axis mesh.  Each
+another mesh (the checkpoint of DIR's parent); ``moe`` runs 2 Muon steps
+of the reduced Kimi-K2 with its expert leaves sharded on E over "model"
+(expert parallelism), replicated, and data-parallel; ``jax`` runs
+the reference's own multi-device owner update on an Auto-axis mesh, and
+``jax_moe`` its update of ``moe``'s parameters and gradients.  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
@@ -124,15 +131,16 @@ def launch(mode: str, world: int, mesh: tuple, out: Path,
         raise AssertionError(f"{mode} world {mesh} failed:\n{text}")
 
 
-def run_jax(mesh: tuple, out: Path, timeout: float = 240.0) -> None:
-    """The reference's owner update on ``mesh`` host devices, into
-    ``out/jax.npz``."""
+def run_jax(mesh: tuple, out: Path, timeout: float = 240.0,
+            mode: str = "jax") -> None:
+    """The reference's owner update (``mode`` "jax" or "jax_moe") on
+    ``mesh`` host devices, into ``out/jax.npz``."""
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count="
                          f"{int(np.prod(mesh))}")
     proc = subprocess.run(
-        [sys.executable, __file__, "jax", "--mesh", ",".join(map(str, mesh)),
+        [sys.executable, __file__, mode, "--mesh", ",".join(map(str, mesh)),
          "--out", str(out)], env=env, capture_output=True, text=True,
         timeout=timeout)
     if proc.returncode != 0:
@@ -763,6 +771,148 @@ def restore_rank(args) -> None:
         json.dumps(_mesh_info(loop)))
 
 
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_STEPS = 2
+MOE_KINDS = ("ep", "replicated", "partial")
+
+
+def moe_tree() -> dict:
+    """The reduced Kimi-K2's parameters drawn with numpy leaf by leaf in
+    path order (the same in both packages; shapes from the port's init)."""
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.models import transformer
+    shapes = transformer.init(configs.get(MOE_ARCH, reduced=True),
+                              device="meta")
+    rng = np.random.default_rng(0)
+    return tree.rebuild(shapes, {
+        p: (rng.standard_normal(tuple(v.shape)) * 0.02).astype(np.float32)
+        for p, v in tree.flatten(shapes)})
+
+
+def moe_grads(seed: int) -> dict:
+    """Gradients for ``moe_tree``, drawn leaf by leaf in path order."""
+    from repro_torch.core import tree
+    rng = np.random.default_rng(seed)
+    t = moe_tree()
+    return tree.rebuild(t, {
+        p: (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+        for p, v in tree.flatten(t)})
+
+
+def moe_rank(args) -> None:
+    """2 Muon steps of the reduced Kimi-K2 on the mesh from gradients
+    placed by ``param_specs`` (experts sharded on E over "model", the
+    attention and shared experts tensor-parallel: "ep"), replicated, and
+    ``Partial`` over "data" with the same "model" shards ("partial"); rank
+    0 also runs the same plan in one process."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.core.owner_comms import OwnerLayout, stacked_placements
+    from repro_torch.models.sharding import param_specs, place, placements
+
+    mesh = _setup(args)
+    cfg = configs.get(MOE_ARCH, reduced=True)
+    P = tree.tree_map(torch.from_numpy, moe_tree())
+    specs = param_specs(cfg, P, mesh)
+    Pd = place(P, specs, mesh)
+    plan = api.dedicate_params(P, mesh=mesh, strategy="greedy")
+    mcfg = MuonConfig(mode="owner", learning_rate=LR, momentum=MOMENTUM,
+                      ns=GramNSConfig(num_steps=NS_STEPS))
+
+    def grads(t: int, kind: str):
+        G = tree.tree_map(torch.from_numpy, moe_grads(1 + t))
+        if kind == "replicated":
+            return G
+        Gd = place(G, specs, mesh)
+        if kind == "ep":
+            return Gd
+        # every data rank holds the same part, so the average is exact
+        return tree.rebuild(G, {
+            p: DTensor.from_local(
+                g.to_local(), mesh,
+                (Partial("avg"),) + tuple(placements(specs[p], mesh))[1:],
+                run_check=False, shape=g.shape, stride=g.stride())
+            for p, g in tree.flatten(Gd)})
+
+    def run(kind, m, params):
+        opt = api.Muon(plan, m, config=mcfg, device="cpu")
+        state, out = opt.init(params), {}
+        for t in range(MOE_STEPS):
+            upd, state = opt.update(grads(t, kind), state, params)
+            out.update(_flat_np(f"{kind}/upd{t}", upd))
+        return out
+
+    arrays = {}
+    for kind in MOE_KINDS:
+        arrays.update(run(kind, mesh, P if kind == "replicated" else Pd))
+    if args.rank == 0:
+        single = run("replicated", None, P)
+        arrays.update({k.replace("replicated/", "nomesh/", 1): v
+                       for k, v in single.items()})
+    layout = OwnerLayout(plan, mesh)
+    experts = {p: [str(q) for q in stacked_placements(
+        plan.leaves[p], placements(specs[p], mesh))]
+        for p in plan.leaves if "experts" in p}
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(
+        {"rank": args.rank, "coord": [mesh.get_local_rank(i)
+                                      for i in range(mesh.ndim)],
+         "owner_index": layout.owner_index(),
+         "block_peers": layout._block_peers([1]),
+         "expert_stacked": experts}))
+
+
+def jax_moe_reference(args) -> None:
+    """The reference's owner update of ``moe_tree`` / ``moe_grads`` for
+    ``MOE_STEPS`` steps inside jit on an Auto-axis mesh, with its
+    ``param_specs`` as the parameters' and gradients' shardings and as the
+    plan's training specs (its ``_lead_perm`` / ``_stacked_spec`` path)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as Pspec
+
+    from repro import configs
+    from repro.core import api
+    from repro.core.dedication import _key_str
+    from repro.core.gram_ns import GramNSConfig
+    from repro.core.muon import MuonConfig
+    from repro.models.sharding import param_specs
+
+    mesh = jax.make_mesh(tuple(args.mesh), AXES,
+                         axis_types=(AxisType.Auto,) * len(AXES))
+    cfg = configs.get(MOE_ARCH, reduced=True)
+    params = jax.tree.map(jnp.asarray, moe_tree())
+    specs = param_specs(cfg, params, mesh)
+    sh = jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                      is_leaf=lambda x: isinstance(x, Pspec))
+    params_sh = jax.device_put(params, sh)
+    plan = api.dedicate_params(params, mesh=mesh, strategy="greedy")
+    plan.train_specs = {
+        "/".join(_key_str(k) for k in kp): spec
+        for kp, spec in jax.tree_util.tree_leaves_with_path(
+            specs, is_leaf=lambda x: isinstance(x, Pspec))}
+    opt = api.Muon(plan, mesh=mesh, config=MuonConfig(
+        mode="owner", learning_rate=LR, momentum=MOMENTUM,
+        ns=GramNSConfig(num_steps=NS_STEPS)))
+    state = jax.jit(opt.init)(params_sh)
+    update = jax.jit(opt.update)
+    arrays = {}
+    for t in range(MOE_STEPS):
+        grads = jax.device_put(jax.tree.map(jnp.asarray, moe_grads(1 + t)),
+                               sh)
+        upd, state = update(grads, state, params_sh)
+        for kp, v in jax.tree_util.tree_leaves_with_path(upd):
+            path = "/".join(str(getattr(k, "key", k)) for k in kp)
+            arrays[f"upd{t}/{path}"] = np.asarray(jax.device_get(v))
+    np.savez(Path(args.out) / "jax.npz", **arrays)
+
+
 def jax_reference(args) -> None:
     """The reference's owner update inside jit on an Auto-axis mesh (jax
     0.9's ``make_mesh`` default is Explicit axes, which its owner layout's
@@ -804,7 +954,8 @@ def jax_reference(args) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
-                                     "checkpoint", "restore", "jax"))
+                                     "checkpoint", "restore", "moe", "jax",
+                                     "jax_moe"))
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--port", type=int, default=0)
@@ -814,15 +965,15 @@ def main() -> None:
     # yield the CPU to the test processes running beside these worlds
     # (several tests compare solver results that a time limit bounds)
     os.nice(10)
-    if args.mode == "jax":
-        jax_reference(args)
+    if args.mode in ("jax", "jax_moe"):
+        {"jax": jax_reference, "jax_moe": jax_moe_reference}[args.mode](args)
         return
     import torch.distributed as dist
     try:
         {"owner": owner_rank, "train": train_rank,
          "variants": variants_rank, "pipeline": pipeline_rank,
-         "checkpoint": checkpoint_rank,
-         "restore": restore_rank}[args.mode](args)
+         "checkpoint": checkpoint_rank, "restore": restore_rank,
+         "moe": moe_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
