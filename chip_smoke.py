@@ -91,6 +91,28 @@ Phases, each printing one JSON line and asserting what it checks:
            AdamW steps, batch 4 x 1024, remat, seed 0, the optimizer
            releasing each spent state (``donate``), timed with tokens/s and
            peak memory.
+  families the hybrid, xLSTM, encoder-decoder and VLM families at their
+           published widths, fp32, seed 0 (``FAMILY_RUNS``): hymba-1.5b
+           (32 layers, batch 2 x 2048, so the 1024 window binds on its
+           29 windowed layers and the chunked attention runs),
+           xlstm-350m (24 layers, 8 x 512), seamless-m4t-large-v2
+           (24 + 24 layers, frames 2 x 4096 x 1024, decoder 2 x 512) and
+           llava-next-mistral-7b (8 of 32 layers, the cut stated in its
+           config line; patches 2 x 2880 x 1024 + 2 x 512 tokens).  The
+           three kernels at every Gram group shape of the four plans
+           (m = 100 ... 4096, n up to 14336), held like the moe phase's,
+           median of 20; hymba's ``linear_scan`` against the recurrence
+           stepped in float64 (h and both gradients) and its chunked
+           windowed attention against the unchunked masked softmax;
+           xLSTM's mLSTM parallel form and sLSTM loop against float64
+           sequential recurrences (each within 1e-5 · max|exact|); hymba's
+           first Muon update with the kernels within 2x the plain fp32
+           path's RMS distance from the exact one (one TF32 pass >= 10x
+           outside), bucketed == fused bitwise; then 3 Muon steps of
+           each (owner, fused, one owner, launches from the plan asserted
+           per step) and 3 AdamW steps of hymba, with ``donate``, timed
+           with tokens/s and peak memory.  ``--trace`` with an arch's name
+           traces its Muon steps (device busy and idle share).
   mesh     every visible card, one NCCL process each (spawned; they load
            the kernels the parent built), on a ("data", "model") =
            (cards, 1) mesh: one Muon update from the same full-width
@@ -129,8 +151,9 @@ Phases, each printing one JSON line and asserting what it checks:
            rows bitwise those of an all-gather taken in the run.
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
-train phase ran), the nvidia-smi line (the first card's; the device line
-lists every card), and last
+train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
+and families phases' Muon runs), the nvidia-smi line (the first card's;
+the device line lists every card), and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.  Without
 a CUDA card, or without the repository's ``src/`` beside it, it exits 2 and
 prints no result.
@@ -181,7 +204,7 @@ KERNELS = {
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "pipeline", "resilience", "moe", "mesh")
+          "pipeline", "resilience", "moe", "families", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -691,8 +714,11 @@ class GcClock:
 
 
 def trace_summary(prof, steps: int, top: int = 8) -> list:
-    """Per step (a ``record_function`` range "step<i>"), the ``top`` ops by
-    self host time and by self device time, ms."""
+    """Per step (a ``record_function`` range "step<i>"), the ``top`` ops
+    and kernels by self host time and by self device time, ms, and the
+    device's busy time: the sum over kernel events alone (an op's self
+    device time is its kernels' again)."""
+    from torch.autograd import DeviceType
     events = list(prof.events())
     out = []
     for i in range(steps):
@@ -701,20 +727,23 @@ def trace_summary(prof, steps: int, top: int = 8) -> list:
         if rng is None:
             out.append(None)
             continue
-        host, dev = {}, {}
+        host, dev, busy = {}, {}, 0.0
         for e in events:
             if e.name.startswith("step") or not (
                     rng.start <= e.time_range.start <= rng.end):
                 continue
             host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
             dev[e.name] = dev.get(e.name, 0.0) + e.self_device_time_total
+            if e.device_type == DeviceType.CUDA:
+                busy += e.self_device_time_total
         out.append({
             "range_ms": (rng.end - rng.start) / 1e3,
             "host_self_ms": {k: v / 1e3 for k, v in sorted(
                 host.items(), key=lambda kv: -kv[1])[:top]},
             "device_self_ms": {k: v / 1e3 for k, v in sorted(
                 dev.items(), key=lambda kv: -kv[1])[:top] if v > 0},
-            "device_busy_ms": sum(dev.values()) / 1e3})
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / (rng.end - rng.start)})
     return out
 
 
@@ -746,10 +775,12 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               trace: str | None = None, pipeline: str = "fused",
               accum_steps: int = 1, prestage: bool | None = None,
               steps: int = TRAIN_STEPS, keep_state: bool = False,
-              cfg=None, dcfg=None, donate: bool = False) -> dict:
+              cfg=None, dcfg=None, donate: bool = False,
+              inputs=None) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on; or
-    the model ``cfg`` on the data ``dcfg``, the optimizer releasing each
-    spent state with ``donate``)
+    the model ``cfg`` on the data ``dcfg``, each batch joined by
+    ``inputs(step)``'s tensors (patches or frames) when given, the
+    optimizer releasing each spent state with ``donate``)
     ``steps`` steps with ``variant`` / ``mode`` / ``pipeline`` and
     the MuonConfig fields ``knobs``, under ``mesh`` when given (each rank
     on its rows of the batch), in ``accum_steps`` microbatches, staged to
@@ -780,11 +811,11 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     from repro_torch.core.muon import MuonConfig
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     from repro_torch.train.step import init_state, make_train_step
 
     cfg = cfg or configs.get("smollm-360m")
-    plan = api.dedicate_params(transformer.init(cfg, device="meta"),
+    plan = api.dedicate_params(model_fns(cfg).init(cfg, device="meta"),
                                mesh=mesh)
     per_step = plan_launches(plan)
     knobs = knobs or {}
@@ -833,6 +864,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     gc.callbacks.append(gc_clock)
     for i in range(steps):
         batch = batch_for_step(dcfg, i, device="cuda", mesh=mesh)
+        if inputs is not None:
+            batch.update(inputs(i))
         torch.cuda.synchronize()
         before = allocator_counts(torch)
         gc_clock.reset()
@@ -2104,6 +2137,12 @@ MOE_DISPATCH_RTOL = 1e-5
 # path's one-ulp spread) assumes the plain path's rounding is below that
 # spread, which its fp32 sums over n up to 32768 are not (PERF.md §6)
 EXACT_UPDATE_FACTOR = 1
+# the families phase's factor: at hymba's m = 100 and 132 the Gram
+# products contract over so few terms that fp32's accumulation error no
+# longer hides 3xTF32's per-product representation error (≈ 2^-22 against
+# fp32's 2^-24 rounding), and the kernel update sits 1.04-1.11x the plain
+# path's distance (PERF.md §6); every m >= 320 group reads 0.22-0.38
+FAMILY_UPDATE_FACTOR = 2
 
 
 def moe_config():
@@ -2116,16 +2155,17 @@ def moe_config():
                                                n_experts=MOE_EXPERTS))
 
 
-def moe_kernel_cases(torch, gen):
-    """``kernel_cases`` tuples at DeepSeek-V3's Gram shapes, one at a time
-    (their inputs reach 1.9 GB each), fp32 under the scaled gate."""
+def gram_kernel_cases(torch, gen, syrk_shapes, gram_shapes):
+    """``kernel_cases`` tuples at a model's Gram shapes (SYRK at each
+    (B, m, n), symmul and gram_poly at each (B, m)), one at a time (their
+    inputs reach several GB), fp32 under the scaled gate."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
     from repro_torch.kernels.symmul import symmul_plain, symmul_tf32_emulated
     coeffs = get_coefficients("polar_express", 5)[0]
     tc32 = dict(scaled=EXACT_GATE)
-    for shape in MOE_SYRK:
+    for shape in syrk_shapes:
         x = syrk_inputs(torch, gen, *shape)
         yield ("gram_syrk", shape, torch.float32, tc32,
                lambda x=x: ops.syrk(x), lambda x=x: syrk_plain(x),
@@ -2133,7 +2173,7 @@ def moe_kernel_cases(torch, gen):
                lambda x=x: syrk_tf32_emulated(x, passes=1),
                lambda x=x: exact_syrk(x))
         del x
-    for b, m in MOE_GRAM:
+    for b, m in gram_shapes:
         _, g, p = gram_inputs(torch, gen, b, m, 2 * m, torch.float32, coeffs)
         yield ("symmul_plain", (b, m, m), torch.float32, tc32,
                lambda p=p, g=g: ops.symmul(p, g),
@@ -2203,16 +2243,16 @@ def moe_dispatch(torch, cfg, gen) -> dict:
     return out
 
 
-def moe_grads(torch, cfg, dcfg, plan):
+def first_grads(torch, cfg, dcfg, plan):
     """Seed-0 parameters and batch 0's gradients, twice: whether the two
     forward / backward passes agree bit for bit (printed, not gated), and
     the Muon matrices' gradients and parameters in fp32 (exact casts of
     the bf16 ones)."""
     from repro_torch.core import tree
     from repro_torch.data.pipeline import batch_for_step
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     from repro_torch.train.step import make_loss_fn
-    params = transformer.init(cfg, seed=0, device="cuda")
+    params = model_fns(cfg).init(cfg, seed=0, device="cuda")
     paths, leaves = zip(*tree.flatten(params))
     for v in leaves:
         v.requires_grad_(True)
@@ -2271,7 +2311,9 @@ def exact_updates(torch, plan, grads, pm, cfg):
         del o
 
 
-def moe_updates(torch, plan, grads, pm) -> tuple[dict, list]:
+def updates_vs_exact(torch, plan, grads, pm,
+                     factor: float = EXACT_UPDATE_FACTOR
+                     ) -> tuple[dict, list]:
     """The first Muon update of every group from the same gradients, in
     fp32 (the parameters passed as fp32 copies, so no bf16 rounding hides
     a difference): with the kernels, with the plain Gram NS, and with the
@@ -2279,7 +2321,7 @@ def moe_updates(torch, plan, grads, pm) -> tuple[dict, list]:
     exact (float64) update by the RMS of the difference (a max over
     entries swings with the few entries along a matrix's smallest
     singular directions).  Per group the kernel path must be within
-    ``EXACT_UPDATE_FACTOR`` times the plain fp32 path's own distance from
+    ``factor`` times the plain fp32 path's own distance from
     it, and one TF32 pass at least ``VARIANT_SPREAD`` times outside that
     allowance over all groups.  The variants phase's gate (the kernel
     update within ``VARIANT_SPREAD`` times what one ulp on half the
@@ -2322,7 +2364,7 @@ def moe_updates(torch, plan, grads, pm) -> tuple[dict, list]:
             e_plain = rms_err(plain[p], want)
             e_tf32 = rms_err(tf32[p], want)
             d = max_abs_err(kern[p], plain[p])
-            allow = EXACT_UPDATE_FACTOR * e_plain
+            allow = factor * e_plain
             top_allow, top_tf32 = max(top_allow, allow), max(top_tf32,
                                                              e_tf32)
             rows[p] = {"kernel_vs_exact_rms": e_kern,
@@ -2347,7 +2389,7 @@ def moe_updates(torch, plan, grads, pm) -> tuple[dict, list]:
                         f"{tf32_over_gate:.1f}x the allowance")
     if not same_bucketed:
         failures.append("bucketed update != fused update")
-    return {"groups": rows, "factor": EXACT_UPDATE_FACTOR,
+    return {"groups": rows, "factor": factor,
             "tf32_over_gate": tf32_over_gate,
             "bucketed_bitwise_fused": same_bucketed,
             "buckets": len(plan.buckets)}, failures
@@ -2387,7 +2429,7 @@ def phase_moe(torch, smi: str) -> dict:
     emit({"phase": "moe", "config": cut, "nvidia_smi": smi})
 
     gen = torch.Generator("cuda").manual_seed(0)
-    for case in moe_kernel_cases(torch, gen):
+    for case in gram_kernel_cases(torch, gen, MOE_SYRK, MOE_GRAM):
         emit({"phase": "moe", "nvidia_smi": smi,
               **check_kernel_case(torch, case, MOE_REPS)})
         del case
@@ -2397,10 +2439,10 @@ def phase_moe(torch, smi: str) -> dict:
           **moe_dispatch(torch, cfg, gen)})
     torch.cuda.empty_cache()
 
-    grads, pm, passes = moe_grads(torch, cfg, dcfg, plan)
+    grads, pm, passes = first_grads(torch, cfg, dcfg, plan)
     emit({"phase": "moe", "check": "two_passes", **passes})
     torch.cuda.empty_cache()
-    cmp, failures = moe_updates(torch, plan, grads, pm)
+    cmp, failures = updates_vs_exact(torch, plan, grads, pm)
     del grads, pm
     torch.cuda.empty_cache()
     emit({"phase": "moe", "check": "update", "ok": not failures, **cmp})
@@ -2431,14 +2473,371 @@ def phase_moe(torch, smi: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- families
+# hymba, xLSTM, the encoder-decoder and the VLM at their published widths,
+# fp32, remat as configured, seed 0, Muon owner / fused / one owner.  Each
+# run's batch and sequence; ``cut``: {field: (cut, published, why)}.
+FAMILY_RUNS = {
+    "hymba-1.5b": dict(batch=2, seq=2048, adamw=True, cut={}),
+    "xlstm-350m": dict(batch=8, seq=512, cut={}),
+    "seamless-m4t-large-v2": dict(batch=2, seq=512, cut={}),
+    "llava-next-mistral-7b": dict(batch=2, seq=512, cut={"n_layers": (
+        8, 32, "fp32 parameters, gradients and momentum of 7.26 B "
+        "parameters are ~87 GB, past the card's 80 GB")}),
+}
+FAMILY_REPS = 20
+# the fp32 mixers (the SSM's doubling scan and its reverse-scan gradients,
+# the mLSTM's parallel form, the sLSTM loop) and the chunked windowed
+# attention against their float64 sequential / unchunked references:
+# max|err| <= MIXER_GATE · max|exact|
+MIXER_GATE = 1e-5
+
+
+def family_config(arch: str):
+    from repro_torch import configs
+    cut = FAMILY_RUNS[arch]["cut"]
+    return configs.get(arch, **{k: v[0] for k, v in cut.items()})
+
+
+def family_inputs(torch, cfg, batch: int):
+    """``inputs(step)`` of ``train_run`` for a frontend config: patches or
+    frames (batch, frontend_len, frontend_dim), standard normal from a
+    generator seeded by the step; None without a frontend."""
+    if cfg.frontend is None:
+        return None
+    key = "patches" if cfg.frontend == "patch" else "frames"
+
+    def inputs(step: int) -> dict:
+        gen = torch.Generator("cuda").manual_seed(1000 + step)
+        return {key: torch.randn(batch, cfg.frontend_len, cfg.frontend_dim,
+                                 generator=gen, device="cuda")}
+    return inputs
+
+
+def family_shapes(plans: dict) -> tuple[dict, dict]:
+    """{(B, m, n): archs} of every group's SYRK and {(B, m): archs} of its
+    symmul / gram_poly, over ``plans`` (one owner: B is the group's
+    count)."""
+    syrk, gram = {}, {}
+    for arch, plan in plans.items():
+        for g in plan.groups.values():
+            for table, shape in ((syrk, (g.count, *g.key)),
+                                 (gram, (g.count, g.key[0]))):
+                archs = table.setdefault(shape, [])
+                if arch not in archs:
+                    archs.append(arch)
+    return syrk, gram
+
+
+def gated(tag: str, got, exact, gate: float = MIXER_GATE) -> dict:
+    """``check_scaled`` at ``gate``, as a row."""
+    err = check_scaled(tag, got, exact, gate)
+    allowance = scaled_allowance(exact, gate)
+    return {"max_abs_err": err, "max_abs_exact": allowance / gate,
+            "err_over_allowance": err / allowance}
+
+
+def scan_check(torch, cfg, gen, batch: int, seq: int,
+               device: str = "cuda") -> dict:
+    """``linear_scan`` (doubling scan, reverse-scan backward) on one hymba
+    layer's recurrence at full width — a_bar and Δx·B (batch, seq,
+    d_inner, d_state) from the layer's seeded parameters on standard-normal
+    activations — against the recurrence stepped in float64 under
+    autograd: h and the gradients of a and b for a random cotangent.  The
+    fp32 sequential loop's distance is printed beside."""
+    from repro_torch.models import ssm as ssm_lib
+    p = ssm_lib.ssm_init(gen, cfg.ssm, device=device)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=device)
+    with torch.no_grad():
+        a, b = ssm_lib._scan_operands(p, cfg.ssm, x)[2:4]
+    del p, x
+    w = torch.randn(a.shape, generator=gen, device=device)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    h = ssm_lib.linear_scan(a, b)
+    da, db = torch.autograd.grad(h, (a, b), w)
+    h = h.detach()
+    a64 = a.detach().double().requires_grad_(True)
+    b64 = b.detach().double().requires_grad_(True)
+    steps, prev = [], torch.zeros_like(a64[:, 0])
+    for t in range(seq):
+        prev = a64[:, t] * prev + b64[:, t]
+        steps.append(prev)
+    h64 = torch.stack(steps, dim=1)
+    del steps, prev
+    da64, db64 = torch.autograd.grad(h64, (a64, b64), w.double())
+    h64 = h64.detach()
+    del a64, b64, w
+    with torch.no_grad():
+        loop32, prev = torch.empty_like(h), torch.zeros_like(h[:, 0])
+        for t in range(seq):
+            prev = a[:, t] * prev + b[:, t]
+            loop32[:, t] = prev
+    out = {"shape": list(h.shape),
+           "h": gated("linear_scan h", h, h64),
+           "grad_a": gated("linear_scan grad a", da, da64),
+           "grad_b": gated("linear_scan grad b", db, db64),
+           "fp32_loop_h_err": max_abs_err(loop32, h64)}
+    del h64, da64, db64, loop32, h, da, db
+    if device == "cuda":
+        w = torch.randn(a.shape, generator=gen, device=device)
+
+        def fwd():
+            with torch.no_grad():
+                ssm_lib.linear_scan(a, b)
+
+        def fwd_bwd():
+            torch.autograd.grad(ssm_lib.linear_scan(a, b), (a, b), w)
+        out["forward_ms"] = time_ms(fwd)
+        out["forward_backward_ms"] = time_ms(fwd_bwd)
+        out["tensor_gb"] = a.numel() * a.element_size() / 1e9
+    return out
+
+
+def window_check(torch, cfg, gen, batch: int, seq: int,
+                 device: str = "cuda") -> dict:
+    """The chunked online-softmax attention with hymba's sliding window
+    against the unchunked masked softmax, fp32, at full width (batch, seq,
+    n_heads, head_dim; GQA as configured); the window must move the output
+    by at least 10x the allowance, so a chunked path that dropped it would
+    fail."""
+    from repro_torch.models import layers
+    H, KV, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
+    q = torch.randn(batch, seq, KV, H // KV, hd, generator=gen,
+                    device=device)
+    k = torch.randn(batch, seq, KV, hd, generator=gen, device=device)
+    v = torch.randn(batch, seq, KV, hd, generator=gen, device=device)
+    pos = torch.arange(seq, device=device)
+    scale = 1.0 / math.sqrt(hd)
+    with torch.no_grad():
+        got = layers._chunked_sdpa(q, k, v, scale, pos, pos, True, win)
+        want = layers._dense_sdpa(q, k, v, scale, pos, pos, True, win)
+        full = layers._dense_sdpa(q, k, v, scale, pos, pos, True, None)
+    out = {"shape": [batch, seq, H, hd], "window": win,
+           **gated("chunked windowed attention", got, want)}
+    out["window_moves_output"] = max_abs_err(full, want)
+    if out["window_moves_output"] < 10 * MIXER_GATE * out["max_abs_exact"]:
+        raise AssertionError(f"the window moves the output by only "
+                             f"{out['window_moves_output']:.3e}")
+    if device == "cuda":
+        with torch.no_grad():
+            out["chunked_forward_ms"] = time_ms(lambda: layers._chunked_sdpa(
+                q, k, v, scale, pos, pos, True, win))
+            out["dense_forward_ms"] = time_ms(lambda: layers._dense_sdpa(
+                q, k, v, scale, pos, pos, True, win))
+    return out
+
+
+def mlstm_sequential(q, k, v, ig, fg):
+    """The stabilised mLSTM recurrence stepped in time (float64 in, out):
+    m_t = max(f_t + m_{t−1}, i_t), C_t = e^{f_t + m_{t−1} − m_t}·C_{t−1}
+    + e^{i_t − m_t}·v_t k_tᵀ, n_t likewise with k_t,
+    y_t = C_t q_t / max(|n_t·q_t|, 1)."""
+    import torch
+    B, S, H, hd = q.shape
+    C = q.new_zeros(B, H, hd, hd)
+    n = q.new_zeros(B, H, hd)
+    m = q.new_full((B, H), -math.inf)
+    ys = []
+    for t in range(S):
+        mt = torch.maximum(fg[:, t] + m, ig[:, t])
+        fw = torch.exp(fg[:, t] + m - mt)[..., None]
+        iw = torch.exp(ig[:, t] - mt)[..., None]
+        C = fw[..., None] * C + iw[..., None] * (
+            v[:, t, :, :, None] * k[:, t, :, None, :])
+        n = fw * n + iw * k[:, t]
+        den = torch.abs((n * q[:, t]).sum(-1)).clamp(min=1.0)
+        ys.append((C @ q[:, t, :, :, None])[..., 0] / den[..., None])
+        m = mt
+    return torch.stack(ys, dim=1)
+
+
+def slstm_sequential(p, x):
+    """The sLSTM recurrence stepped in time in float64 (``p`` and ``x``
+    float64): y = o_proj(h_1 … h_S)."""
+    import torch
+    B, S, d = x.shape
+    wx = x @ p["w_proj"]["w"] + p["gate_bias"]
+    c, n, h = (x.new_zeros(B, d) for _ in range(3))
+    m = x.new_full((B, d), -math.inf)
+    ys = []
+    for t in range(S):
+        zi, ii, fi, oi = (wx[:, t] + h @ p["r_proj"]["w"]).chunk(4, dim=-1)
+        lf = torch.nn.functional.logsigmoid(fi)
+        mn = torch.maximum(lf + m, ii)
+        c = torch.exp(lf + m - mn) * c + torch.exp(ii - mn) * torch.tanh(zi)
+        n = torch.exp(lf + m - mn) * n + torch.exp(ii - mn)
+        h = torch.sigmoid(oi) * c / n.clamp(min=1.0)
+        m = mn
+        ys.append(h)
+    return torch.stack(ys, dim=1) @ p["o_proj"]["w"]
+
+
+def xlstm_check(torch, cfg, gen, batch: int, seq: int,
+                device: str = "cuda") -> dict:
+    """One mLSTM and one sLSTM block's core at full width, seeded
+    parameters, standard-normal activations (batch, seq, d_model): the
+    mLSTM's parallel form (``mlstm_core``) on the block's q, k, v and gates
+    against ``mlstm_sequential`` in float64 on the same operands, and
+    ``slstm`` (fp32) against ``slstm_sequential`` in float64."""
+    from repro_torch.core import tree
+    from repro_torch.models import xlstm
+    xc = cfg.xlstm
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=device)
+    pm = xlstm.mlstm_init(gen, xc, device=device)
+    ps = xlstm.slstm_init(gen, xc, device=device)
+    with torch.no_grad():
+        ops = xlstm._mlstm_operands(pm, xc, x)
+        y = xlstm.mlstm_core(*ops)
+        y64 = mlstm_sequential(*(t.double() for t in ops))
+        s = xlstm.slstm(ps, xc, x)
+        s64 = slstm_sequential(tree.tree_map(lambda t: t.double(), ps),
+                               x.double())
+    out = {"shape": [batch, seq, cfg.d_model], "heads": xc.n_heads,
+           "mlstm": gated("mLSTM parallel form", y, y64),
+           "slstm": gated("sLSTM loop", s, s64)}
+    if device == "cuda":
+        xg = x.clone().requires_grad_(True)
+
+        def fwd_bwd(fn, p):
+            leaves = [v.requires_grad_(True) for _, v in tree.flatten(p)]
+            return lambda: torch.autograd.grad(fn(p, xc, xg).sum(),
+                                               [xg] + leaves)
+        out["mlstm_forward_backward_ms"] = wall_ms(
+            fwd_bwd(xlstm.mlstm, pm), 5)
+        out["slstm_forward_backward_ms"] = wall_ms(
+            fwd_bwd(xlstm.slstm, ps), 3, 1)
+    return out
+
+
+def phase_families(torch, smi: str, trace: dict | None = None) -> dict:
+    """The hybrid, xLSTM, encoder-decoder and VLM families at their
+    published widths on one card (``FAMILY_RUNS``): the Gram kernels at
+    every group shape of their plans, hymba's scan and windowed attention
+    and xLSTM's mixers against float64 references, hymba's kernel update
+    against the plain and the exact one and bucketed against fused, then
+    ``TRAIN_STEPS`` Muon steps of each (owner, fused, one owner, kernels
+    on, launches asserted per step from the plan) and AdamW steps of
+    hymba, the optimizer releasing each spent state (``donate``); the Muon
+    run of each arch named in ``trace`` ({arch: file}) under
+    ``torch.profiler``.  Returns each Muon run's launches."""
+    from repro_torch import configs
+    from repro_torch.core import api
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import model_fns
+
+    t_phase = time.perf_counter()
+    cfgs, plans = {}, {}
+    for arch, run in FAMILY_RUNS.items():
+        cfg = cfgs[arch] = family_config(arch)
+        plan = plans[arch] = api.dedicate_params(
+            model_fns(cfg).init(cfg, device="meta"))
+        emit({"phase": "families", "config": {
+            "arch": arch, "family": cfg.family,
+            "cut": {k: {"cut": v[0], "published": v[1], "why": v[2]}
+                    for k, v in run["cut"].items()},
+            "note": "every other width and depth as published",
+            "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "sliding_window": cfg.sliding_window,
+            "global_layers": list(cfg.global_layers),
+            "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
+            "xlstm": None if cfg.xlstm is None
+            else dataclasses.asdict(cfg.xlstm),
+            "frontend": None if cfg.frontend is None else
+            [cfg.frontend, cfg.frontend_len, cfg.frontend_dim],
+            "batch": run["batch"], "seq_len": run["seq"],
+            "dtype": cfg.param_dtype, "remat": cfg.remat,
+            "params": cfg.param_count(),
+            "published_params": configs.get(arch).param_count(),
+            "groups": {k: [g.count, *g.key] for k, g in plan.groups.items()},
+            "buckets": sorted(plan.buckets),
+            "launches_per_step": plan_launches(plan)}, "nvidia_smi": smi})
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    syrk, gram = family_shapes(plans)
+    for case in gram_kernel_cases(torch, gen, syrk, gram):
+        shape = case[1]
+        archs = syrk[shape] if case[0] == "gram_syrk" else gram[shape[:2]]
+        emit({"phase": "families", "archs": archs, "nvidia_smi": smi,
+              **check_kernel_case(torch, case, FAMILY_REPS)})
+        del case
+        torch.cuda.empty_cache()
+
+    hy, hrun = cfgs["hymba-1.5b"], FAMILY_RUNS["hymba-1.5b"]
+    emit({"phase": "families", "arch": hy.name, "check": "linear_scan",
+          **scan_check(torch, hy, gen, hrun["batch"], hrun["seq"])})
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "arch": hy.name, "check": "window",
+          **window_check(torch, hy, gen, hrun["batch"], hrun["seq"])})
+    torch.cuda.empty_cache()
+    xl, xrun = cfgs["xlstm-350m"], FAMILY_RUNS["xlstm-350m"]
+    emit({"phase": "families", "arch": xl.name, "check": "mixers",
+          **xlstm_check(torch, xl, gen, xrun["batch"], xrun["seq"])})
+    torch.cuda.empty_cache()
+
+    hdata = DataConfig(vocab=hy.vocab, seq_len=hrun["seq"],
+                       global_batch=hrun["batch"])
+    grads, pm, passes = first_grads(torch, hy, hdata, plans[hy.name])
+    emit({"phase": "families", "arch": hy.name, "check": "two_passes",
+          **passes})
+    torch.cuda.empty_cache()
+    cmp, failures = updates_vs_exact(torch, plans[hy.name], grads, pm,
+                                     FAMILY_UPDATE_FACTOR)
+    del grads, pm
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "arch": hy.name, "check": "update",
+          "ok": not failures, **cmp})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    launches = {}
+    for arch, run in FAMILY_RUNS.items():
+        cfg = cfgs[arch]
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                          global_batch=run["batch"])
+        tokens = run["batch"] * run["seq"]
+        positions = tokens + (run["batch"] * cfg.frontend_len
+                              if cfg.frontend is not None else 0)
+        for variant in ("muon", "adamw") if run.get("adamw") else ("muon",):
+            gc.collect()
+            torch.cuda.empty_cache()
+            traced = (trace or {}).get(arch) if variant == "muon" else None
+            out = train_run(torch, variant, cfg=cfg, dcfg=dcfg,
+                            donate=True, trace=traced,
+                            inputs=family_inputs(torch, cfg, run["batch"]))
+            emit({"phase": "families", "variant": variant, "arch": arch,
+                  "steps": TRAIN_STEPS, "loss_ema": out["loss_ema"],
+                  "step_ms": out["step_ms"],
+                  "optimizer_ms": out["optimizer_ms"],
+                  "tokens_per_s": [tokens / (t / 1e3)
+                                   for t in out["step_ms"]],
+                  "positions_per_s": [positions / (t / 1e3)
+                                      for t in out["step_ms"]],
+                  "peak_mem_gb": out["peak_mem_gb"],
+                  "launches_by_step": out["launches_by_step"],
+                  "trace": out["trace"], "nvidia_smi": smi})
+            if variant == "muon":
+                launches[arch] = out["launches"]
+            del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--trace", default="",
                     help="comma-separated mesh-phase runs (of "
-                         + ",".join(r[0] for r in MESH_RUNS) + ") to trace "
-                         "with torch.profiler (rank 0)")
+                         + ",".join(r[0] for r in MESH_RUNS) + "; rank 0) "
+                         "and families-phase archs (of "
+                         + ",".join(FAMILY_RUNS) + "; their Muon run) to "
+                         "trace with torch.profiler")
     ap.add_argument("--trace-dir", default=str(ROOT / "build" / "traces"),
                     help="where --trace writes its .json.gz files")
     args = ap.parse_args()
@@ -2506,11 +2905,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         moe_launches = phase_moe(torch, smi[0])
         torch.cuda.empty_cache()
+    family_launches = None
+    if "families" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_launches = phase_families(torch, smi[0], {
+            t: str(Path(args.trace_dir) / f"trace_{t}.json.gz")
+            for t in args.trace.split(",") if t in FAMILY_RUNS})
+        torch.cuda.empty_cache()
     if "mesh" in phases:
         world = torch.cuda.device_count()
         phase_mesh(torch, train_losses, {
             t: str(Path(args.trace_dir) / f"trace_{t}_mesh{world}.json.gz")
-            for t in args.trace.split(",") if t})
+            for t in args.trace.split(",") if t and t not in FAMILY_RUNS})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
@@ -2521,7 +2928,9 @@ def main() -> int:
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
          "shape": row["shape"],
          "launches_moe": None if moe_launches is None
-         else moe_launches[meta["counter"]]}
+         else moe_launches[meta["counter"]],
+         "launches_families": None if family_launches is None
+         else {a: n[meta["counter"]] for a, n in family_launches.items()}}
         for name, meta in KERNELS.items()
         if (row := summary.get(name)) is not None]})
     print(smi[0], flush=True)

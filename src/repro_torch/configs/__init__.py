@@ -1,18 +1,19 @@
-"""Architecture registry of the port (port of ``repro.configs``).  Holds the
-ported architectures: the dense and MoE families.  The reference's hybrid
-(hymba), ssm (xlstm), encoder-decoder (seamless) and vlm (llava) configs
-wait for ROADMAP item 9.
+"""Architecture registry of the port (port of ``repro.configs``): the 10
+architectures of the reference, in its order — dense, MoE, hybrid (hymba),
+ssm (xlstm), encoder-decoder (seamless) and vlm (llava).
 
 Usage:  cfg = configs.get("deepseek-v3-671b")                # full width
         cfg = configs.get("deepseek-v3-671b", reduced=True)  # CPU tests
 """
 
-from repro_torch.configs import (deepseek_v3_671b, kimi_k2_1t,
-                                 nemotron4_340b, qwen2p5_14b, smollm_360m,
-                                 stablelm_1p6b)
+from repro_torch.configs import (deepseek_v3_671b, hymba_1p5b, kimi_k2_1t,
+                                 llava_next_mistral_7b, nemotron4_340b,
+                                 qwen2p5_14b, seamless_m4t_v2, smollm_360m,
+                                 stablelm_1p6b, xlstm_350m)
 
-_MODULES = (qwen2p5_14b, nemotron4_340b, smollm_360m, stablelm_1p6b,
-            deepseek_v3_671b, kimi_k2_1t)
+_MODULES = (hymba_1p5b, qwen2p5_14b, nemotron4_340b, smollm_360m,
+            stablelm_1p6b, deepseek_v3_671b, kimi_k2_1t, xlstm_350m,
+            seamless_m4t_v2, llava_next_mistral_7b)
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)

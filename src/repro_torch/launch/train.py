@@ -102,6 +102,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = configs.get(args.arch, reduced=args.reduced)
+    if cfg.frontend is not None or cfg.encdec:
+        raise SystemExit(f"{args.arch} reads patches or frames, which the "
+                         "token pipeline does not make")
     mesh = make_mesh(device) if args.mesh else None
     # the Hopper kernels on the card; a CPU tensor runs each kernel's plain
     # version

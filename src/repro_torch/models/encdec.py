@@ -1,0 +1,120 @@
+"""Encoder-decoder backbone, seamless-m4t style (port of the training path
+of ``repro.models.encdec``; the audio frontend is a stub).
+
+The encoder projects precomputed frame embeddings (B, S_enc, frontend_dim)
+to d_model and runs non-causal self-attention blocks, with rope (the
+reference's ``attention`` applies rope to every self attention).  Decoder
+blocks are causal self-attention, cross-attention over the encoder output
+(queries from the decoder, keys and values from ``enc_out``, no rope, no
+mask) and an MLP.  ``init`` / ``forward`` mirror ``transformer.py``; the
+stacked ``enc_blocks`` / ``dec_blocks`` are unbound once per forward.
+The cache, prefill and decode entry points wait for ROADMAP item 10.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, as_dtype, resolve_device
+from repro_torch.models import layers
+from repro_torch.models.layers import AttnConfig
+from repro_torch.models.transformer import (  # noqa: F401  (one crossing)
+    ArchConfig, _check_family, _rope_for, apply_layer, frontend,
+    frontend_init, params_from_numpy, params_to_numpy, unbound_layers)
+
+Params = Dict[str, Any]
+
+
+def _enc_attn_cfg(cfg: ArchConfig) -> AttnConfig:
+    return AttnConfig(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                      causal=False, rope_theta=cfg.rope_theta)
+
+
+def _check(cfg: ArchConfig) -> None:
+    _check_family(cfg)
+    if not cfg.encdec:
+        raise ValueError(f"{cfg.name} is not an encoder-decoder: use "
+                         "models.transformer (models.model_fns)")
+
+
+def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> Params:
+    """Random parameters as ``transformer.init`` draws them (shapes, paths
+    and dtypes of the reference's ``encdec.init``)."""
+    _check(cfg)
+    device = resolve_device(device)
+    gen = None if device.type == "meta" else \
+        torch.Generator(device).manual_seed(seed)
+    kw = dict(dtype=as_dtype(cfg.param_dtype), device=device)
+    d, n_enc, L = cfg.d_model, cfg.n_enc_layers or cfg.n_layers, cfg.n_layers
+
+    def block(n: int, cross: bool) -> Params:
+        b = {"attn_norm": layers.rmsnorm_init(d, lead=(n,), **kw),
+             "attn": layers.attention_init(
+                 gen, _enc_attn_cfg(cfg) if not cross else cfg.attn_cfg(),
+                 lead=(n,), **kw),
+             "mlp_norm": layers.rmsnorm_init(d, lead=(n,), **kw),
+             "mlp": layers.mlp_init(gen, d, cfg.d_ff, cfg.act, lead=(n,),
+                                    **kw)}
+        if cross:
+            b["cross_norm"] = layers.rmsnorm_init(d, lead=(n,), **kw)
+            b["cross_attn"] = layers.attention_init(gen, _enc_attn_cfg(cfg),
+                                                    lead=(n,), **kw)
+        return b
+
+    return {"frontend_proj": frontend_init(gen, cfg, kw),
+            "embed": layers.embed_init(gen, cfg.vocab, d, **kw),
+            "enc_blocks": block(n_enc, cross=False),
+            "dec_blocks": block(L, cross=True),
+            "enc_norm": layers.rmsnorm_init(d, **kw),
+            "final_norm": layers.rmsnorm_init(d, **kw),
+            "lm_head": layers.embed_init(gen, cfg.vocab, d, **kw)}
+
+
+def _enc_block(cfg: ArchConfig, bp: Params, h: torch.Tensor, rope_cs):
+    a = layers.rmsnorm(bp["attn_norm"], h, cfg.norm_eps)
+    h = h + layers.attention(bp["attn"], _enc_attn_cfg(cfg), a,
+                             rope_cs=rope_cs)
+    m = layers.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps)
+    return h + layers.mlp(bp["mlp"], m, cfg.act)
+
+
+def encode(cfg: ArchConfig, params: Params,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, frontend_dim) -> (B, S_enc, d_model)."""
+    _check(cfg)
+    x = frontend(params["frontend_proj"],
+                 frames.to(as_dtype(cfg.compute_dtype)))
+    rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
+    for bp in unbound_layers(params["enc_blocks"]):
+        body = functools.partial(_enc_block, cfg, bp, rope_cs=rope_cs)
+        x = apply_layer(body, x, remat=cfg.remat)
+    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_block(cfg: ArchConfig, bp: Params, h: torch.Tensor,
+               enc_out: torch.Tensor, rope_cs) -> torch.Tensor:
+    a = layers.rmsnorm(bp["attn_norm"], h, cfg.norm_eps)
+    h = h + layers.attention(bp["attn"], cfg.attn_cfg(), a, rope_cs=rope_cs)
+    c = layers.rmsnorm(bp["cross_norm"], h, cfg.norm_eps)
+    h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
+                             xk=enc_out)
+    m = layers.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps)
+    return h + layers.mlp(bp["mlp"], m, cfg.act)
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+            frames: torch.Tensor,
+            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training: frames (B, S_enc, F) + decoder tokens (B, S_dec) ->
+    (B, S_dec, vocab) fp32 logits."""
+    enc_out = encode(cfg, params, frames)
+    x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
+    rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
+    for bp in unbound_layers(params["dec_blocks"]):
+        body = functools.partial(_dec_block, cfg, bp, rope_cs=rope_cs)
+        x = apply_layer(body, x, enc_out, remat=cfg.remat)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return layers.unembed(params["lm_head"], x)

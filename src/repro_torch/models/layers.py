@@ -1,6 +1,7 @@
 """Model building blocks (port of the training paths of
-``repro.models.layers``: linear, norms, rotary, GQA attention, DeepSeek's
-MLA and the MLPs), as plain tensor functions over dict parameters.
+``repro.models.layers``: linear, norms, rotary, GQA self and cross
+attention, DeepSeek's MLA and the MLPs), as plain tensor functions over
+dict parameters.
 
 Conventions kept from the reference so both packages compute the same thing:
   * linear weights are stored (in_dim, out_dim) and apply as ``x @ w``;
@@ -163,17 +164,21 @@ def _sdpa(q, k, v, *, scale, qpos=None, kpos=None, causal=False,
     if kpos is None:
         kpos = torch.arange(T, device=q.device)
 
-    if S > _Q_CHUNK and T > _KV_CHUNK:
-        out = _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window)
-        return out.reshape(B, S, H, hv).to(q.dtype)
+    attend = _chunked_sdpa if S > _Q_CHUNK and T > _KV_CHUNK else \
+        _dense_sdpa
+    out = attend(qg, k, v, scale, qpos, kpos, causal, window)
+    return out.reshape(B, S, H, hv).to(q.dtype)
 
+
+def _dense_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
+    """Softmax over the whole (S, T) logits with a -1e30 mask, fp32:
+    (B, S, G, R, hv)."""
     logits = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k.float()) * scale
     mask = _block_mask(qpos, kpos, causal=causal, window=window)
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrst,btgh->bsgrh", probs, v.float())
-    return out.reshape(B, S, H, hv).to(q.dtype)
+    return torch.einsum("bgrst,btgh->bsgrh", probs, v.float())
 
 
 def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
@@ -209,20 +214,30 @@ def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
 
 
 def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
+              xk: Optional[torch.Tensor] = None,
               rope_cs=None) -> torch.Tensor:
-    """Causal self attention of the training forward (no cache)."""
+    """Attention of the training forward (no cache): self attention
+    (``xk`` None; causal, with the sliding window, unless ``cfg.causal`` is
+    off; rope when ``rope_cs`` is given), or cross attention of ``x``'s
+    queries over keys and values projected from ``xk`` (no rope, no mask),
+    as the reference's ``attention``."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if xk is None else xk
+    T = src.shape[1]
     q = linear(p["q_proj"], x).reshape(B, S, H, hd)
-    k = linear(p["k_proj"], x).reshape(B, S, KV, hd)
-    v = linear(p["v_proj"], x).reshape(B, S, KV, hd)
-    if rope_cs is not None:
+    k = linear(p["k_proj"], src).reshape(B, T, KV, hd)
+    v = linear(p["v_proj"], src).reshape(B, T, KV, hd)
+    if rope_cs is not None and xk is None:
         cos_q, sin_q, cos_k, sin_k = rope_cs
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_k, sin_k)
-    pos = torch.arange(S, device=x.device)
-    out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd), qpos=pos, kpos=pos,
-                causal=cfg.causal, window=cfg.sliding_window)
+    if xk is not None or not cfg.causal:
+        out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd))
+    else:
+        pos = torch.arange(S, device=x.device)
+        out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd), qpos=pos, kpos=pos,
+                    causal=True, window=cfg.sliding_window)
     return linear(p["o_proj"], out.reshape(B, S, H * hd))
 
 

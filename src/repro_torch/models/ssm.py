@@ -1,0 +1,156 @@
+"""Selective state-space mixer (Mamba-style) of the hymba hybrid blocks
+(port of the training path of ``repro.models.ssm``).
+
+    x -> in_proj -> (xs, z): xs through a depthwise causal conv1d + SiLU,
+    dt, B, C from x_proj;  h_t = exp(A·dt_t)·h_{t-1} + dt_t·B_t·x_t;
+    y = C·h + D·x, gated by SiLU(z)
+
+The reference runs the recurrence as ``lax.associative_scan`` over time;
+under autograd a doubling scan would keep about 2·log₂S tensors of
+(B, S, d_inner, d_state) fp32, 0.84 GB each at hymba-1.5b and batch
+2 × 2048.  ``linear_scan`` is one ``torch.autograd.Function`` instead: its
+forward is a log-depth doubling scan that saves only its input ``a`` and
+its output ``h``, and its backward is the reverse scan.  Equal in exact
+arithmetic; in fp32 the sums associate in another order.
+
+Parameter names as the reference's: conv kernels / a_log / dt_bias / d_skip
+stay on AdamW by the dedication name rules; in / x / dt / out projections
+are Muon matrices.  The decode state (``state=``) waits for ROADMAP
+item 10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_model: int
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dtr(self) -> int:
+        return self.dt_rank or max(16, self.d_model // 16)
+
+
+def ssm_init(gen, cfg: SSMConfig, *, lead: tuple = (), dtype=torch.float32,
+             device="cpu"):
+    di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dtr
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "in_proj": layers.linear_init(gen, cfg.d_model, 2 * di, **kw),
+        "conv_w": (layers.normal(gen, lead + (cfg.d_conv, di), device)
+                   * 0.1).to(dtype),
+        "x_proj": layers.linear_init(gen, di, dtr + 2 * ds, **kw),
+        "dt_proj": layers.linear_init(gen, dtr, di, **kw),
+        "dt_bias": torch.zeros(lead + (di,), dtype=dtype, device=device),
+        "a_log": a_log.expand(lead + (di, ds)).to(dtype).contiguous(),
+        "d_skip": torch.ones(lead + (di,), dtype=dtype, device=device),
+        "out_proj": layers.linear_init(gen, di, cfg.d_model, **kw),
+    }
+
+
+def _conv1d(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv from a zero context.  x: (B, S, di), w: (K, di):
+    y_t = Σ_i w_i · x_{t-K+1+i}, summed in the reference's order."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    y = xp[:, 0:S] * w[0].to(x.dtype)
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i].to(x.dtype)
+    return y
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """h_t = a_t·h_{t∓1} + b_t along dim 1 from h = 0 (forward: t-1;
+    ``reverse``: t+1), by log₂S doubling steps: after the step of shift s
+    every (A_t, H_t) spans 2s steps.  Works on copies; no autograd."""
+    A, H = a.clone(), b.clone()
+    S = a.shape[1]
+    s = 1
+    while s < S:
+        if reverse:
+            H[:, :S - s] += A[:, :S - s] * H[:, s:]
+            if 2 * s < S:
+                A[:, :S - s] = A[:, :S - s] * A[:, s:]
+        else:
+            H[:, s:] += A[:, s:] * H[:, :S - s]
+            if 2 * s < S:
+                A[:, s:] = A[:, s:] * A[:, :S - s]
+        s *= 2
+    return H
+
+
+class _LinearScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _doubling_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        a, h = ctx.saved_tensors
+        # g_t = ∂L/∂h_t + a_{t+1}·g_{t+1}: the reverse scan on a shifted
+        c = torch.empty_like(a)
+        c[:, :-1] = a[:, 1:]
+        c[:, -1] = 0
+        g = _doubling_scan(c, grad_h.contiguous(), reverse=True)
+        del c
+        da = torch.zeros_like(a)
+        da[:, 1:] = g[:, 1:] * h[:, :-1]
+        return da, g
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + b_t over dim 1 from h_{-1} = 0, for any trailing
+    dims (the reference's ``_selective_scan``).  Saves ``a`` and ``h`` for
+    its backward: ∂b = g, ∂a_t = g_t·h_{t-1}, with g the reverse scan
+    g_t = ∂L/∂h_t + a_{t+1}·g_{t+1}."""
+    return _LinearScan.apply(a, b)
+
+
+def _scan_operands(p, cfg: SSMConfig, x: torch.Tensor):
+    """(xs, z, a_bar, bx, C): the gated branch, the recurrence's fp32
+    coefficients and inputs (B, S, di, ds) and the fp32 readout C."""
+    ds = cfg.d_state
+    xs, z = layers.linear(p["in_proj"], x).chunk(2, dim=-1)
+    xs = F.silu(_conv1d(p["conv_w"], xs))
+    dbc = layers.linear(p["x_proj"], xs)
+    dt, Bc, Cc = torch.split(dbc, [cfg.dtr, ds, ds], dim=-1)
+    dt = F.softplus(layers.linear(p["dt_proj"], dt)
+                    + p["dt_bias"].to(x.dtype))                  # (B,S,di)
+    A = -torch.exp(p["a_log"].float())                           # (di,ds)
+    dt32 = dt.float()
+    a_bar = torch.exp(dt32[..., None] * A)                       # (B,S,di,ds)
+    bx = (dt32 * xs.float())[..., None] * Bc.float()[..., None, :]
+    return xs, z, a_bar, bx, Cc.float()
+
+
+def ssm(p, cfg: SSMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training forward: x (B, S, d) -> (B, S, d)."""
+    xs, z, a_bar, bx, Cc = _scan_operands(p, cfg, x)
+    h = linear_scan(a_bar, bx)                                   # (B,S,di,ds)
+    del a_bar, bx
+    y = torch.einsum("bsdn,bsn->bsd", h, Cc)
+    y = y + xs.float() * p["d_skip"].float()
+    y = y.to(x.dtype) * F.silu(z)
+    return layers.linear(p["out_proj"], y)

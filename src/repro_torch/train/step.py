@@ -64,7 +64,8 @@ def make_loss_fn(cfg) -> Callable:
     m = model_fns(cfg)
 
     def loss_fn(params, batch):
-        logits = m.forward(cfg, params, batch["tokens"])
+        kwargs = {k: batch[k] for k in ("patches", "frames") if k in batch}
+        logits = m.forward(cfg, params, batch["tokens"], **kwargs)
         return softmax_xent(logits, batch["labels"])
     return loss_fn
 

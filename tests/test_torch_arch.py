@@ -1,9 +1,12 @@
-"""Twin of ``tests/test_arch_smoke.py`` over the port's architectures (the
-dense and MoE families): every reduced config's init shapes, logits and
-one train step's gradients against the reference on the same numpy
-parameters (``params_from_numpy``) and batch, the full configs against the
-assignment table, a 5-step loss_ema parity of reduced DeepSeek-V3 trained
-by Muon, and reduced DeepSeek-V3 in bf16 against the reference in bf16.
+"""Twin of ``tests/test_arch_smoke.py`` over all 10 architectures (dense,
+MoE, hybrid, xLSTM, encoder-decoder, VLM): every reduced config's init
+shapes (reduced and full width), logits and one train step's gradients
+against the reference on the same numpy parameters (``params_from_numpy``)
+and batch (patches / frames from a seeded numpy generator), the full
+configs against the assignment table, ``param_count`` against the leaves
+of the reference's ``model_fns(cfg).init``, 5-step loss_ema parities of
+reduced DeepSeek-V3 and reduced hymba trained by Muon, and reduced
+DeepSeek-V3 in bf16 against the reference in bf16.
 
 Tolerances: fp32 logits 1e-4 and gradients rtol 1e-4 / atol 1e-5 (the
 port's logits parity, ``tests/test_torch_train.py``; gradients are O(1e-2)
@@ -14,6 +17,7 @@ parameters.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.core import api as japi  # noqa: E402
 from repro.core.muon import MuonConfig as JMuonConfig  # noqa: E402
 from repro.data import pipeline as jpipeline  # noqa: E402
+from repro.models import model_fns as jmodel_fns  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro.train.train_state import TrainState as JTrainState  # noqa: E402
@@ -34,6 +39,7 @@ from repro_torch.core import api as tapi, tree  # noqa: E402
 from repro_torch.core.muon import MuonConfig  # noqa: E402
 from repro_torch.data import pipeline as tpipeline  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.models import model_fns as tmodel_fns  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.train.train_state import TrainState  # noqa: E402
@@ -56,15 +62,34 @@ def _isolated_cache(tmp_path, monkeypatch):
 def _init(arch, **overrides):
     jcfg = jconfigs.get(arch, reduced=True, **overrides)
     tcfg = tconfigs.get(arch, reduced=True, **overrides)
-    jparams = jtransformer.init(jcfg, jax.random.PRNGKey(0))
+    jparams = jmodel_fns(jcfg).init(jcfg, jax.random.PRNGKey(0))
     tparams = ttransformer.params_from_numpy(
         jax.tree.map(np.asarray, jparams), device="cpu", requires_grad=True)
     return jcfg, tcfg, jparams, tparams
 
 
+def _frontend(cfg, step, batch):
+    """Patches or frames (batch, frontend_len, frontend_dim), standard
+    normal from a numpy generator seeded by the step; {} without one."""
+    if cfg.frontend is None:
+        return {}
+    key = "patches" if cfg.frontend == "patch" else "frames"
+    rng = np.random.default_rng([7, step])
+    return {key: rng.standard_normal(
+        (batch, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)}
+
+
 def _batch(cfg, step=0, batch=B, seq=S):
-    return tpipeline._batch_at(tpipeline.DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=batch), step)
+    return {**tpipeline._batch_at(tpipeline.DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch), step),
+        **_frontend(cfg, step, batch)}
+
+
+def _inputs(batch):
+    """The forward's keyword inputs of a numpy batch, for both packages."""
+    return ({k: jnp.asarray(v) for k, v in batch.items() if k != "labels"},
+            {k: torch.from_numpy(v) for k, v in batch.items()
+             if k != "labels"})
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -73,37 +98,54 @@ def arch(request):
 
 
 def test_registry_is_the_reference_dense_and_moe():
-    want = {a for a in jconfigs.ARCH_IDS
-            if jconfigs.get(a).family in ("dense", "moe")}
-    assert set(ARCHS) == want == {
-        "qwen2.5-14b", "nemotron-4-340b", "smollm-360m", "stablelm-1.6b",
-        "deepseek-v3-671b", "kimi-k2-1t-a32b"}
+    """The registry holds the reference's 10 architectures, all six
+    families, in its order."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert set(ARCHS) == {
+        "hymba-1.5b", "qwen2.5-14b", "nemotron-4-340b", "smollm-360m",
+        "stablelm-1.6b", "deepseek-v3-671b", "kimi-k2-1t-a32b", "xlstm-350m",
+        "seamless-m4t-large-v2", "llava-next-mistral-7b"}
+    assert {tconfigs.get(a).family for a in ARCHS} == set(
+        ttransformer.FAMILIES)
+
+
+def _reference_leaves(jc):
+    """{path: (shape, dtype)} of the reference's ``model_fns(jc).init``."""
+    want = jax.eval_shape(lambda k: jmodel_fns(jc).init(jc, k),
+                          jax.random.PRNGKey(0))
+    return {p: (tuple(v.shape), str(v.dtype)) for p, v in tree.flatten(want)}
 
 
 def test_init_shapes_match_reference(arch):
+    """Paths, shapes and dtypes of ``model_fns(cfg).init`` at reduced and
+    full width; ``param_count`` is the sum over those leaves.  It is held
+    to the leaves, not to the reference's ``ArchConfig.param_count``, which
+    always counts ``transformer.init``: for seamless-m4t-large-v2 that
+    gives 1,231,500,288, while ``encdec.init`` holds 2,036,881,408 (the
+    encoder and the cross-attention are left out)."""
     _, jcfg, tcfg, _, _ = arch
     for reduced in (True, False):
         jc = jconfigs.get(jcfg.name.removesuffix("-reduced"), reduced=reduced)
         tc = tconfigs.get(jcfg.name.removesuffix("-reduced"), reduced=reduced)
-        want = jax.eval_shape(lambda k: jtransformer.init(jc, k),
-                              jax.random.PRNGKey(0))
-        want = {p: (tuple(v.shape), str(v.dtype)) for p, v in
-                tree.flatten(jax.tree.map(lambda s: s, want))}
+        want = _reference_leaves(jc)
         got = {p: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
-               for p, v in tree.flatten(ttransformer.init(tc,
-                                                          device="meta"))}
+               for p, v in tree.flatten(tmodel_fns(tc).init(tc,
+                                                            device="meta"))}
         assert got == want, (jc.name, reduced)
-    assert tcfg.param_count() == jcfg.param_count()
-    assert tcfg.active_param_count() == jcfg.active_param_count()
+        assert tc.param_count() == sum(math.prod(s) for s, _ in
+                                       want.values())
+    if not tcfg.encdec:
+        assert tcfg.param_count() == jcfg.param_count()
+        assert tcfg.active_param_count() == jcfg.active_param_count()
+    assert tcfg.sub_quadratic() == jcfg.sub_quadratic()
 
 
 def test_forward_matches_reference(arch):
     _, jcfg, tcfg, jparams, tparams = arch
-    tokens = _batch(tcfg)["tokens"]
-    want = np.asarray(jtransformer.forward(jcfg, jparams,
-                                           jnp.asarray(tokens)))
+    jin, tin = _inputs(_batch(tcfg))
+    want = np.asarray(jmodel_fns(jcfg).forward(jcfg, jparams, **jin))
     with torch.no_grad():
-        got = ttransformer.forward(tcfg, tparams, torch.from_numpy(tokens))
+        got = tmodel_fns(tcfg).forward(tcfg, tparams, **tin)
     assert got.shape == (B, S, tcfg.vocab) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
@@ -112,7 +154,7 @@ def test_forward_matches_reference(arch):
 def test_train_step_grads_match_reference(arch):
     _, jcfg, tcfg, jparams, tparams = arch
     batch = _batch(tcfg, step=1)
-    jloss, jgrads = jax.value_and_grad(jstep.make_loss_fn(jcfg))(
+    jloss, jgrads = jax.jit(jax.value_and_grad(jstep.make_loss_fn(jcfg)))(
         jparams, jax.tree.map(jnp.asarray, batch))
     paths, leaves = zip(*tree.flatten(tparams))
     loss = tstep.make_loss_fn(tcfg)(
@@ -129,14 +171,18 @@ def test_train_step_grads_match_reference(arch):
 
 
 def test_full_configs_match_assignment_table():
-    """``test_arch_smoke.py``'s table, for the ported architectures."""
+    """``test_arch_smoke.py``'s table, with each family's extras."""
     rows = {
+        "hymba-1.5b": (32, 1600, 25, 5, 5504, 32001),
         "qwen2.5-14b": (48, 5120, 40, 8, 13824, 152064),
         "nemotron-4-340b": (96, 18432, 96, 8, 73728, 256000),
         "smollm-360m": (32, 960, 15, 5, 2560, 49152),
         "stablelm-1.6b": (24, 2048, 32, 32, 5632, 100352),
         "deepseek-v3-671b": (61, 7168, 128, 128, 2048, 129280),
         "kimi-k2-1t-a32b": (61, 7168, 64, 8, 2048, 163840),
+        "xlstm-350m": (24, 1024, 4, 4, 0, 50304),
+        "seamless-m4t-large-v2": (24, 1024, 16, 16, 8192, 256206),
+        "llava-next-mistral-7b": (32, 4096, 32, 8, 14336, 32000),
     }
     assert set(rows) == set(ARCHS)
     for a, (L, d, H, KV, ff, V) in rows.items():
@@ -150,13 +196,30 @@ def test_full_configs_match_assignment_table():
     assert tconfigs.get("deepseek-v3-671b").moe.top_k == 8
     assert tconfigs.get("deepseek-v3-671b").attn_kind == "mla"
     assert tconfigs.get("kimi-k2-1t-a32b").moe.n_experts == 384
+    hymba = tconfigs.get("hymba-1.5b")
+    assert hymba.ssm.d_state == 16 and hymba.ssm.dtr == 100
+    assert (hymba.sliding_window, hymba.global_layers) == (1024, (0, 15, 31))
+    assert tconfigs.get("xlstm-350m").xlstm.slstm_every == 8
+    seamless = tconfigs.get("seamless-m4t-large-v2")
+    assert seamless.encdec and seamless.n_enc_layers == 24
+    assert (seamless.frontend, seamless.frontend_len) == ("frame", 4096)
+    llava = tconfigs.get("llava-next-mistral-7b")
+    assert (llava.frontend, llava.frontend_len) == ("patch", 2880)
+    assert seamless.param_count() == 2_036_881_408
 
 
 def test_unported_family_raises():
+    """A family name the reference does not know raises, at init and at
+    forward; so does the decoder's entry point on an encoder-decoder."""
     cfg = dataclasses.replace(tconfigs.get("smollm-360m", reduced=True),
-                              family="ssm")
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
         ttransformer.init(cfg, device="meta")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        ttransformer.forward(cfg, {}, torch.zeros(1, 1, dtype=torch.long))
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        ttransformer.init(tconfigs.get("seamless-m4t-large-v2",
+                                       reduced=True), device="meta")
 
 
 def test_expert_leaves_unbound_once_per_forward():
@@ -212,9 +275,10 @@ def _train_both(arch, steps, dcfg, **overrides):
     return jstate, tstate, losses
 
 
-def test_deepseek_loss_ema_trajectory_matches_reference():
+def _assert_trajectory(arch):
+    """5 Muon steps of ``arch`` reduced, batch 4 x 32, in both packages."""
     dcfg = tpipeline.DataConfig(vocab=257, seq_len=32, global_batch=4)
-    jstate, tstate, losses = _train_both("deepseek-v3-671b", 5, dcfg)
+    jstate, tstate, losses = _train_both(arch, 5, dcfg)
     for i, (tl, jl, tema, jema) in enumerate(losses):
         np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4,
                                    err_msg=f"step {i}")
@@ -225,6 +289,16 @@ def test_deepseek_loss_ema_trajectory_matches_reference():
         assert p == q
         np.testing.assert_allclose(a.detach().numpy(), b, rtol=5e-4,
                                    atol=5e-5, err_msg=p)
+
+
+def test_deepseek_loss_ema_trajectory_matches_reference():
+    _assert_trajectory("deepseek-v3-671b")
+
+
+def test_hymba_loss_ema_trajectory_matches_reference():
+    """Hymba's windowed attention ‖ SSM blocks (seq 32 > the reduced
+    window of 8) through 5 Muon steps."""
+    _assert_trajectory("hymba-1.5b")
 
 
 def test_deepseek_bf16_matches_reference_bf16():

@@ -195,3 +195,57 @@ def test_fp32_symmul_moe_shapes(cuda_device, m):
     poly = c[2] * (gd @ gd) + c[1] * gd
     poly.diagonal(dim1=-2, dim2=-1).add_(c[0])
     _assert_exact(ref.mirror_lower(ops.gram_poly(g, *c)), poly)
+
+
+# The hybrid and xLSTM families' new Gram dims (hymba's m = 100 / 132 at
+# n = 3200; m = 1024 and 1600 of xlstm / seamless / hymba) against the exact
+# products, and one training step of each family on the card.
+FAMILY_SYRK = [(100, 3200), (132, 3200), (1024, 4096), (1600, 5504)]
+
+
+@pytest.mark.parametrize("m,n", FAMILY_SYRK)
+def test_fp32_syrk_family_shapes(cuda_device, m, n):
+    x = _heavy_rows(cuda_device, (2, m, n), seed=8)
+    xd = x.double()
+    _assert_exact(ops.syrk(x), xd @ xd.mT)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_family_train_step_on_card(cuda_device, arch):
+    """One Muon step of the reduced config on the card (kernels on): a
+    finite loss and one SYRK, 5 gram_poly and 12 symmul per group."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.core import api
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import model_fns
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = configs.get(arch, reduced=True, remat=True)
+    plan = api.dedicate_params(model_fns(cfg).init(cfg, device="meta"))
+    opt = api.Muon(plan, config=MuonConfig(
+        ns=GramNSConfig(use_kernels=True)), device="cuda")
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    step = make_train_step(cfg, opt, device="cuda")
+    batch = batch_for_step(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                      global_batch=2), 0, device="cuda")
+    reset_launches()
+    state = step(state, batch)
+    g = len(plan.groups)
+    assert LAUNCHES == {"syrk": g, "gram_poly": 5 * g, "symmul": 12 * g}
+    assert math.isfinite(float(state.loss_ema))
+
+
+def test_linear_scan_on_card_matches_float64_loop(cuda_device):
+    from repro_torch.models.ssm import linear_scan
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    a = torch.rand(2, 300, 8, 4, generator=gen, device=cuda_device) * 0.99
+    b = torch.randn(2, 300, 8, 4, generator=gen, device=cuda_device)
+    h, prev, want = linear_scan(a, b), torch.zeros_like(b[:, 0]).double(), []
+    for t in range(a.shape[1]):
+        prev = a[:, t].double() * prev + b[:, t].double()
+        want.append(prev)
+    torch.testing.assert_close(h.double(), torch.stack(want, 1), rtol=1e-5,
+                               atol=1e-5)

@@ -198,16 +198,20 @@ MOE_ARCHS = ["deepseek-v3-671b", "kimi-k2-1t-a32b"]
 
 
 def _arch_shapes(arch: str, reduced: bool, **overrides):
+    """Both packages' ``model_fns(cfg).init`` trees: the reference's values
+    carried over (reduced), or shapes (full width)."""
+    from repro.models import model_fns as jmodel_fns
+    from repro_torch.models import model_fns as tmodel_fns
     jcfg = jconfigs.get(arch, reduced=reduced, **overrides)
     tcfg = tconfigs.get(arch, reduced=reduced, **overrides)
     if reduced:
-        jparams = jtransformer.init(jcfg, jax.random.PRNGKey(0))
+        jparams = jmodel_fns(jcfg).init(jcfg, jax.random.PRNGKey(0))
         tparams = ttransformer.params_from_numpy(
             jax.tree.map(np.asarray, jparams), device="cpu")
     else:
-        jparams = jax.eval_shape(lambda k: jtransformer.init(jcfg, k),
+        jparams = jax.eval_shape(lambda k: jmodel_fns(jcfg).init(jcfg, k),
                                  jax.random.PRNGKey(0))
-        tparams = ttransformer.init(tcfg, device="meta")
+        tparams = tmodel_fns(tcfg).init(tcfg, device="meta")
     return jparams, tparams
 
 
@@ -269,3 +273,42 @@ def test_full_width_deepseek_census_identical(size, num_owners):
     assert census == {(2048, 7168): 3 * L * E + 3 * L, (1536, 7168): L,
                       (1536, 24576): L, (576, 7168): L, (512, 32768): L,
                       (7168, 16384): L}
+
+
+# ------------------------------------------------- hybrid, xLSTM, enc-dec, VLM
+# Their groups bring Gram shapes no earlier family has: hymba's m = 100
+# (dt_proj) and 132 (x_proj), xLSTM's stacked mLSTM / sLSTM leaves, the
+# encoder-decoder's cross-attention and llava's unstacked connector (count 1).
+
+FAMILY_ARCHS = ["hymba-1.5b", "xlstm-350m", "seamless-m4t-large-v2",
+                "llava-next-mistral-7b"]
+# (groups, Gram buckets) of each published config's plan
+FAMILY_CENSUS = {
+    "hymba-1.5b": (11, [100, 132, 320, 1600]),
+    "xlstm-350m": (11, [1024]),
+    "seamless-m4t-large-v2": (20, [1024]),
+    "llava-next-mistral-7b": (9, [1024, 4096]),
+}
+
+
+@pytest.mark.parametrize("num_owners", OWNERS)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_plan_identical_to_reference(arch, num_owners):
+    """The reduced configs, the MILP's default strategy."""
+    jparams, tparams = _arch_shapes(arch, reduced=True)
+    _assert_same_plan(japi.dedicate_params(jparams, num_owners=num_owners),
+                      tapi.dedicate_params(tparams, num_owners=num_owners))
+
+
+@pytest.mark.parametrize("num_owners", OWNERS)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_full_width_family_census_identical(arch, num_owners):
+    """Each published config planned from meta tensors against
+    ``jax.eval_shape``, greedy: the same groups, buckets and census."""
+    jparams, tparams = _arch_shapes(arch, reduced=False)
+    kw = dict(num_owners=num_owners, strategy="greedy")
+    tplan = tapi.dedicate_params(tparams, **kw)
+    _assert_same_plan(japi.dedicate_params(jparams, **kw), tplan)
+    groups, buckets = FAMILY_CENSUS[arch]
+    assert (len(tplan.groups), sorted(tplan.buckets)) == (groups, buckets)
+

@@ -301,3 +301,30 @@ def test_lead_perm_roundtrip_of_an_expert_shard():
     assert torch.equal(_matrices_to_leaf(full, info, perm), leaf)
     with pytest.raises(ValueError, match="leading dims"):
         _lead_perm(info, (Shard(0), Shard(1)))
+
+
+# ------------------------------------------- hybrid, xLSTM, enc-dec, VLM
+
+FAMILY_ARCHS = ["hymba-1.5b", "xlstm-350m", "seamless-m4t-large-v2",
+                "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("zero3", [False, True], ids=["tp", "zero3"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_param_specs_match_reference(arch, zero3):
+    """``param_specs`` of the published hymba / xlstm / seamless / llava
+    trees (``model_fns(cfg).init``: SSM, mLSTM / sLSTM, encoder-decoder and
+    connector leaves) on a (2, 4) mesh equal the reference's."""
+    from repro.models import model_fns as jmodel_fns
+    from repro_torch.models import model_fns as tmodel_fns
+    jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
+    jshapes = jax.eval_shape(lambda k: jmodel_fns(jcfg).init(jcfg, k),
+                             jax.random.PRNGKey(0))
+    tshapes = tmodel_fns(tcfg).init(tcfg, device="meta")
+    want = _jpaths(jsharding.param_specs(
+        jcfg, jshapes, AbstractMesh((2, 4), AXES), zero3=zero3))
+    got = tsharding.param_specs(tcfg, tshapes, FakeMesh((2, 4)),
+                                zero3=zero3)
+    assert set(got) == set(want)
+    for p, spec in want.items():
+        assert got[p] == tuple(spec), p
