@@ -150,6 +150,33 @@ Phases, each printing one JSON line and asserting what it checks:
            process onto a plan of ``cards`` owners: its logical momentum
            rows bitwise those of an all-gather taken in the run.
 
+  serve    the contiguous serving tier (``repro_torch.serve``) on
+           full-width smollm-360m, fp32 parameters from seed 0, bf16
+           cache, 8 slots of 2304 positions, packs of 4, chunks of 1536:
+           a warm-up run, then 24 synthetic requests (prompts 128 / 256 /
+           512, 16-64 new tokens) plus one 2048-token prompt streamed
+           1536 + 512, timed (the summary: tokens/s, TTFT, decode step,
+           occupancy; peak GB; no Gram kernel launched); the same queue
+           with logits recorded, 4 requests (the chunked one among them)
+           replayed alone at the shapes they were served at, bitwise, and
+           their batch-1 solo distance printed; prefill's last logits
+           against the training forward's and chunked against one-shot
+           prefill of the long prompt, within 2e-2 · max|logit|;
+           continuous against ``run_oneshot`` on 24 uniform 256-token
+           prompts (fewer decode steps, the same tokens).  ``--trace
+           serve`` traces 5 decode steps (kernels a step, device idle).
+  serve_families
+           one model a family at its published widths, bf16 caches, 3
+           slots, 6 requests of 4-16 new tokens (``SERVE_FAMILY_RUNS``):
+           DeepSeek-V3 (the moe phase's cut), hymba-1.5b (prompts 1280,
+           past its 1024 window), xlstm-350m, seamless-m4t-large-v2
+           (512-frame prompts) and llava-next-mistral-7b (8 layers, 2880
+           patches a request); each served twice with logits recorded
+           (bitwise equal), every request replayed at its served shape
+           (bitwise; not DeepSeek-V3, whose rows share expert capacity),
+           prefill against the training forward; one model freed before
+           the next.
+
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
 and families phases' Muon runs), the nvidia-smi line (the first card's;
@@ -204,7 +231,8 @@ KERNELS = {
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "pipeline", "resilience", "moe", "families", "mesh")
+          "pipeline", "resilience", "moe", "families", "serve",
+          "serve_families", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -715,9 +743,10 @@ class GcClock:
 
 def trace_summary(prof, steps: int, top: int = 8) -> list:
     """Per step (a ``record_function`` range "step<i>"), the ``top`` ops
-    and kernels by self host time and by self device time, ms, and the
+    and kernels by self host time and by self device time, ms, the
     device's busy time: the sum over kernel events alone (an op's self
-    device time is its kernels' again)."""
+    device time is its kernels' again), and the number of those kernel
+    events (launches)."""
     from torch.autograd import DeviceType
     events = list(prof.events())
     out = []
@@ -727,7 +756,7 @@ def trace_summary(prof, steps: int, top: int = 8) -> list:
         if rng is None:
             out.append(None)
             continue
-        host, dev, busy = {}, {}, 0.0
+        host, dev, busy, kernels = {}, {}, 0.0, 0
         for e in events:
             if e.name.startswith("step") or not (
                     rng.start <= e.time_range.start <= rng.end):
@@ -736,13 +765,14 @@ def trace_summary(prof, steps: int, top: int = 8) -> list:
             dev[e.name] = dev.get(e.name, 0.0) + e.self_device_time_total
             if e.device_type == DeviceType.CUDA:
                 busy += e.self_device_time_total
+                kernels += 1
         out.append({
             "range_ms": (rng.end - rng.start) / 1e3,
             "host_self_ms": {k: v / 1e3 for k, v in sorted(
                 host.items(), key=lambda kv: -kv[1])[:top]},
             "device_self_ms": {k: v / 1e3 for k, v in sorted(
                 dev.items(), key=lambda kv: -kv[1])[:top] if v > 0},
-            "device_busy_ms": busy / 1e3,
+            "device_busy_ms": busy / 1e3, "kernels": kernels,
             "device_idle_share": 1 - busy / (rng.end - rng.start)})
     return out
 
@@ -2828,15 +2858,504 @@ def phase_families(torch, smi: str, trace: dict | None = None) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ serving
+# The contiguous serving tier (``repro_torch.serve``): smollm-360m at full
+# width (``serve``), then one model a family at its published widths
+# (``serve_families``).  Parameters random from seed 0, caches bf16.
+SERVE_ARCH = "smollm-360m"
+SERVE_CONFIG = dict(num_slots=8, max_len=2304, prefill_pack=4,
+                    chunk_len=1536)
+SERVE_QUEUE = dict(n=24, prompt_lens=(128, 256, 512), new_tokens=(16, 64),
+                   seed=0)
+# one more request whose prompt streams through chunks of 1536 + 512: its
+# first chunk takes the chunked attention over the bf16 cache
+SERVE_LONG, SERVE_LONG_NEW = 2048, 32
+SERVE_WARMUP = dict(n=4, prompt_lens=(128,), new_tokens=(4, 4), seed=1)
+SERVE_ONESHOT = dict(n=24, prompt_lens=(256,), new_tokens=(16, 64), seed=0)
+SERVE_REPLAYS = 4
+SERVE_TRACE_STEPS = 5
+# prefill's last logits against the training forward's, and chunked against
+# one-shot prefill: max|Δ| <= SERVE_GATE · max|logit| (the port's bf16
+# tolerance: the prefill attends over a bf16 cache, forward over fp32 k / v)
+SERVE_GATE = 2e-2
+# one model a family, published widths, bf16 caches, 3 slots, 6 requests
+# of 4-16 new tokens; ``cut`` as FAMILY_RUNS' ({field: (cut, published,
+# why)}), "moe" for moe_config's
+SERVE_FAMILY_RUNS = {
+    "deepseek-v3-671b": dict(prompt_lens=(256, 512), max_len=1024, cut="moe"),
+    "hymba-1.5b": dict(prompt_lens=(1280,), max_len=1536, cut={}),
+    "xlstm-350m": dict(prompt_lens=(512,), max_len=576, cut={}),
+    "seamless-m4t-large-v2": dict(prompt_lens=(512,), max_len=576,
+                                  enc_len=512, cut={}),
+    "llava-next-mistral-7b": dict(prompt_lens=(128,), max_len=3136,
+                                  cut=FAMILY_RUNS["llava-next-mistral-7b"][
+                                      "cut"]),
+}
+SERVE_FAMILY_QUEUE = dict(n=6, new_tokens=(4, 16), seed=0)
+SERVE_FAMILY_SLOTS = 3
+
+
+def serve_queue(cfg, n: int, prompt_lens, new_tokens, seed: int,
+                extra=()):
+    """``RequestQueue.synthetic`` plus ``extra`` requests; enc-dec frames
+    as ``synthetic`` draws them (length = prompt length), patch prefixes
+    (frontend_len, frontend_dim) · 0.1 from ``seed``, one a request (as
+    ``examples/serve_decode.py`` attaches them)."""
+    import numpy as np
+
+    from repro_torch.serve import RequestQueue
+    kw = dict(frontend_dim=cfg.frontend_dim) if cfg.encdec else {}
+    queue = RequestQueue.synthetic(n, cfg.vocab, prompt_lens=prompt_lens,
+                                   new_tokens=new_tokens, seed=seed, **kw)
+    reqs = list(queue._pending) + list(extra)
+    if cfg.frontend == "patch":
+        rng = np.random.default_rng(seed)
+        for r in reqs:
+            r.frames = (rng.standard_normal(
+                (cfg.frontend_len, cfg.frontend_dim)) * 0.1).astype(
+                    np.float32)
+    return RequestQueue(reqs)
+
+
+def served_run(torch, cfg, params, scfg, queue) -> tuple:
+    """One scheduler run from a cleared allocator peak, recording each
+    request's served shapes by wrapping the scheduler's prefill, chunk and
+    insert calls: (metrics, {rid: (kind, batch, row, slot)}, peak GB,
+    Gram-kernel launches during the run)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import Scheduler
+    sched = Scheduler(cfg, params, scfg)
+    shapes = {}
+    group_fn, chunk_fn = sched._prefill_group, sched._prefill_chunked
+    insert_fn = sched.slots.insert
+
+    def prefill_group(group):
+        for row, r in enumerate(group):
+            shapes[r.rid] = ["group", len(group), row]
+        return group_fn(group)
+
+    def prefill_chunked(req):
+        shapes[req.rid] = ["chunk", 1, 0]
+        return chunk_fn(req)
+
+    def insert(req, row_cache, row, first_token, pos):
+        i = insert_fn(req, row_cache, row, first_token, pos)
+        shapes[req.rid].append(i)
+        return i
+
+    sched._prefill_group = prefill_group
+    sched._prefill_chunked = prefill_chunked
+    sched.slots.insert = insert
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics = sched.run(queue)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del sched
+    return metrics, {k: tuple(v) for k, v in shapes.items()}, peak, launches
+
+
+def replay_served(torch, cfg, params, scfg, req, shape, tokens) -> list:
+    """The request alone at the shapes it was served at: its prefill group
+    size and row, the other rows zero (or batch 1 and the same chunks),
+    then decode at ``num_slots`` in its slot row, every other row idle;
+    fed the served ``tokens``.  Logits of each token, on the host."""
+    import numpy as np
+
+    from repro_torch.core import tree
+    from repro_torch.models import model_fns
+    from repro_torch.serve.scheduler import _frontend_key as serve_key
+    from repro_torch.serve.scheduler import _prefix_len as serve_prefix
+    from repro_torch.train import serve as serve_fns
+    kind, batch, row, slot = shape
+    m, key = model_fns(cfg), serve_key(cfg)
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        if kind == "chunk":
+            cache = m.init_cache(cfg, 1, scfg.max_len, scfg.cache_dtype,
+                                 device=dev)
+            for off in range(0, req.prompt_len, scfg.chunk_len):
+                logits, cache = serve_fns.prefill_chunk_fn(
+                    cfg, params, torch.from_numpy(
+                        req.tokens[None, off:off + scfg.chunk_len]).to(dev),
+                    cache, off)
+        else:
+            toks = np.zeros((batch, req.prompt_len), np.int32)
+            toks[row] = req.tokens
+            kw = {}
+            if key is not None:
+                fr = np.zeros((batch,) + req.frames.shape, np.float32)
+                fr[row] = req.frames
+                kw[key] = torch.from_numpy(fr).to(dev)
+            logits, cache = serve_fns.prefill_fn(
+                cfg, params, torch.from_numpy(toks).to(dev), scfg.max_len,
+                cache_dtype=scfg.cache_dtype, **kw)
+        out = [logits[row].cpu().numpy()]
+        lens = (scfg.max_len, scfg.enc_len) if cfg.encdec else \
+            (scfg.max_len,)
+        dcache = m.init_cache(cfg, scfg.num_slots, *lens, scfg.cache_dtype,
+                              device=dev)
+        rows = dict(tree.flatten(cache))
+        for path, leaf in tree.flatten(dcache):
+            leaf[:, slot] = rows[path][:, row]
+        del cache, rows
+        tok = np.zeros(scfg.num_slots, np.int32)
+        pos = np.zeros(scfg.num_slots, np.int32)
+        pos[slot] = req.prompt_len + serve_prefix(cfg)
+        for t in tokens[:-1]:
+            tok[slot] = t
+            logits, _ = serve_fns.decode_fn(
+                cfg, params, torch.from_numpy(tok).to(dev), dcache,
+                torch.from_numpy(pos).to(dev))
+            out.append(logits[slot].cpu().numpy())
+            pos[slot] += 1
+    return out
+
+
+def solo_run(torch, cfg, params, scfg, req, tokens) -> list:
+    """Batch-1 prefill of the whole prompt and scalar-pos batch-1 decode,
+    fed the served ``tokens``: logits of each token, on the host."""
+    from repro_torch.serve.scheduler import _frontend_key as serve_key
+    from repro_torch.serve.scheduler import _prefix_len as serve_prefix
+    from repro_torch.train import serve as serve_fns
+    dev = torch.device("cuda")
+    key = serve_key(cfg)
+    kw = {} if key is None else {key: torch.from_numpy(req.frames[None])
+                                 .to(dev)}
+    with torch.inference_mode():
+        logits, cache = serve_fns.prefill_fn(
+            cfg, params, torch.from_numpy(req.tokens[None]).to(dev),
+            scfg.max_len, cache_dtype=scfg.cache_dtype, **kw)
+        out = [logits[0].cpu().numpy()]
+        for i, t in enumerate(tokens[:-1]):
+            logits, cache = serve_fns.decode_fn(
+                cfg, params, torch.tensor([t], dtype=torch.int32,
+                                          device=dev), cache,
+                req.prompt_len + serve_prefix(cfg) + i)
+            out.append(logits[0].cpu().numpy())
+    return out
+
+
+def replay_check(torch, cfg, params, scfg, metrics, reqs, shapes,
+                 rids) -> dict:
+    """Replay at served shape for ``rids``, asserted bitwise (logits and
+    greedy tokens), and the batch-1 solo run's distance, printed: max
+    |Δ| / max|logit| and the tokens whose greedy choice differs."""
+    import numpy as np
+    rows, worst, flips = [], 0.0, 0
+    for rid in rids:
+        rec, req = metrics.requests[rid], reqs[rid]
+        got = replay_served(torch, cfg, params, scfg, req, shapes[rid],
+                            rec.tokens)
+        same = len(got) == len(rec.logits) and all(
+            np.array_equal(a, b) for a, b in zip(got, rec.logits))
+        if not same or [int(np.argmax(a)) for a in got] != rec.tokens:
+            bad = next((i for i, (a, b) in enumerate(zip(got, rec.logits))
+                        if not np.array_equal(a, b)), None)
+            raise AssertionError(f"{cfg.name} rid {rid} {shapes[rid]}: "
+                                 f"served logits != replay at token {bad}")
+        solo = solo_run(torch, cfg, params, scfg, req, rec.tokens)
+        dist = max(float(np.abs(a - b).max() / np.abs(a).max())
+                   for a, b in zip(solo, rec.logits))
+        flip = sum(int(np.argmax(a)) != t for a, t in zip(solo, rec.tokens))
+        worst, flips = max(worst, dist), flips + flip
+        rows.append({"rid": rid, "shape": list(shapes[rid]),
+                     "prompt_len": req.prompt_len, "tokens": len(got),
+                     "replay_bitwise": True, "solo_max_rel": dist,
+                     "solo_greedy_flips": flip})
+    return {"replays": rows, "solo_max_rel": worst,
+            "solo_greedy_flips": flips}
+
+
+def logits_gate(tag: str, got, want) -> dict:
+    """max|got − want| <= SERVE_GATE · max|want|, as a row."""
+    err = float((got.double() - want.double()).abs().max())
+    allowance = SERVE_GATE * float(want.abs().max())
+    if not err <= allowance:
+        raise AssertionError(f"{tag}: max|Δ| {err:.4g} > {allowance:.4g}")
+    return {"max_abs_err": err, "allowance": allowance,
+            "err_over_allowance": err / allowance}
+
+
+def prefill_vs_forward(torch, cfg, params, req, max_len: int,
+                       cache_dtype) -> dict:
+    """A batch-1 prefill's last-token logits against the training
+    ``forward``'s at that position (fp32 k / v), ``logits_gate``."""
+    from repro_torch.models import model_fns
+    from repro_torch.serve.scheduler import _frontend_key as serve_key
+    from repro_torch.train import serve as serve_fns
+    dev = torch.device("cuda")
+    key = serve_key(cfg)
+    kw = {} if key is None else {key: torch.from_numpy(req.frames[None])
+                                 .to(dev)}
+    toks = torch.from_numpy(req.tokens[None]).to(dev)
+    with torch.inference_mode():
+        got, _ = serve_fns.prefill_fn(cfg, params, toks, max_len,
+                                      cache_dtype=cache_dtype, **kw)
+        want = model_fns(cfg).forward(cfg, params, toks, **kw)[:, -1]
+    return logits_gate(f"{cfg.name} prefill vs forward", got, want)
+
+
+def serve_summary(metrics) -> dict:
+    s = metrics.summary()
+    return {k: s[k] for k in (
+        "requests", "tokens", "wall_s", "tokens_per_sec", "ttft_ms_median",
+        "ttft_ms_p90", "per_token_ms_median", "decode_step_us_median",
+        "decode_step_us_p90", "decode_steps", "slot_occupancy",
+        "concurrent_mean", "rejected")}
+
+
+def check_complete(tag: str, metrics) -> None:
+    for rec in metrics.requests.values():
+        if rec.rejected or rec.generated != rec.requested:
+            raise AssertionError(f"{tag} rid {rec.rid}: {rec.generated} of "
+                                 f"{rec.requested} tokens"
+                                 + (" (rejected)" if rec.rejected else ""))
+
+
+def trace_decode(torch, cfg, params, scfg, trace: str) -> dict:
+    """``SERVE_TRACE_STEPS`` decode steps at full slots (8 prompts of 256,
+    budgets past the traced steps) under ``torch.profiler``: per step the
+    device busy time, idle share and kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Scheduler
+    n = scfg.num_slots
+    queue = serve_queue(cfg, n, (256,), (SERVE_TRACE_STEPS + 2,) * 2, 2)
+    sched = Scheduler(cfg, params, scfg)
+    step, steps = sched._decode_step, [0]
+
+    def traced(metrics, t0):
+        if steps[0] >= SERVE_TRACE_STEPS:
+            return step(metrics, t0)
+        with torch.profiler.record_function(f"step{steps[0]}"):
+            step(metrics, t0)
+        steps[0] += 1
+    sched._decode_step = traced
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sched.run(queue)
+    out = Path(trace)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    return {"file": str(out), "steps": trace_summary(prof, SERVE_TRACE_STEPS)}
+
+
+def phase_serve(torch, smi: str, trace: str | None = None) -> None:
+    """smollm-360m at full width through the contiguous serving tier
+    (``SERVE_CONFIG``, bf16 cache): a warm-up run, then the timed run of
+    ``SERVE_QUEUE`` plus one ``SERVE_LONG``-token chunked prompt
+    (summary, peak GB); the same queue again with logits recorded, and
+    ``SERVE_REPLAYS`` requests (the chunked one among them) replayed at
+    their served shapes, bitwise; the batch-1 solo distance printed;
+    prefill against the training forward and chunked against one-shot
+    prefill of the long prompt (``SERVE_GATE``); continuous against
+    ``run_oneshot`` on ``SERVE_ONESHOT``; ``trace`` traces decode steps."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve import Request, RequestQueue, ServeConfig, \
+        Scheduler, run_oneshot
+    from repro_torch.train import serve as serve_fns
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(SERVE_ARCH)
+    params = transformer.init(cfg, seed=0, device="cuda")
+    scfg = ServeConfig(cache_dtype=torch.bfloat16, **SERVE_CONFIG)
+    long_req = Request(
+        rid=SERVE_QUEUE["n"], max_new_tokens=SERVE_LONG_NEW,
+        tokens=np.random.default_rng(SERVE_QUEUE["seed"] + 1).integers(
+            0, cfg.vocab, SERVE_LONG).astype(np.int32))
+
+    def timed_queue():
+        return serve_queue(cfg, **SERVE_QUEUE, extra=[long_req])
+    emit({"phase": "serve", "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "params": cfg.param_count(),
+        "param_dtype": cfg.param_dtype, "cache_dtype": "bfloat16",
+        **SERVE_CONFIG, "queue": {**SERVE_QUEUE, "long_prompt": SERVE_LONG,
+                                  "long_new_tokens": SERVE_LONG_NEW},
+        "seed": 0}, "nvidia_smi": smi})
+
+    served_run(torch, cfg, params, scfg, serve_queue(cfg, **SERVE_WARMUP))
+    metrics, shapes, peak, launches = served_run(torch, cfg, params, scfg,
+                                                 timed_queue())
+    check_complete("serve", metrics)
+    if any(launches.values()):
+        raise AssertionError(f"serving launched Gram kernels: {launches}")
+    if shapes[long_req.rid][0] != "chunk":
+        raise AssertionError(f"the long prompt was not chunked: {shapes}")
+    emit({"phase": "serve", "run": "continuous", **serve_summary(metrics),
+          "prefill_calls": len(metrics.prefill_s), "peak_mem_gb": peak,
+          "gram_launches": launches, "nvidia_smi": smi})
+
+    rscfg = dataclasses.replace(scfg, record_logits=True)
+    queue = timed_queue()
+    reqs = {r.rid: r for r in queue._pending}
+    rec, rshapes, _, _ = served_run(torch, cfg, params, rscfg, queue)
+    check_complete("serve (recorded)", rec)
+    same_tokens = all(rec.requests[r].tokens == metrics.requests[r].tokens
+                      for r in rec.requests) and rshapes == shapes
+    by_kind = {}
+    for rid, s in rshapes.items():
+        by_kind.setdefault((s[0], s[1]), rid)
+    rids = [long_req.rid] + [r for r in by_kind.values()
+                             if r != long_req.rid]
+    rids += [r for r in rshapes if r not in rids]
+    emit({"phase": "serve", "check": "replay",
+          "runs_same_tokens_and_shapes": same_tokens,
+          **replay_check(torch, cfg, params, rscfg, rec, reqs, rshapes,
+                         rids[:SERVE_REPLAYS]), "nvidia_smi": smi})
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fwd = prefill_vs_forward(torch, cfg, params, long_req, scfg.max_len,
+                             scfg.cache_dtype)
+    toks = torch.from_numpy(long_req.tokens[None]).cuda()
+    with torch.inference_mode():
+        full, _ = serve_fns.prefill_fn(cfg, params, toks, scfg.max_len,
+                                       cache_dtype=scfg.cache_dtype)
+        cache = transformer.init_cache(cfg, 1, scfg.max_len,
+                                       scfg.cache_dtype, device="cuda")
+        for off in range(0, SERVE_LONG, scfg.chunk_len):
+            chunked, cache = serve_fns.prefill_chunk_fn(
+                cfg, params, toks[:, off:off + scfg.chunk_len], cache, off)
+    del cache
+    emit({"phase": "serve", "check": "prefill", "prompt_len": SERVE_LONG,
+          "vs_forward": fwd,
+          "chunked_vs_one_shot": logits_gate("chunked vs one-shot prefill",
+                                             chunked, full),
+          "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+    oq = serve_queue(cfg, **SERVE_ONESHOT)
+    reqs = sorted(oq._pending, key=lambda r: r.rid)
+    cont = Scheduler(cfg, params, scfg).run(RequestQueue(
+        [dataclasses.replace(r) for r in reqs]))
+    check_complete("serve continuous (uniform)", cont)
+    with torch.inference_mode():
+        base = run_oneshot(cfg, params, reqs, scfg.num_slots, scfg.max_len,
+                           cache_dtype=scfg.cache_dtype)
+    check_complete("serve oneshot", base)
+    cs, bs = cont.summary(), base.summary()
+    if cs["tokens"] != bs["tokens"] or \
+            not cs["decode_steps"] < bs["decode_steps"]:
+        raise AssertionError(f"continuous {cs['decode_steps']} steps / "
+                             f"{cs['tokens']} tokens against one-shot "
+                             f"{bs['decode_steps']} / {bs['tokens']}")
+    emit({"phase": "serve", "check": "oneshot",
+          "continuous": serve_summary(cont), "oneshot": serve_summary(base),
+          "nvidia_smi": smi})
+    if trace:
+        emit({"phase": "serve", "trace": trace_decode(torch, cfg, params,
+                                                      scfg, trace),
+              "nvidia_smi": smi})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+
+
+def serve_family_config(arch: str):
+    from repro_torch import configs
+    cut = SERVE_FAMILY_RUNS[arch]["cut"]
+    if cut == "moe":
+        return moe_config(), {"n_layers": (MOE_LAYERS, 61, "the moe "
+                                           "phase's cut"),
+                              "n_experts": (MOE_EXPERTS, 256, "the moe "
+                                            "phase's cut")}
+    return configs.get(arch, **{k: v[0] for k, v in cut.items()}), cut
+
+
+def phase_serve_families(torch, smi: str) -> None:
+    """One model a family at its published widths (``SERVE_FAMILY_RUNS``),
+    bf16 caches, ``SERVE_FAMILY_SLOTS`` slots, ``SERVE_FAMILY_QUEUE``: the
+    same queue served twice with logits recorded (bitwise equal), every
+    request replayed at its served shape (bitwise; DeepSeek-V3, whose rows
+    share expert capacity, only the two runs), prefill against the
+    training forward; TTFT, decode step, tokens/s and peak GB printed.
+    Each model is freed before the next."""
+    import numpy as np
+
+    from repro_torch.models import model_fns
+    from repro_torch.serve import ServeConfig
+
+    t_phase = time.perf_counter()
+    for arch, run in SERVE_FAMILY_RUNS.items():
+        t_arch = time.perf_counter()
+        cfg, cut = serve_family_config(arch)
+        params = model_fns(cfg).init(cfg, seed=0, device="cuda")
+        scfg = ServeConfig(num_slots=SERVE_FAMILY_SLOTS,
+                           max_len=run["max_len"],
+                           prefill_pack=SERVE_FAMILY_SLOTS,
+                           cache_dtype=torch.bfloat16,
+                           enc_len=run.get("enc_len"), record_logits=True)
+        emit({"phase": "serve_families", "config": {
+            "arch": cfg.name, "family": cfg.family,
+            "cut": {k: {"cut": v[0], "published": v[1], "why": v[2]}
+                    for k, v in cut.items()},
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "params": cfg.param_count(),
+            "param_dtype": cfg.param_dtype, "cache_dtype": "bfloat16",
+            "prompt_lens": list(run["prompt_lens"]),
+            "max_len": run["max_len"], "enc_len": run.get("enc_len"),
+            "frontend": None if cfg.frontend is None else
+            [cfg.frontend, cfg.frontend_len, cfg.frontend_dim],
+            "num_slots": SERVE_FAMILY_SLOTS, **SERVE_FAMILY_QUEUE},
+            "nvidia_smi": smi})
+        runs = []
+        for _ in range(2):
+            queue = serve_queue(cfg, prompt_lens=run["prompt_lens"],
+                                **SERVE_FAMILY_QUEUE)
+            reqs = {r.rid: r for r in queue._pending}
+            runs.append(served_run(torch, cfg, params, scfg, queue))
+            check_complete(cfg.name, runs[-1][0])
+        (m1, s1, _, _), (m2, s2, peak, launches) = runs
+        for rid, r in m1.requests.items():
+            o = m2.requests[rid]
+            if s1 != s2 or r.tokens != o.tokens or not all(
+                    np.array_equal(a, b) for a, b in zip(r.logits,
+                                                         o.logits)):
+                raise AssertionError(f"{cfg.name} rid {rid}: two runs of "
+                                     "one schedule differ")
+        if any(launches.values()):
+            raise AssertionError(f"serving launched Gram kernels: "
+                                 f"{launches}")
+        replays = None
+        if cfg.moe is None:
+            replays = replay_check(torch, cfg, params, scfg, m2, reqs, s2,
+                                   list(s2))
+        fwd = prefill_vs_forward(torch, cfg, params, reqs[0], scfg.max_len,
+                                 scfg.cache_dtype)
+        emit({"phase": "serve_families", "arch": cfg.name,
+              **serve_summary(m2), "record_logits": True,
+              "prefill_calls": len(m2.prefill_s), "peak_mem_gb": peak,
+              "two_runs_bitwise": True, "replay": replays,
+              "prefill_vs_forward": fwd, "gram_launches": launches,
+              "seconds": time.perf_counter() - t_arch, "nvidia_smi": smi})
+        del params, runs, m1, m2, reqs, queue
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_families",
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--trace", default="",
                     help="comma-separated mesh-phase runs (of "
-                         + ",".join(r[0] for r in MESH_RUNS) + "; rank 0) "
-                         "and families-phase archs (of "
-                         + ",".join(FAMILY_RUNS) + "; their Muon run) to "
+                         + ",".join(r[0] for r in MESH_RUNS) + "; rank 0), "
+                         "families-phase archs (of "
+                         + ",".join(FAMILY_RUNS) + "; their Muon run) and "
+                         "'serve' (decode steps of the serve phase) to "
                          "trace with torch.profiler")
     ap.add_argument("--trace-dir", default=str(ROOT / "build" / "traces"),
                     help="where --trace writes its .json.gz files")
@@ -2913,11 +3432,22 @@ def main() -> int:
             t: str(Path(args.trace_dir) / f"trace_{t}.json.gz")
             for t in args.trace.split(",") if t in FAMILY_RUNS})
         torch.cuda.empty_cache()
+    if "serve" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve(torch, smi[0], str(Path(args.trace_dir)
+                                       / "trace_serve.json.gz")
+                    if "serve" in args.trace.split(",") else None)
+    if "serve_families" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_families(torch, smi[0])
     if "mesh" in phases:
         world = torch.cuda.device_count()
         phase_mesh(torch, train_losses, {
             t: str(Path(args.trace_dir) / f"trace_{t}_mesh{world}.json.gz")
-            for t in args.trace.split(",") if t and t not in FAMILY_RUNS})
+            for t in args.trace.split(",")
+            if t and t not in FAMILY_RUNS and t != "serve"})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

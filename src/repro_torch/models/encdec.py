@@ -1,14 +1,17 @@
-"""Encoder-decoder backbone, seamless-m4t style (port of the training path
-of ``repro.models.encdec``; the audio frontend is a stub).
+"""Encoder-decoder backbone, seamless-m4t style (port of
+``repro.models.encdec``; the audio frontend is a stub).
 
 The encoder projects precomputed frame embeddings (B, S_enc, frontend_dim)
 to d_model and runs non-causal self-attention blocks, with rope (the
 reference's ``attention`` applies rope to every self attention).  Decoder
 blocks are causal self-attention, cross-attention over the encoder output
 (queries from the decoder, keys and values from ``enc_out``, no rope, no
-mask) and an MLP.  ``init`` / ``forward`` mirror ``transformer.py``; the
-stacked ``enc_blocks`` / ``dec_blocks`` are unbound once per forward.
-The cache, prefill and decode entry points wait for ROADMAP item 10.
+mask) and an MLP.  ``init`` / ``forward`` / ``init_cache`` / ``prefill`` /
+``decode_step`` mirror ``transformer.py``; the stacked ``enc_blocks`` /
+``dec_blocks`` are unbound once per call.  The decode cache holds the
+self-attention ``k`` / ``v`` (L, B, S_max, KV, hd) and the cross K / V
+``cross_k`` / ``cross_v`` (L, B, S_enc, KV, hd), computed once at prefill
+in the cache dtype.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.models.layers import AttnConfig
 from repro_torch.models.transformer import (  # noqa: F401  (one crossing)
     ArchConfig, _check_family, _rope_for, apply_layer, frontend,
     frontend_init, params_from_numpy, params_to_numpy, unbound_layers)
+from repro_torch.models.transformer import _embed, _last_logits
 
 Params = Dict[str, Any]
 
@@ -95,14 +99,30 @@ def encode(cfg: ArchConfig, params: Params,
 
 
 def _dec_block(cfg: ArchConfig, bp: Params, h: torch.Tensor,
-               enc_out: torch.Tensor, rope_cs) -> torch.Tensor:
+               enc_out: Optional[torch.Tensor], rope_cs, *, self_cache=None,
+               cross_cache=None, pos=None):
+    """Decoder block over ``enc_out``, or over the precomputed
+    ``cross_cache`` with the self-attention ``self_cache`` written at
+    ``pos`` (then returns (h, self_cache))."""
     a = layers.rmsnorm(bp["attn_norm"], h, cfg.norm_eps)
-    h = h + layers.attention(bp["attn"], cfg.attn_cfg(), a, rope_cs=rope_cs)
+    if self_cache is None:
+        h = h + layers.attention(bp["attn"], cfg.attn_cfg(), a,
+                                 rope_cs=rope_cs)
+    else:
+        out, self_cache = layers.attention(bp["attn"], cfg.attn_cfg(), a,
+                                           cache=self_cache, pos=pos,
+                                           rope_cs=rope_cs)
+        h = h + out
     c = layers.rmsnorm(bp["cross_norm"], h, cfg.norm_eps)
-    h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
-                             xk=enc_out)
+    if cross_cache is None:
+        h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
+                                 xk=enc_out)
+    else:
+        h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
+                                 cache=cross_cache, static_cache=True)[0]
     m = layers.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps)
-    return h + layers.mlp(bp["mlp"], m, cfg.act)
+    h = h + layers.mlp(bp["mlp"], m, cfg.act)
+    return h if self_cache is None else (h, self_cache)
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
@@ -118,3 +138,68 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
         x = apply_layer(body, x, enc_out, remat=cfg.remat)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.unembed(params["lm_head"], x)
+
+
+# ------------------------------------------------------------ serving paths
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
+               dtype=torch.bfloat16, device: DeviceLike = None):
+    """Zeroed decode cache (module docstring) on ``device`` (CUDA unless
+    given; ``"meta"`` builds shapes only)."""
+    _check(cfg)
+    device = resolve_device(device)
+    kw = dict(dtype=as_dtype(dtype), device=device)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros((L, batch, max_len, KV, hd), **kw),
+            "v": torch.zeros((L, batch, max_len, KV, hd), **kw),
+            "cross_k": torch.zeros((L, batch, enc_len, KV, hd), **kw),
+            "cross_v": torch.zeros((L, batch, enc_len, KV, hd), **kw)}
+
+
+def _dec_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
+              pos, positions: torch.Tensor):
+    """The decoder blocks over the cache, each layer on its own views."""
+    rope_cs = _rope_for(cfg, positions)
+    views = [cache[k].unbind(0) for k in ("k", "v", "cross_k", "cross_v")]
+    for l, bp in enumerate(unbound_layers(params["dec_blocks"])):
+        kc, vc, ck, cv = (v[l] for v in views)
+        x, _ = _dec_block(cfg, bp, x, None, rope_cs, self_cache=(kc, vc),
+                          cross_cache=(ck, cv), pos=pos)
+    return x, cache
+
+
+@torch.inference_mode()
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+            frames: torch.Tensor, max_len: int, cache_dtype=torch.bfloat16):
+    """Encode the frames, compute every layer's cross K / V once (in the
+    cache dtype) and consume the decoder prompt: (last-token logits, cache)."""
+    B, S = tokens.shape
+    enc_out = encode(cfg, params, frames)
+    cache = init_cache(cfg, B, max_len, enc_out.shape[1], cache_dtype,
+                       device=enc_out.device)
+    acfg = _enc_attn_cfg(cfg)
+    ck, cv = cache["cross_k"].unbind(0), cache["cross_v"].unbind(0)
+    for l, bp in enumerate(unbound_layers(params["dec_blocks"])):
+        shape = (B, -1, acfg.n_kv_heads, acfg.head_dim)
+        ck[l].copy_(layers.linear(bp["cross_attn"]["k_proj"], enc_out)
+                    .reshape(shape))
+        cv[l].copy_(layers.linear(bp["cross_attn"]["v_proj"], enc_out)
+                    .reshape(shape))
+    x = _embed(cfg, params, tokens)
+    x, cache = _dec_scan(cfg, params, x, cache, pos=0,
+                         positions=torch.arange(S, device=x.device))
+    return _last_logits(cfg, params, x), cache
+
+
+@torch.inference_mode()
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor, cache,
+                pos, block_tables=None):
+    """pos: a scalar shared position, or a (B,) tensor of per-slot
+    positions (continuous batching: the self-attention rows advance
+    independently)."""
+    if block_tables is not None:
+        raise NotImplementedError(layers.PAGED)
+    x = _embed(cfg, params, token[:, None])
+    x, cache = _dec_scan(cfg, params, x, cache, pos=pos,
+                         positions=layers._query_positions(pos, 1, x.device))
+    return _last_logits(cfg, params, x), cache

@@ -1,20 +1,24 @@
-"""Model building blocks (port of the training paths of
-``repro.models.layers``: linear, norms, rotary, GQA self and cross
-attention, DeepSeek's MLA and the MLPs), as plain tensor functions over
-dict parameters.
+"""Model building blocks (port of ``repro.models.layers``: linear, norms,
+rotary, GQA self and cross attention, DeepSeek's MLA and the MLPs), as
+plain tensor functions over dict parameters.
 
 Conventions kept from the reference so both packages compute the same thing:
   * linear weights are stored (in_dim, out_dim) and apply as ``x @ w``;
   * stacked-layer leaves carry a leading L dim;
   * rotary embeddings split the head dim into halves (no interleave);
-  * attention is plain einsum + softmax with a -1e30 mask, in fp32.
+  * attention is plain einsum + softmax with a -1e30 mask, in fp32;
+  * attention caches are preallocated (B, S_max, KV, hd) rows written at
+    the decode position.  The reference donates them to its jitted
+    functions; the port writes them in place and returns them as well.
+
+The paged cache layout (``block_table``) is ROADMAP item 10b.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,13 +144,19 @@ def _pick_chunk(n: int, target: int) -> int:
     return best
 
 
+PAGED = ("the paged KV cache (block tables, init_paged_cache, "
+         "preemption) is ROADMAP item 10b")
+
+
 def _block_mask(qpos, kpos, *, causal, window):
-    """(qlen, klen) boolean mask from absolute positions, or None."""
+    """Boolean mask from absolute positions, or None.  qpos is (qlen,) —
+    or (B, qlen) when decode rows sit at per-slot positions (continuous
+    batching) — giving a (qlen, klen) / (B, qlen, klen) mask."""
     if not causal:
         return None
-    ok = qpos[:, None] >= kpos[None, :]
+    ok = qpos[..., :, None] >= kpos
     if window is not None:
-        ok = ok & (kpos[None, :] > qpos[:, None] - window)
+        ok = ok & (kpos > qpos[..., :, None] - window)
     return ok
 
 
@@ -176,6 +186,9 @@ def _dense_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
     logits = torch.einsum("bsgrh,btgh->bgrst", qg.float(), k.float()) * scale
     mask = _block_mask(qpos, kpos, causal=causal, window=window)
     if mask is not None:
+        # (S, T) shared positions, or (B, S, T) per-row decode positions
+        if mask.ndim == 3:
+            mask = mask[:, None, None]
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bgrst,btgh->bsgrh", probs, v.float())
@@ -197,48 +210,108 @@ def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
         for k0 in range(0, T, kc):
             logits = torch.einsum("bqgrh,bkgh->bqgrk", q_i,
                                   k[:, k0:k0 + kc].float()) * scale
-            ok = _block_mask(qpos[q0:q0 + qc], kpos[k0:k0 + kc],
+            ok = _block_mask(qpos[..., q0:q0 + qc], kpos[k0:k0 + kc],
                              causal=causal, window=window)
             if ok is not None:
-                logits = logits.masked_fill(~ok[None, :, None, None, :], -1e30)
+                ok = ok[None] if ok.ndim == 2 else ok
+                logits = logits.masked_fill(~ok[:, :, None, None, :], -1e30)
             m_new = torch.maximum(m, logits.amax(-1))
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
+            # the probabilities cross to the product in the value dtype, as
+            # the reference's; the product itself is fp32 (bf16 values are
+            # exact in fp32), as its preferred_element_type=float32
             v_j = v[:, k0:k0 + kc]
             acc = acc * corr[..., None] + torch.einsum(
-                "bqgrk,bkgh->bqgrh", p.to(v_j.dtype), v_j).float()
+                "bqgrk,bkgh->bqgrh", p.to(v_j.dtype).float(), v_j.float())
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     return torch.cat(outs, dim=1)
 
 
+def _is_vector(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.ndim == 1
+
+
+def _query_positions(pos, S: int, device) -> torch.Tensor:
+    """Absolute positions of S new queries written at ``pos``: (S,) for a
+    scalar offset (None is 0), (B, S) for a (B,) vector of per-row
+    positions."""
+    ar = torch.arange(S, device=device)
+    if _is_vector(pos):
+        return pos.to(device)[:, None] + ar
+    return ar + (0 if pos is None else int(pos))
+
+
+def _cache_write(leaf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """Write the rows ``new`` (B, S, ...) into the cache ``leaf``
+    (B, S_max, ...) in place, in the cache's dtype: at [pos, pos + S) for a
+    scalar ``pos``, or row b at ``pos[b]`` for a (B,) vector (S == 1, slot
+    decode)."""
+    new = new.to(leaf.dtype)
+    if _is_vector(pos):
+        if new.shape[1] != 1:
+            raise ValueError("vector pos is a single-token decode path")
+        rows = torch.arange(leaf.shape[0], device=leaf.device)
+        leaf[rows, pos.to(leaf.device)] = new[:, 0]
+    else:
+        p = int(pos)
+        leaf[:, p:p + new.shape[1]] = new
+    return leaf
+
+
 def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
               xk: Optional[torch.Tensor] = None,
-              rope_cs=None) -> torch.Tensor:
-    """Attention of the training forward (no cache): self attention
-    (``xk`` None; causal, with the sliding window, unless ``cfg.causal`` is
-    off; rope when ``rope_cs`` is given), or cross attention of ``x``'s
-    queries over keys and values projected from ``xk`` (no rope, no mask),
-    as the reference's ``attention``."""
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              pos=None, rope_cs=None, static_cache: bool = False,
+              block_table=None):
+    """Self (``xk`` None) or cross attention with an optional KV cache, as
+    the reference's ``attention``: self attention is causal, with the
+    sliding window, unless ``cfg.causal`` is off, and rotary when
+    ``rope_cs`` is given; cross attention projects keys and values from
+    ``xk`` (no rope, no mask).
+
+    cache: (k_cache, v_cache) of (B, S_max, KV, hd); pos: the write
+    position, a scalar shared by every row (prefill, lockstep decode) or a
+    (B,) tensor of per-row positions (slot decode, S == 1).  The new k / v
+    are written into the cache first (in place, in its dtype) and attention
+    then reads the whole cache back, masked by position.  static_cache:
+    attend over the cache as it is (the decoder's precomputed cross K / V).
+
+    Returns the output (B, S, d), or (output, cache) when a cache is given.
+    """
+    if block_table is not None:
+        raise NotImplementedError(PAGED)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    q = linear(p["q_proj"], x).reshape(B, S, H, hd)
+    if static_cache:
+        k, v = cache
+        out = _sdpa(q, k, v, scale=scale)
+        return linear(p["o_proj"], out.reshape(B, S, H * hd)), cache
+
     src = x if xk is None else xk
     T = src.shape[1]
-    q = linear(p["q_proj"], x).reshape(B, S, H, hd)
     k = linear(p["k_proj"], src).reshape(B, T, KV, hd)
     v = linear(p["v_proj"], src).reshape(B, T, KV, hd)
     if rope_cs is not None and xk is None:
         cos_q, sin_q, cos_k, sin_k = rope_cs
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_k, sin_k)
+    if cache is not None and xk is None:
+        k = _cache_write(cache[0], k, pos)
+        v = _cache_write(cache[1], v, pos)
     if xk is not None or not cfg.causal:
-        out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd))
+        out = _sdpa(q, k, v, scale=scale)
     else:
-        pos = torch.arange(S, device=x.device)
-        out = _sdpa(q, k, v, scale=1.0 / math.sqrt(hd), qpos=pos, kpos=pos,
+        out = _sdpa(q, k, v, scale=scale,
+                    qpos=_query_positions(pos, S, x.device),
+                    kpos=torch.arange(k.shape[1], device=x.device),
                     causal=True, window=cfg.sliding_window)
-    return linear(p["o_proj"], out.reshape(B, S, H * hd))
+    out = linear(p["o_proj"], out.reshape(B, S, H * hd))
+    return out if cache is None else (out, cache)
 
 
 # -------------------------------------------------------- MLA (DeepSeek-V3)
@@ -274,11 +347,18 @@ def mla_init(gen, cfg: MLAConfig, *, lead: tuple = (), dtype=torch.float32,
 
 
 def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
-                  rope_cs=None) -> torch.Tensor:
-    """Multi-head Latent Attention of the training forward (no cache): q
-    through the rank-``q_lora_rank`` bottleneck, k and v expanded from the
-    normalised latent ``c_kv`` plus one rope key shared by every head.  The
-    v head dim may differ from the qk dim (``_sdpa`` reads it off v)."""
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  pos=None, rope_cs=None, block_table=None):
+    """Multi-head Latent Attention: q through the rank-``q_lora_rank``
+    bottleneck, k and v expanded from the normalised latent ``c_kv`` plus
+    one rope key shared by every head.  The v head dim may differ from the
+    qk dim (``_sdpa`` reads it off v).  The cache holds (c_kv, k_rope):
+    the latent (B, S_max, kv_lora) and the shared rope key
+    (B, S_max, 1, rope_dim), written at ``pos`` as ``attention``'s; k and v
+    are then expanded from the whole cache, in its dtype.  Returns the
+    output, or (output, cache) when a cache is given."""
+    if block_table is not None:
+        raise NotImplementedError(PAGED)
     B, S, _ = x.shape
     H = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -295,15 +375,20 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
         cos_q, sin_q, cos_k, sin_k = rope_cs
         q_rope = apply_rope(q_rope, cos_q, sin_q)
         k_rope = apply_rope(k_rope, cos_k, sin_k)
+    if cache is not None:
+        c_kv = _cache_write(cache[0], c_kv, pos)
+        k_rope = _cache_write(cache[1], k_rope, pos)
 
-    kv = linear(p["kv_b_proj"], c_kv).reshape(B, S, H, nd + vd)
+    T = c_kv.shape[1]
+    kv = linear(p["kv_b_proj"], c_kv).reshape(B, T, H, nd + vd)
     k_nope, v = kv[..., :nd], kv[..., nd:]
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, rd)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    pos = torch.arange(S, device=x.device)
-    out = _sdpa(qf, k, v, scale=1.0 / math.sqrt(nd + rd), qpos=pos, kpos=pos,
-                causal=True)
-    return linear(p["o_proj"], out.reshape(B, S, H * vd))
+    out = _sdpa(qf, k, v, scale=1.0 / math.sqrt(nd + rd),
+                qpos=_query_positions(pos, S, x.device),
+                kpos=torch.arange(T, device=x.device), causal=True)
+    out = linear(p["o_proj"], out.reshape(B, S, H * vd))
+    return out if cache is None else (out, cache)
 
 
 # --------------------------------------------------------------------- MLPs

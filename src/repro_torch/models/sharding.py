@@ -12,8 +12,10 @@ axis name, or a tuple of axis names (the dim split over them, the first
 one major), as the reference's ``PartitionSpec``.  ``placements`` turns a
 spec into the ``DTensor`` placements of a ``DeviceMesh``, and ``place`` a
 tree by a spec table.  The mesh is a ``DeviceMesh`` or any object with
-``mesh_dim_names`` and a ``shape`` tuple (the rules read shapes only).  ``input_shardings`` and ``cache_specs`` wait
-for serving (ROADMAP item 10).
+``mesh_dim_names`` and a ``shape`` tuple (the rules read shapes only).
+``input_shardings`` and ``cache_specs`` are the serving rules: the port
+serves on one card today (a sharded forward is ROADMAP item 6), and they
+are held equal to the reference's entry for entry.
 """
 
 from __future__ import annotations
@@ -162,3 +164,47 @@ def local_batch(arr, mesh):
         count *= mesh.size(i)
     rows = arr.shape[0] // count
     return arr[index * rows:(index + 1) * rows]
+
+
+def input_shardings(cfg, specs_dict, mesh) -> Dict[str, Spec]:
+    """{name: spec} for a dict of input arrays (anything with ``shape``):
+    batch-sharded on the leading dim, scalars replicated."""
+    out = {}
+    for name, sd in specs_dict.items():
+        rank = len(sd.shape)
+        out[name] = () if rank == 0 else \
+            batch_spec(mesh, sd.shape[0]) + (None,) * (rank - 1)
+    return out
+
+
+def cache_specs(cfg, cache_tree, mesh) -> Dict[str, Spec]:
+    """{path: spec} of the decode cache: batch over the data-parallel
+    axes; kv-heads over 'model' when divisible, otherwise the sequence
+    over 'model' (the fallback that also serves batch-1 long context).
+    Leaf ranks: (L,B,S,KV,hd) attention KV · (L,B,S,r) MLA latent ·
+    (L,B,S,1,rd) MLA rope key · (L,B,K,di) ssm conv · (L,B,di,ds) ssm h ·
+    (n,B,H,hd,hd) / (n,B,H,hd) / (n,B,H) mLSTM · (n,B,d) sLSTM."""
+    def spec_for(path: str, shape) -> Spec:
+        rank = len(shape)
+        if rank < 3:
+            return (None,) * rank
+        dims = [None] * rank
+        if shape[1] > 1:
+            dims[1] = _guard(mesh, shape[1], _entry(dp_axes(mesh))
+                             if dp_axes(mesh) else None)
+        leafname = path.split("/")[-1]
+        if rank >= 5:                       # (L,B,S,KV,hd) or mLSTM C
+            dims[3] = _guard(mesh, shape[3], "model")
+            if dims[3] is None:
+                dims[2] = _guard(mesh, shape[2], "model")
+        elif rank == 4:
+            if "conv" in leafname:          # (L,B,K,di): shard channels
+                dims[3] = _guard(mesh, shape[3], "model")
+            else:                           # (L,B,S,r) latent / (L,B,di,ds)
+                dims[2] = _guard(mesh, shape[2], "model")
+        else:                               # (L,B,X)
+            dims[2] = _guard(mesh, shape[2], "model")
+        return tuple(dims)
+
+    return {p: spec_for(p, tuple(v.shape))
+            for p, v in tree.flatten(cache_tree)}

@@ -1,5 +1,5 @@
 """Selective state-space mixer (Mamba-style) of the hymba hybrid blocks
-(port of the training path of ``repro.models.ssm``).
+(port of ``repro.models.ssm``).
 
     x -> in_proj -> (xs, z): xs through a depthwise causal conv1d + SiLU,
     dt, B, C from x_proj;  h_t = exp(A·dt_t)·h_{t-1} + dt_t·B_t·x_t;
@@ -15,18 +15,23 @@ arithmetic; in fp32 the sums associate in another order.
 
 Parameter names as the reference's: conv kernels / a_log / dt_bias / d_skip
 stay on AdamW by the dedication name rules; in / x / dt / out projections
-are Muon matrices.  The decode state (``state=``) waits for ROADMAP
-item 10.
+are Muon matrices.
+
+Serving carries ``state`` = (conv, h): the conv's trailing (B, K-1,
+d_inner) context and the recurrence's last (B, d_inner, d_state) fp32
+state.  ``ssm(..., state=)`` continues from them and returns the new ones;
+its scan runs outside autograd (serving is inference only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
 
 
@@ -66,16 +71,20 @@ def ssm_init(gen, cfg: SSMConfig, *, lead: tuple = (), dtype=torch.float32,
     }
 
 
-def _conv1d(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv from a zero context.  x: (B, S, di), w: (K, di):
-    y_t = Σ_i w_i · x_{t-K+1+i}, summed in the reference's order."""
+def _conv1d(w: torch.Tensor, x: torch.Tensor,
+            state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B, S, di), w: (K, di):
+    y_t = Σ_i w_i · x_{t-K+1+i}, summed in the reference's order, from a
+    zero context, or from ``state`` (B, K-1, di), the trailing context of
+    an earlier call; then returns (y, the new trailing context)."""
     K = w.shape[0]
     S = x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = F.pad(x, (0, 0, K - 1, 0)) if state is None else \
+        torch.cat([state, x], dim=1)
     y = xp[:, 0:S] * w[0].to(x.dtype)
     for i in range(1, K):
         y = y + xp[:, i:i + S] * w[i].to(x.dtype)
-    return y
+    return y if state is None else (y, xp[:, -(K - 1):])
 
 
 def _doubling_scan(a: torch.Tensor, b: torch.Tensor,
@@ -128,12 +137,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _LinearScan.apply(a, b)
 
 
-def _scan_operands(p, cfg: SSMConfig, x: torch.Tensor):
-    """(xs, z, a_bar, bx, C): the gated branch, the recurrence's fp32
-    coefficients and inputs (B, S, di, ds) and the fp32 readout C."""
+def _scan_operands(p, cfg: SSMConfig, x: torch.Tensor, conv_state=None):
+    """(xs, z, a_bar, bx, C, new_conv): the gated branch, the recurrence's
+    fp32 coefficients and inputs (B, S, di, ds), the fp32 readout C, and
+    the conv's new trailing context (None without ``conv_state``)."""
     ds = cfg.d_state
     xs, z = layers.linear(p["in_proj"], x).chunk(2, dim=-1)
-    xs = F.silu(_conv1d(p["conv_w"], xs))
+    new_conv = None
+    if conv_state is None:
+        xs = _conv1d(p["conv_w"], xs)
+    else:
+        xs, new_conv = _conv1d(p["conv_w"], xs, conv_state)
+    xs = F.silu(xs)
     dbc = layers.linear(p["x_proj"], xs)
     dt, Bc, Cc = torch.split(dbc, [cfg.dtr, ds, ds], dim=-1)
     dt = F.softplus(layers.linear(p["dt_proj"], dt)
@@ -142,15 +157,36 @@ def _scan_operands(p, cfg: SSMConfig, x: torch.Tensor):
     dt32 = dt.float()
     a_bar = torch.exp(dt32[..., None] * A)                       # (B,S,di,ds)
     bx = (dt32 * xs.float())[..., None] * Bc.float()[..., None, :]
-    return xs, z, a_bar, bx, Cc.float()
+    return xs, z, a_bar, bx, Cc.float(), new_conv
 
 
-def ssm(p, cfg: SSMConfig, x: torch.Tensor) -> torch.Tensor:
-    """Training forward: x (B, S, d) -> (B, S, d)."""
-    xs, z, a_bar, bx, Cc = _scan_operands(p, cfg, x)
-    h = linear_scan(a_bar, bx)                                   # (B,S,di,ds)
+def ssm(p, cfg: SSMConfig, x: torch.Tensor, *,
+        state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """x (B, S, d) -> (B, S, d); with ``state`` = (conv, h) carried from
+    an earlier call, -> (y, (new conv, h at the last position)), the scan
+    seeded by h (``bx[:, 0] += a_bar[:, 0] · h``) and run outside
+    autograd."""
+    xs, z, a_bar, bx, Cc, new_conv = _scan_operands(
+        p, cfg, x, None if state is None else state[0])
+    if state is None:
+        h = linear_scan(a_bar, bx)                               # (B,S,di,ds)
+    else:
+        bx[:, 0] += a_bar[:, 0] * state[1]
+        h = _doubling_scan(a_bar, bx)
     del a_bar, bx
     y = torch.einsum("bsdn,bsn->bsd", h, Cc)
     y = y + xs.float() * p["d_skip"].float()
     y = y.to(x.dtype) * F.silu(z)
-    return layers.linear(p["out_proj"], y)
+    out = layers.linear(p["out_proj"], y)
+    return out if state is None else (out, (new_conv, h[:, -1]))
+
+
+def ssm_init_state(cfg: SSMConfig, batch: int, dtype=torch.float32, *,
+                   lead: tuple = (), device: DeviceLike = None):
+    """Zero (conv, h): (*lead, batch, d_conv-1, d_inner) in ``dtype`` and
+    (*lead, batch, d_inner, d_state) in fp32."""
+    device = resolve_device(device)
+    return (torch.zeros(lead + (batch, cfg.d_conv - 1, cfg.d_inner),
+                        dtype=dtype, device=device),
+            torch.zeros(lead + (batch, cfg.d_inner, cfg.d_state),
+                        dtype=torch.float32, device=device))

@@ -1,5 +1,6 @@
-"""Decoder-LM backbone (port of the training paths of
-``repro.models.transformer``): ``ArchConfig``, ``init`` and ``forward``.
+"""Decoder-LM backbone (port of ``repro.models.transformer``):
+``ArchConfig``, ``init``, ``forward`` and the serving entry points
+``init_cache``, ``prefill``, ``prefill_chunk`` and ``decode_step``.
 
   dense   — GQA/MHA attention + MLP (swiglu or squared-relu, optional biases)
   moe     — attention (MLA for deepseek) + MoE FFN with shared experts
@@ -20,8 +21,17 @@ Python loop over the layers, each stacked leaf cut into its L layers once
 per forward (``unbind``: its backward stacks the L gradients once, where
 indexing ``w[l]`` per layer would zero-fill a full-size gradient of every
 leaf L times); its ``jax.checkpoint`` is ``torch.utils.checkpoint``
-(non-reentrant).  The cache, prefill and decode entry points wait for
-ROADMAP item 10.
+(non-reentrant).
+
+The decode cache is a dict of stacked (L, B, ...) leaves, batch on axis 1:
+``k`` / ``v`` (L, B, S_max, KV, hd), or MLA's ``ckv`` (L, B, S_max, r) and
+``krope`` (L, B, S_max, 1, rd); hybrid adds the SSM's ``conv``
+(L, B, K-1, d_inner) and ``ssm_h`` (L, B, d_inner, d_state); xlstm holds
+``mlstm`` (C, n, m) and ``slstm`` (c, n, h, m) tuples of (n, B, ...)
+leaves.  The serving entry points run under ``torch.inference_mode``, loop
+over the layers once with a per-layer view of every leaf, write the cache
+in place and return it (the reference donates it).  The paged cache
+(``init_paged_cache``, ``block_tables``) is ROADMAP item 10b.
 """
 
 from __future__ import annotations
@@ -207,42 +217,65 @@ def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
 
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
-                 global_layer: bool = False):
+                 global_layer: bool = False, *, cache=None, ssm_state=None,
+                 pos=None):
     """Residual block; ``global_layer`` drops the sliding window (hymba's
-    ``global_layers``, the reference's per-layer window flag)."""
+    ``global_layers``, the reference's per-layer window flag).  With this
+    layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``,
+    returns (x, cache, new_ssm_state); x alone otherwise."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    kw = {} if cache is None else dict(cache=cache, pos=pos)
     if cfg.attn_kind == "mla":
         attn_out = layers.mla_attention(p["attn"], cfg.mla, h,
-                                        rope_cs=rope_cs)
+                                        rope_cs=rope_cs, **kw)
     else:
         acfg = cfg.attn_cfg()
         if global_layer:
             acfg = dataclasses.replace(acfg, sliding_window=None)
-        attn_out = layers.attention(p["attn"], acfg, h, rope_cs=rope_cs)
+        attn_out = layers.attention(p["attn"], acfg, h, rope_cs=rope_cs,
+                                    **kw)
+    if cache is not None:
+        attn_out, cache = attn_out
     if cfg.family == "hybrid":
-        ssm_out = ssm_lib.ssm(p["ssm"], cfg.ssm, h)
+        if cache is None:
+            ssm_out = ssm_lib.ssm(p["ssm"], cfg.ssm, h)
+        else:
+            ssm_out, ssm_state = ssm_lib.ssm(p["ssm"], cfg.ssm, h,
+                                             state=ssm_state)
         s = p["mix_scale"].float()
         attn_out = (s[0] * attn_out.float()
                     + s[1] * ssm_out.float()).to(x.dtype)
     x = x + attn_out
     h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
     if cfg.moe is not None:
-        return x + moe_lib.moe(p["moe"], cfg.moe, h)
-    return x + layers.mlp(p["mlp"], h, cfg.act)
+        x = x + moe_lib.moe(p["moe"], cfg.moe, h)
+    else:
+        x = x + layers.mlp(p["mlp"], h, cfg.act)
+    return x if cache is None else (x, cache, ssm_state)
 
 
-def _xlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str):
+def _xlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
+                 state=None):
+    """mLSTM or sLSTM block; with a carried ``state`` returns
+    (x, new_state), x alone otherwise."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     core = xlstm_lib.mlstm if kind == "mlstm" else xlstm_lib.slstm
-    x = x + core(p["core"], cfg.xlstm, h)
+    if state is None:
+        out = core(p["core"], cfg.xlstm, h)
+    else:
+        out, state = core(p["core"], cfg.xlstm, h, state=state)
+    x = x + out
     h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-    return x + layers.mlp(p["mlp"], h, "gelu")
+    x = x + layers.mlp(p["mlp"], h, "gelu")
+    return x if state is None else (x, state)
 
 
 def _rope_angles(hd: int, positions: torch.Tensor, theta: float):
+    """cos / sin (..., hd/2) of ``positions`` (S,) or per-row (B, S),
+    computed from the positions directly (no table)."""
     inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                         device=positions.device) / hd))
-    ang = positions.float()[:, None] * inv[None, :]
+    ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -278,13 +311,9 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     positions only (the reference cuts its full-sequence logits to them;
     norm and head act per position, so the port cuts before them)."""
     _check_decoder(cfg)
-    x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
-    n_prefix = 0
-    if cfg.frontend is not None:
-        emb = patches if patches is not None else frames
-        pe = frontend(params["frontend_proj"], emb.to(x.dtype))
-        x = torch.cat([pe, x], dim=1)
-        n_prefix = pe.shape[1]
+    x = _embed(cfg, params, tokens, patches if patches is not None
+               else frames)
+    n_prefix = x.shape[1] - tokens.shape[1]
     if cfg.family == "ssm":
         x = _xlstm_forward(cfg, params, x)
     else:
@@ -321,6 +350,191 @@ def _xlstm_forward(cfg: ArchConfig, params: Params,
         x = m_run(x, mb[s_i * seg:(s_i + 1) * seg])
         x = _xlstm_block(cfg, sb[s_i], x, "slstm")
     return m_run(x, mb[n_s * seg:])
+
+
+# ------------------------------------------------------------ serving paths
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device: DeviceLike = None):
+    """Zeroed decode cache (module docstring) of ``batch`` rows of
+    ``max_len`` positions on ``device`` (CUDA unless given; ``"meta"``
+    builds shapes only).  The xLSTM memories and the SSM states are fp32
+    whatever ``dtype``, as the reference's."""
+    _check_decoder(cfg)
+    device = resolve_device(device)
+    dtype = as_dtype(dtype)
+    L = cfg.n_layers
+    zeros = functools.partial(torch.zeros, device=device)
+    if cfg.family == "ssm":
+        n_s = L // cfg.xlstm.slstm_every
+        return {"mlstm": xlstm_lib.mlstm_init_state(cfg.xlstm, batch,
+                                                    lead=(L - n_s,),
+                                                    device=device),
+                "slstm": xlstm_lib.slstm_init_state(cfg.xlstm, batch,
+                                                    lead=(max(n_s, 1),),
+                                                    device=device)}
+    eff_len = max_len
+    if cfg.sliding_window is not None and not cfg.global_layers:
+        eff_len = min(max_len, cfg.sliding_window)
+    cache: Dict[str, Any] = {}
+    if cfg.attn_kind == "mla":
+        cache["ckv"] = zeros((L, batch, eff_len, cfg.mla.kv_lora_rank),
+                             dtype=dtype)
+        cache["krope"] = zeros((L, batch, eff_len, 1, cfg.mla.qk_rope_dim),
+                               dtype=dtype)
+    else:
+        kvshape = (L, batch, eff_len, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = zeros(kvshape, dtype=dtype)
+        cache["v"] = zeros(kvshape, dtype=dtype)
+    if cfg.family == "hybrid":
+        cache["conv"], cache["ssm_h"] = ssm_lib.ssm_init_state(
+            cfg.ssm, batch, lead=(L,), device=device)
+    return cache
+
+
+# cache leaves carrying a sequence axis: the ones a paged allocator would
+# store block-granular (ROADMAP item 10b); the recurrent leaves (conv /
+# ssm_h, the xLSTM memories) are O(1) per slot
+PAGED_CACHE_KEYS = ("k", "v", "ckv", "krope")
+
+
+def init_paged_cache(*args, **kwargs):
+    raise NotImplementedError(layers.PAGED)
+
+
+def _cache_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
+                pos, positions: torch.Tensor):
+    """The blocks over the decode cache, one layer at a time, each reading
+    and writing its own view of every leaf: shared by prefill (pos 0),
+    chunked prefill (a scalar offset) and decode (a scalar, or a (B,)
+    tensor of per-slot positions)."""
+    rope_cs = _rope_for(cfg, positions)
+    keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+    kv = [cache[k].unbind(0) for k in keys]
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        conv, ssm_h = cache["conv"].unbind(0), cache["ssm_h"].unbind(0)
+    for l, bp in enumerate(unbound_layers(params["blocks"])):
+        state = (conv[l], ssm_h[l]) if hybrid else None
+        x, _, state = _block_apply(
+            cfg, bp, x, rope_cs,
+            global_layer=hybrid and l in cfg.global_layers,
+            cache=(kv[0][l], kv[1][l]), ssm_state=state, pos=pos)
+        if hybrid:
+            conv[l].copy_(state[0])
+            ssm_h[l].copy_(state[1])
+    return x, cache
+
+
+def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+           prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in the compute dtype, after the projected frontend
+    ``prefix`` (patches or frames) where given."""
+    x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
+    if cfg.frontend is not None and prefix is not None:
+        pe = frontend(params["frontend_proj"], prefix.to(x.dtype))
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _last_logits(cfg: ArchConfig, params: Params,
+                 x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (B, vocab) of the last position."""
+    x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    head = params.get("lm_head", params["embed"])
+    return layers.unembed(head, x)[:, 0]
+
+
+@torch.inference_mode()
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            max_len: int, *, patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            cache_dtype=torch.bfloat16):
+    """Process the prompt: (last-token logits (B, vocab) fp32, a filled
+    cache of ``max_len`` positions).  VLM / audio-frontend archs prepend
+    the projected patch / frame embeddings; the cache then covers prefix +
+    prompt, and decode positions continue at ``frontend_len + S``."""
+    _check_decoder(cfg)
+    x = _embed(cfg, params, tokens, patches if patches is not None
+               else frames)
+    B, S = x.shape[:2]
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device)
+    if cfg.family == "ssm":
+        x, cache = _xlstm_serve(cfg, params, x, cache)
+    else:
+        x, cache = _cache_scan(cfg, params, x, cache, pos=0,
+                               positions=torch.arange(S, device=x.device))
+    return _last_logits(cfg, params, x), cache
+
+
+@torch.inference_mode()
+def prefill_chunk(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                  cache, pos, block_tables=None):
+    """Continue a prefill: write a prompt chunk at positions
+    [pos, pos + S) of an existing cache (chunked prefill of prompts too
+    long for one call).  Token-only: frontend archs prepend their prefix in
+    the first full prefill.  Returns (chunk-final logits, cache)."""
+    _check_decoder(cfg)
+    if block_tables is not None:
+        raise NotImplementedError(layers.PAGED)
+    if cfg.frontend is not None:
+        raise ValueError("chunked prefill is token-only")
+    x = _embed(cfg, params, tokens)
+    S = x.shape[1]
+    if cfg.family == "ssm":
+        x, cache = _xlstm_serve(cfg, params, x, cache)
+    else:
+        x, cache = _cache_scan(
+            cfg, params, x, cache, pos=pos,
+            positions=layers._query_positions(pos, S, x.device))
+    return _last_logits(cfg, params, x), cache
+
+
+@torch.inference_mode()
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
+                cache, pos, block_tables=None):
+    """One decode step: (B,) token ids + cache + pos -> (logits (B, vocab)
+    fp32, cache).  pos is a scalar (every row at the same depth) or a (B,)
+    tensor of per-row positions (slot-based continuous batching)."""
+    _check_decoder(cfg)
+    if block_tables is not None:
+        raise NotImplementedError(layers.PAGED)
+    x = _embed(cfg, params, token[:, None])
+    if cfg.family == "ssm":
+        x, cache = _xlstm_serve(cfg, params, x, cache)
+    else:
+        x, cache = _cache_scan(
+            cfg, params, x, cache, pos=pos,
+            positions=layers._query_positions(pos, 1, x.device))
+    return _last_logits(cfg, params, x), cache
+
+
+def _xlstm_serve(cfg: ArchConfig, params: Params, x: torch.Tensor, cache):
+    """xLSTM prefill and decode share the recurrent path (state in, state
+    out): the layer order of ``_xlstm_forward``, each block continuing
+    from its own view of the carried state, written back in place."""
+    every = cfg.xlstm.slstm_every
+    n_s = cfg.n_layers // every
+    mb = unbound_layers(params["mlstm_blocks"])
+    sb = unbound_layers(params["slstm_blocks"]) if n_s else []
+    m_state = [leaf.unbind(0) for leaf in cache["mlstm"]]
+    s_state = [leaf.unbind(0) for leaf in cache["slstm"]]
+
+    def run(x, bp, kind, views, i):
+        x, new = _xlstm_block(cfg, bp, x, kind,
+                              state=tuple(v[i] for v in views))
+        for v, n in zip(views, new):
+            v[i].copy_(n)
+        return x
+
+    seg = every - 1
+    for s_i in range(n_s):
+        for l in range(s_i * seg, (s_i + 1) * seg):
+            x = run(x, mb[l], "mlstm", m_state, l)
+        x = run(x, sb[s_i], "slstm", s_state, s_i)
+    for l in range(n_s * seg, len(mb)):
+        x = run(x, mb[l], "mlstm", m_state, l)
+    return x, cache
 
 
 def params_from_numpy(t, device: DeviceLike = None,

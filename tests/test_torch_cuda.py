@@ -249,3 +249,58 @@ def test_linear_scan_on_card_matches_float64_loop(cuda_device):
         want.append(prev)
     torch.testing.assert_close(h.double(), torch.stack(want, 1), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
+def test_served_equals_replay_at_served_shape_on_card(cuda_device, arch):
+    """The serving tier on the card, reduced width, bf16 cache: each
+    request's served logits equal its replay at the served shape (prefill
+    group size and row or the same chunks; decode at num_slots in its slot
+    row) bit for bit; the twin of the CPU test in
+    tests/test_torch_serve_parity.py and of chip_smoke's serve phase."""
+    import numpy as np
+    from test_torch_serve_parity import _workload, replay, serve_recorded
+
+    from repro_torch import configs
+    from repro_torch.models import model_fns
+    cfg = configs.get(arch, reduced=True)
+    params = model_fns(cfg).init(cfg, seed=0, device=cuda_device)
+    queue, scfg = _workload(cfg, cache_dtype=torch.bfloat16)
+    reqs = {r.rid: r for r in queue._pending}
+    metrics, shapes = serve_recorded(cfg, params, queue, scfg)
+    assert {s[0] for s in shapes.values()} == {"group", "chunk"}
+    for rid, rec in metrics.requests.items():
+        assert rec.generated == rec.requested
+        got = replay(cfg, params, scfg, reqs[rid], shapes[rid],
+                     rec.generated)
+        assert [int(np.argmax(a)) for a in got] == rec.tokens, rid
+        for i, (a, b) in enumerate(zip(got, rec.logits)):
+            assert np.array_equal(a, b), (rid, i, shapes[rid])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b",
+                                  "llava-next-mistral-7b"])
+def test_prefill_matches_forward_on_card(cuda_device, arch):
+    """A prefill over a bf16 cache, S = 1200 (> 1024: the chunked
+    attention), against the training forward's logits at the last
+    position: within 2e-2 of the largest (chip_smoke's SERVE_GATE)."""
+    from repro_torch import configs
+    from repro_torch.models import model_fns
+    from repro_torch.train import serve
+    cfg = configs.get(arch, reduced=True)
+    m = model_fns(cfg)
+    params = m.init(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 1200), generator=gen,
+                         device=cuda_device)
+    kw = {}
+    if cfg.frontend is not None:
+        kw["patches"] = torch.randn(2, cfg.frontend_len, cfg.frontend_dim,
+                                    generator=gen, device=cuda_device)
+    with torch.inference_mode():
+        got, cache = serve.prefill_fn(cfg, params, toks, 1280,
+                                      cache_dtype=torch.bfloat16, **kw)
+        want = m.forward(cfg, params, toks, **kw)[:, -1]
+    assert cache["k"].dtype == torch.bfloat16
+    err = float((got - want).abs().max())
+    assert err <= 2e-2 * float(want.abs().max()), err
