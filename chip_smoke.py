@@ -174,8 +174,31 @@ Phases, each printing one JSON line and asserting what it checks:
            patches a request); each served twice with logits recorded
            (bitwise equal), every request replayed at its served shape
            (bitwise; not DeepSeek-V3, whose rows share expert capacity),
-           prefill against the training forward; one model freed before
-           the next.
+           prefill against the training forward; then paged (blocks of
+           16, watermark 0): every request bitwise equal to the
+           contiguous run of the same schedule, and a drill preempting
+           every 2 decode steps that completes (xlstm's preempted requests
+           bitwise equal to the unpreempted run); seamless must refuse
+           the paged tier; one model freed before the next.
+  serve_paged
+           the paged tier (``repro_torch.serve.paged``) on the serve
+           phase's smollm-360m: (a) its queue contiguous and paged
+           (watermark 0, the long prompt streamed into its block table),
+           every logit bitwise equal, the same admissions and decode
+           steps, both decode-step medians (the gather's cost); (c) the
+           paged run with a preemption every 8 decode steps, every
+           preempted request replayed at the shapes it was served at
+           (each stint: first prefill, the resume's re-prefill) bitwise,
+           its distance from (a) up to the first differing greedy token
+           printed; (b) equal cache bytes, 2.68 GB of bf16 K / V: 8
+           contiguous slots of 8192 positions against 32 paged slots over
+           4096 blocks of 16, on 40 chat requests (prompts 256 / 512 /
+           1024, 32-64 new tokens) and 8 of 6144 tokens (chunks of 2048,
+           128 new): both complete, the same tokens, the paged tier with a
+           higher concurrent_mean and fewer decode steps; tokens/s, TTFT,
+           decode step, pool occupancy, preemptions and peak GB printed.
+           ``--trace serve_paged`` traces 5 decode steps of both (b)
+           tiers at full slots.
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
@@ -232,7 +255,7 @@ LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
           "pipeline", "resilience", "moe", "families", "serve",
-          "serve_families", "mesh")
+          "serve_families", "serve_paged", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -2893,6 +2916,20 @@ SERVE_FAMILY_RUNS = {
 }
 SERVE_FAMILY_QUEUE = dict(n=6, new_tokens=(4, 16), seed=0)
 SERVE_FAMILY_SLOTS = 3
+# The paged tier (``repro_torch.serve.paged``): blocks of 16 tokens; the
+# families' paged runs drill a preemption every 2 decode steps
+PAGED_BLOCK = 16
+SERVE_FAMILY_DRILL_EVERY = 2
+# serve_paged (c): the same-schedule run again, a preemption every 8 steps
+PAGED_DRILL_EVERY = 8
+# serve_paged (b), equal cache bytes: 8 contiguous slots of 8192 positions
+# against 32 paged slots over 4096 blocks of 16, 65,536 tokens of bf16 K / V
+# either way; 40 chat requests with one long request after every 5th
+PAGED_MAX_LEN, PAGED_CHUNK = 8192, 2048
+PAGED_CONTIGUOUS_SLOTS, PAGED_SLOTS, PAGED_POOL = 8, 32, 4096
+PAGED_CHAT = dict(n=40, prompt_lens=(256, 512, 1024), new_tokens=(32, 64),
+                  seed=0)
+PAGED_LONG, PAGED_LONG_NEW, PAGED_LONG_EVERY = 6144, 128, 5
 
 
 def serve_queue(cfg, n: int, prompt_lens, new_tokens, seed: int,
@@ -2919,33 +2956,55 @@ def serve_queue(cfg, n: int, prompt_lens, new_tokens, seed: int,
 
 def served_run(torch, cfg, params, scfg, queue) -> tuple:
     """One scheduler run from a cleared allocator peak, recording each
-    request's served shapes by wrapping the scheduler's prefill, chunk and
-    insert calls: (metrics, {rid: (kind, batch, row, slot)}, peak GB,
-    Gram-kernel launches during the run)."""
+    request's stints by wrapping the scheduler's prefill, chunk and insert
+    calls: (metrics, {rid: ((kind, batch, row, slot, start), ...)}, peak
+    GB, Gram-kernel launches during the run).  A stint is one admission:
+    its prefill ("group" at (batch, row), "chunk", or "restore" for a
+    recurrent-only resume), its slot, and the count of tokens generated
+    when it began (1 at the first admission; a paged resume starts
+    another stint)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serve import Scheduler
     sched = Scheduler(cfg, params, scfg)
-    shapes = {}
+    stints, pending = {}, {}
     group_fn, chunk_fn = sched._prefill_group, sched._prefill_chunked
+    paged_fn = sched._prefill_chunked_paged
     insert_fn = sched.slots.insert
+    prefilled_fn = getattr(sched.slots, "insert_prefilled", None)
 
     def prefill_group(group):
         for row, r in enumerate(group):
-            shapes[r.rid] = ["group", len(group), row]
+            pending[r.rid] = ("group", len(group), row)
         return group_fn(group)
 
     def prefill_chunked(req):
-        shapes[req.rid] = ["chunk", 1, 0]
+        pending[req.rid] = ("chunk", 1, 0)
         return chunk_fn(req)
 
-    def insert(req, row_cache, row, first_token, pos):
-        i = insert_fn(req, row_cache, row, first_token, pos)
-        shapes[req.rid].append(i)
+    def prefill_chunked_paged(req):
+        pending[req.rid] = ("chunk", 1, 0)
+        return paged_fn(req)
+
+    def record(req, i, resume):
+        kind = pending.pop(req.rid, ("restore", 1, 0))
+        start = 1 if resume is None else resume.generated
+        stints.setdefault(req.rid, []).append(kind + (i, start))
         return i
+
+    def insert(req, row_cache, row, first_token, pos, **kw):
+        return record(req, insert_fn(req, row_cache, row, first_token, pos,
+                                     **kw), kw.get("resume"))
+
+    def insert_prefilled(req, table, first_token, pos, **kw):
+        return record(req, prefilled_fn(req, table, first_token, pos, **kw),
+                      kw.get("resume"))
 
     sched._prefill_group = prefill_group
     sched._prefill_chunked = prefill_chunked
+    sched._prefill_chunked_paged = prefill_chunked_paged
     sched.slots.insert = insert
+    if prefilled_fn is not None:
+        sched.slots.insert_prefilled = insert_prefilled
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2955,63 +3014,82 @@ def served_run(torch, cfg, params, scfg, queue) -> tuple:
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del sched
-    return metrics, {k: tuple(v) for k, v in shapes.items()}, peak, launches
+    return metrics, {k: tuple(v) for k, v in stints.items()}, peak, launches
 
 
-def replay_served(torch, cfg, params, scfg, req, shape, tokens) -> list:
-    """The request alone at the shapes it was served at: its prefill group
-    size and row, the other rows zero (or batch 1 and the same chunks),
-    then decode at ``num_slots`` in its slot row, every other row idle;
-    fed the served ``tokens``.  Logits of each token, on the host."""
+def replay_served(torch, cfg, params, scfg, req, stints, tokens) -> list:
+    """The request alone at the shapes it was served at, through the
+    contiguous cache, fed the served ``tokens``: each stint's prefill of
+    the prompt plus the tokens fed before it, at its group size and row
+    with the other rows zero (or batch 1 and the same chunks), its row
+    written into slot ``slot`` of a ``num_slots`` decode cache (a resume
+    then restores the recurrent rows saved from the previous stint's
+    slot), decode in that row with every other row idle.  Logits of each
+    token, on the host."""
     import numpy as np
 
     from repro_torch.core import tree
     from repro_torch.models import model_fns
+    from repro_torch.models.transformer import PAGED_CACHE_KEYS
     from repro_torch.serve.scheduler import _frontend_key as serve_key
     from repro_torch.serve.scheduler import _prefix_len as serve_prefix
     from repro_torch.train import serve as serve_fns
-    kind, batch, row, slot = shape
     m, key = model_fns(cfg), serve_key(cfg)
     dev = torch.device("cuda")
+    out, prev = [], None
     with torch.inference_mode():
-        if kind == "chunk":
-            cache = m.init_cache(cfg, 1, scfg.max_len, scfg.cache_dtype,
-                                 device=dev)
-            for off in range(0, req.prompt_len, scfg.chunk_len):
-                logits, cache = serve_fns.prefill_chunk_fn(
-                    cfg, params, torch.from_numpy(
-                        req.tokens[None, off:off + scfg.chunk_len]).to(dev),
-                    cache, off)
-        else:
-            toks = np.zeros((batch, req.prompt_len), np.int32)
-            toks[row] = req.tokens
-            kw = {}
-            if key is not None:
-                fr = np.zeros((batch,) + req.frames.shape, np.float32)
-                fr[row] = req.frames
-                kw[key] = torch.from_numpy(fr).to(dev)
-            logits, cache = serve_fns.prefill_fn(
-                cfg, params, torch.from_numpy(toks).to(dev), scfg.max_len,
-                cache_dtype=scfg.cache_dtype, **kw)
-        out = [logits[row].cpu().numpy()]
         lens = (scfg.max_len, scfg.enc_len) if cfg.encdec else \
             (scfg.max_len,)
         dcache = m.init_cache(cfg, scfg.num_slots, *lens, scfg.cache_dtype,
                               device=dev)
-        rows = dict(tree.flatten(cache))
-        for path, leaf in tree.flatten(dcache):
-            leaf[:, slot] = rows[path][:, row]
-        del cache, rows
-        tok = np.zeros(scfg.num_slots, np.int32)
-        pos = np.zeros(scfg.num_slots, np.int32)
-        pos[slot] = req.prompt_len + serve_prefix(cfg)
-        for t in tokens[:-1]:
-            tok[slot] = t
-            logits, _ = serve_fns.decode_fn(
-                cfg, params, torch.from_numpy(tok).to(dev), dcache,
-                torch.from_numpy(pos).to(dev))
-            out.append(logits[slot].cpu().numpy())
-            pos[slot] += 1
+        leaves = dict(tree.flatten(dcache))
+        recurrent = [p for p in leaves
+                     if p.split("/")[0] not in PAGED_CACHE_KEYS]
+        for s, (kind, batch, row, slot, start) in enumerate(stints):
+            end = stints[s + 1][4] if s + 1 < len(stints) else len(tokens)
+            fed = np.concatenate([req.tokens,
+                                  np.asarray(tokens[:start - 1], np.int32)])
+            saved = None if prev is None else \
+                {p: leaves[p][:, prev].clone() for p in recurrent}
+            if kind == "chunk":
+                cache = m.init_cache(cfg, 1, scfg.max_len, scfg.cache_dtype,
+                                     device=dev)
+                for off in range(0, len(fed), scfg.chunk_len):
+                    logits, cache = serve_fns.prefill_chunk_fn(
+                        cfg, params, torch.from_numpy(
+                            fed[None, off:off + scfg.chunk_len]).to(dev),
+                        cache, off)
+            elif kind == "group":
+                toks = np.zeros((batch, len(fed)), np.int32)
+                toks[row] = fed
+                kw = {}
+                if key is not None:
+                    fr = np.zeros((batch,) + req.frames.shape, np.float32)
+                    fr[row] = req.frames
+                    kw[key] = torch.from_numpy(fr).to(dev)
+                logits, cache = serve_fns.prefill_fn(
+                    cfg, params, torch.from_numpy(toks).to(dev),
+                    scfg.max_len, cache_dtype=scfg.cache_dtype, **kw)
+            if kind != "restore":
+                rows = dict(tree.flatten(cache))
+                for path, leaf in leaves.items():
+                    leaf[:, slot] = rows[path][:, row]
+                del cache, rows
+            if s == 0:
+                out.append(logits[row].cpu().numpy())
+            for path, v in (saved or {}).items():
+                leaves[path][:, slot] = v
+            tok = np.zeros(scfg.num_slots, np.int32)
+            pos = np.zeros(scfg.num_slots, np.int32)
+            pos[slot] = len(fed) + serve_prefix(cfg)
+            for g in range(start, end):
+                tok[slot] = tokens[g - 1]
+                logits, _ = serve_fns.decode_fn(
+                    cfg, params, torch.from_numpy(tok).to(dev), dcache,
+                    torch.from_numpy(pos).to(dev))
+                out.append(logits[slot].cpu().numpy())
+                pos[slot] += 1
+            prev = slot
     return out
 
 
@@ -3040,10 +3118,12 @@ def solo_run(torch, cfg, params, scfg, req, tokens) -> list:
 
 
 def replay_check(torch, cfg, params, scfg, metrics, reqs, shapes,
-                 rids) -> dict:
+                 rids, solo: bool = True) -> dict:
     """Replay at served shape for ``rids``, asserted bitwise (logits and
     greedy tokens), and the batch-1 solo run's distance, printed: max
-    |Δ| / max|logit| and the tokens whose greedy choice differs."""
+    |Δ| / max|logit| and the tokens whose greedy choice differs.  With
+    ``solo=False`` the solo run is skipped (preempted requests: their
+    distance from the unpreempted run is ``first_divergence``'s)."""
     import numpy as np
     rows, worst, flips = [], 0.0, 0
     for rid in rids:
@@ -3057,15 +3137,23 @@ def replay_check(torch, cfg, params, scfg, metrics, reqs, shapes,
                         if not np.array_equal(a, b)), None)
             raise AssertionError(f"{cfg.name} rid {rid} {shapes[rid]}: "
                                  f"served logits != replay at token {bad}")
-        solo = solo_run(torch, cfg, params, scfg, req, rec.tokens)
+        if not solo:
+            rows.append({"rid": rid, "stints": [list(x) for x in
+                                                shapes[rid]],
+                         "tokens": len(got), "replay_bitwise": True})
+            continue
+        solo_out = solo_run(torch, cfg, params, scfg, req, rec.tokens)
         dist = max(float(np.abs(a - b).max() / np.abs(a).max())
-                   for a, b in zip(solo, rec.logits))
-        flip = sum(int(np.argmax(a)) != t for a, t in zip(solo, rec.tokens))
+                   for a, b in zip(solo_out, rec.logits))
+        flip = sum(int(np.argmax(a)) != t
+                   for a, t in zip(solo_out, rec.tokens))
         worst, flips = max(worst, dist), flips + flip
-        rows.append({"rid": rid, "shape": list(shapes[rid]),
+        rows.append({"rid": rid, "shape": list(shapes[rid][0][:4]),
                      "prompt_len": req.prompt_len, "tokens": len(got),
                      "replay_bitwise": True, "solo_max_rel": dist,
                      "solo_greedy_flips": flip})
+    if not solo:
+        return {"replays": rows}
     return {"replays": rows, "solo_max_rel": worst,
             "solo_greedy_flips": flips}
 
@@ -3144,6 +3232,18 @@ def trace_decode(torch, cfg, params, scfg, trace: str) -> dict:
     return {"file": str(out), "steps": trace_summary(prof, SERVE_TRACE_STEPS)}
 
 
+def serve_long_request(cfg):
+    """The serve phase's ``SERVE_LONG``-token prompt (rid after the
+    queue's), drawn from ``SERVE_QUEUE``'s seed + 1."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+    return Request(
+        rid=SERVE_QUEUE["n"], max_new_tokens=SERVE_LONG_NEW,
+        tokens=np.random.default_rng(SERVE_QUEUE["seed"] + 1).integers(
+            0, cfg.vocab, SERVE_LONG).astype(np.int32))
+
+
 def phase_serve(torch, smi: str, trace: str | None = None) -> None:
     """smollm-360m at full width through the contiguous serving tier
     (``SERVE_CONFIG``, bf16 cache): a warm-up run, then the timed run of
@@ -3154,22 +3254,17 @@ def phase_serve(torch, smi: str, trace: str | None = None) -> None:
     prefill against the training forward and chunked against one-shot
     prefill of the long prompt (``SERVE_GATE``); continuous against
     ``run_oneshot`` on ``SERVE_ONESHOT``; ``trace`` traces decode steps."""
-    import numpy as np
-
     from repro_torch import configs
     from repro_torch.models import transformer
-    from repro_torch.serve import Request, RequestQueue, ServeConfig, \
-        Scheduler, run_oneshot
+    from repro_torch.serve import RequestQueue, ServeConfig, Scheduler, \
+        run_oneshot
     from repro_torch.train import serve as serve_fns
 
     t_phase = time.perf_counter()
     cfg = configs.get(SERVE_ARCH)
     params = transformer.init(cfg, seed=0, device="cuda")
     scfg = ServeConfig(cache_dtype=torch.bfloat16, **SERVE_CONFIG)
-    long_req = Request(
-        rid=SERVE_QUEUE["n"], max_new_tokens=SERVE_LONG_NEW,
-        tokens=np.random.default_rng(SERVE_QUEUE["seed"] + 1).integers(
-            0, cfg.vocab, SERVE_LONG).astype(np.int32))
+    long_req = serve_long_request(cfg)
 
     def timed_queue():
         return serve_queue(cfg, **SERVE_QUEUE, extra=[long_req])
@@ -3187,7 +3282,7 @@ def phase_serve(torch, smi: str, trace: str | None = None) -> None:
     check_complete("serve", metrics)
     if any(launches.values()):
         raise AssertionError(f"serving launched Gram kernels: {launches}")
-    if shapes[long_req.rid][0] != "chunk":
+    if shapes[long_req.rid][0][0] != "chunk":
         raise AssertionError(f"the long prompt was not chunked: {shapes}")
     emit({"phase": "serve", "run": "continuous", **serve_summary(metrics),
           "prefill_calls": len(metrics.prefill_s), "peak_mem_gb": peak,
@@ -3202,7 +3297,7 @@ def phase_serve(torch, smi: str, trace: str | None = None) -> None:
                       for r in rec.requests) and rshapes == shapes
     by_kind = {}
     for rid, s in rshapes.items():
-        by_kind.setdefault((s[0], s[1]), rid)
+        by_kind.setdefault(s[0][:2], rid)
     rids = [long_req.rid] + [r for r in by_kind.values()
                              if r != long_req.rid]
     rids += [r for r in rshapes if r not in rids]
@@ -3273,14 +3368,113 @@ def serve_family_config(arch: str):
     return configs.get(arch, **{k: v[0] for k, v in cut.items()}), cut
 
 
+def same_logits(tag: str, got, want, rids=None) -> None:
+    """Each request's greedy tokens and logits in ``got`` bit for bit
+    those of ``want`` (every request, or ``rids``)."""
+    import numpy as np
+    for rid in (list(want.requests) if rids is None else rids):
+        a, b = got.requests[rid], want.requests[rid]
+        if a.tokens != b.tokens or len(a.logits) != len(b.logits):
+            raise AssertionError(f"{tag} rid {rid}: tokens differ")
+        bad = next((i for i, (x, y) in enumerate(zip(a.logits, b.logits))
+                    if not np.array_equal(x, y)), None)
+        if bad is not None:
+            raise AssertionError(f"{tag} rid {rid}: logits differ at token "
+                                 f"{bad}")
+
+
+def pool_summary(metrics) -> dict:
+    s = metrics.summary()
+    return {k: s.get(k) for k in ("pool_blocks", "pool_occupancy",
+                                  "frag_pct", "preemptions")}
+
+
+def check_paged(tag: str, metrics, pool_blocks: int | None) -> None:
+    """The run served from a pool of ``pool_blocks`` blocks and used it
+    (None: a pure-recurrent family, which pages nothing)."""
+    s = metrics.summary()
+    if pool_blocks is None:
+        if s.get("pool_blocks"):
+            raise AssertionError(f"{tag}: a recurrent cache was paged")
+        return
+    if s.get("pool_blocks") != pool_blocks or not s["pool_occupancy"] > 0:
+        raise AssertionError(f"{tag}: not served from the pool: "
+                             f"{pool_summary(metrics)}")
+
+
+def family_paged(torch, cfg, params, scfg, run, contiguous,
+                 stints) -> dict:
+    """A family's paged runs on the serve_families queue: blocks of
+    ``PAGED_BLOCK``, watermark 0, gated bitwise against the contiguous
+    run of the same schedule; then the ``SERVE_FAMILY_DRILL_EVERY`` drill,
+    gated on completion.  xLSTM's resume restores the exact state, so its
+    preempted requests are also gated bitwise against their unpreempted
+    run: the same admission (prefill group and row) decoded to the end in
+    its first slot (``replay_served`` of the first stint).  Enc-dec must
+    refuse the paged tier."""
+    import numpy as np
+
+    from repro_torch.serve import Scheduler
+
+    pscfg = dataclasses.replace(scfg, kv="paged", block_size=PAGED_BLOCK,
+                                watermark=0.0)
+    if cfg.encdec:
+        try:
+            Scheduler(cfg, params, pscfg)
+        except NotImplementedError as e:
+            return {"refused": str(e)}
+        raise AssertionError(f"{cfg.name}: enc-dec served kv='paged'")
+    blocks = None if cfg.family == "ssm" else \
+        SERVE_FAMILY_SLOTS * math.ceil(scfg.max_len / PAGED_BLOCK)
+
+    def queue():
+        return serve_queue(cfg, prompt_lens=run["prompt_lens"],
+                           **SERVE_FAMILY_QUEUE)
+    paged, pstints, peak, launches = served_run(torch, cfg, params, pscfg,
+                                                queue())
+    check_complete(f"{cfg.name} paged", paged)
+    if any(launches.values()):
+        raise AssertionError(f"serving launched Gram kernels: {launches}")
+    check_paged(f"{cfg.name} paged", paged, blocks)
+    if pstints != stints:
+        raise AssertionError(f"{cfg.name}: paged admissions differ")
+    same_logits(f"{cfg.name} paged vs contiguous", paged, contiguous)
+    dscfg = dataclasses.replace(pscfg, preempt_every=SERVE_FAMILY_DRILL_EVERY)
+    dq = queue()
+    reqs = {r.rid: r for r in dq._pending}
+    drill, dstints, _, _ = served_run(torch, cfg, params, dscfg, dq)
+    check_complete(f"{cfg.name} drill", drill)
+    preempted = [rid for rid, v in dstints.items() if len(v) > 1]
+    if not drill.preemptions >= 1 or not preempted:
+        raise AssertionError(f"{cfg.name}: the drill preempted nothing")
+    for rid in preempted if cfg.family == "ssm" else ():
+        rec = drill.requests[rid]
+        want = replay_served(torch, cfg, params, dscfg, reqs[rid],
+                             dstints[rid][:1], rec.tokens)
+        if [int(np.argmax(a)) for a in want] != rec.tokens or not all(
+                np.array_equal(a, b) for a, b in zip(want, rec.logits)):
+            raise AssertionError(f"{cfg.name} rid {rid}: preempted != "
+                                 "unpreempted run")
+    return {**serve_summary(paged), **pool_summary(paged),
+            "peak_mem_gb": peak, "block_size": PAGED_BLOCK,
+            "gram_launches": launches, "bitwise_vs_contiguous": True,
+            "drill": {"preempt_every": SERVE_FAMILY_DRILL_EVERY,
+                      "preemptions": drill.preemptions,
+                      "preempted": preempted, "complete": True,
+                      "bitwise_vs_unpreempted":
+                          True if cfg.family == "ssm" else None,
+                      "decode_steps": drill.decode_steps}}
+
+
 def phase_serve_families(torch, smi: str) -> None:
     """One model a family at its published widths (``SERVE_FAMILY_RUNS``),
     bf16 caches, ``SERVE_FAMILY_SLOTS`` slots, ``SERVE_FAMILY_QUEUE``: the
     same queue served twice with logits recorded (bitwise equal), every
     request replayed at its served shape (bitwise; DeepSeek-V3, whose rows
     share expert capacity, only the two runs), prefill against the
-    training forward; TTFT, decode step, tokens/s and peak GB printed.
-    Each model is freed before the next."""
+    training forward; TTFT, decode step, tokens/s and peak GB printed;
+    then ``family_paged``'s paged runs.  Each model is freed before the
+    next."""
     import numpy as np
 
     from repro_torch.models import model_fns
@@ -3339,11 +3533,197 @@ def phase_serve_families(torch, smi: str) -> None:
               "two_runs_bitwise": True, "replay": replays,
               "prefill_vs_forward": fwd, "gram_launches": launches,
               "seconds": time.perf_counter() - t_arch, "nvidia_smi": smi})
+        t_paged = time.perf_counter()
+        emit({"phase": "serve_families", "arch": cfg.name, "kv": "paged",
+              **family_paged(torch, cfg, params, scfg, run, m2, s2),
+              "seconds": time.perf_counter() - t_paged, "nvidia_smi": smi})
         del params, runs, m1, m2, reqs, queue
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "serve_families",
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+
+def equal_memory_queue(cfg):
+    """serve_paged (b)'s workload, all at t = 0: ``PAGED_CHAT``'s chat
+    requests with one ``PAGED_LONG``-token request (``PAGED_LONG_NEW`` new
+    tokens, drawn from the chat seed + 1) after every
+    ``PAGED_LONG_EVERY``-th, numbered in queue order."""
+    import numpy as np
+
+    from repro_torch.serve import Request, RequestQueue
+    chats = RequestQueue.synthetic(PAGED_CHAT["n"], cfg.vocab,
+                                   prompt_lens=PAGED_CHAT["prompt_lens"],
+                                   new_tokens=PAGED_CHAT["new_tokens"],
+                                   seed=PAGED_CHAT["seed"])._pending
+    rng = np.random.default_rng(PAGED_CHAT["seed"] + 1)
+    reqs = []
+    for i, r in enumerate(chats):
+        reqs.append(r)
+        if (i + 1) % PAGED_LONG_EVERY == 0:
+            reqs.append(Request(rid=0, max_new_tokens=PAGED_LONG_NEW,
+                                tokens=rng.integers(0, cfg.vocab, PAGED_LONG)
+                                .astype(np.int32)))
+    return RequestQueue([dataclasses.replace(r, rid=k, arrival=0.0)
+                         for k, r in enumerate(reqs)])
+
+
+def first_divergence(got, want, rids) -> dict:
+    """Each request of ``got`` against ``want`` up to its first differing
+    greedy token (that token's logits included: the inputs before it are
+    the same): max |Δ| / max|logit| and where the tokens part."""
+    import numpy as np
+    rows = []
+    for rid in rids:
+        a, b = got.requests[rid], want.requests[rid]
+        first = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                      if x != y), None)
+        n = len(a.logits) if first is None else first + 1
+        rel = max(float(np.abs(x - y).max() / np.abs(y).max())
+                  for x, y in zip(a.logits[:n], b.logits[:n]))
+        rows.append({"rid": rid, "max_rel": rel, "compared": n,
+                     "first_differing_token": first})
+    return {"per_request": rows,
+            "max_rel": max((r["max_rel"] for r in rows), default=0.0),
+            "requests_parting": sum(r["first_differing_token"] is not None
+                                    for r in rows)}
+
+
+def phase_serve_paged(torch, smi: str, trace: str | None = None) -> None:
+    """smollm-360m at full width through the paged tier
+    (``repro_torch.serve.paged``), bf16 K / V in blocks of ``PAGED_BLOCK``:
+    (a) the serve phase's queue (24 requests + the 2048-token prompt,
+    which streams 1536 + 512 straight into its block table) contiguous and
+    paged at watermark 0, logits recorded: the same admissions and decode
+    steps and every logit bit for bit, both decode-step medians printed
+    (the gather's cost); (c) the paged run again with a preemption every
+    ``PAGED_DRILL_EVERY`` decode steps: complete, every preempted request
+    equal to its replay at the shapes it was served at (its stints), bit
+    for bit, and its distance from (a) up to the first differing greedy
+    token printed; (b) equal cache bytes: 8 contiguous slots of 8192
+    positions against 32 paged slots over 4096 blocks (2.68 GB of bf16
+    K / V each) on ``equal_memory_queue``: both complete with nothing
+    rejected and the same tokens, the paged tier with a higher
+    ``concurrent_mean`` and fewer decode steps; tokens/s, TTFT, decode
+    step, pool occupancy, preemptions and peak GB printed.  ``trace``
+    (a directory) traces decode steps of both equal-memory tiers."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(SERVE_ARCH)
+    params = transformer.init(cfg, seed=0, device="cuda")
+    long_req = serve_long_request(cfg)
+    cscfg = ServeConfig(cache_dtype=torch.bfloat16, record_logits=True,
+                        **SERVE_CONFIG)
+    pscfg = dataclasses.replace(cscfg, kv="paged", block_size=PAGED_BLOCK,
+                                watermark=0.0)
+    blocks = SERVE_CONFIG["num_slots"] * SERVE_CONFIG["max_len"] // PAGED_BLOCK
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2   # a token
+    emit({"phase": "serve_paged", "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_dtype": cfg.param_dtype, "cache_dtype": "bfloat16",
+        "kv_bytes_per_token": kv_bytes, "block_size": PAGED_BLOCK,
+        "same_schedule": {**SERVE_CONFIG, "pool_blocks": blocks,
+                          "watermark": 0.0, "queue": SERVE_QUEUE,
+                          "long_prompt": SERVE_LONG},
+        "drill_every": PAGED_DRILL_EVERY,
+        "equal_memory": {
+            "max_len": PAGED_MAX_LEN, "chunk_len": PAGED_CHUNK,
+            "contiguous_slots": PAGED_CONTIGUOUS_SLOTS,
+            "paged_slots": PAGED_SLOTS, "pool_blocks": PAGED_POOL,
+            "chat": PAGED_CHAT, "long": [PAGED_LONG, PAGED_LONG_NEW,
+                                         PAGED_LONG_EVERY],
+            "cache_gb": PAGED_POOL * PAGED_BLOCK * kv_bytes / 1e9},
+        "seed": 0}, "nvidia_smi": smi})
+
+    def queue():
+        return serve_queue(cfg, **SERVE_QUEUE, extra=[long_req])
+    served_run(torch, cfg, params, pscfg, serve_queue(cfg, **SERVE_WARMUP))
+    cont, cstints, cpeak, _ = served_run(torch, cfg, params, cscfg, queue())
+    paged, pstints, ppeak, launches = served_run(torch, cfg, params, pscfg,
+                                                 queue())
+    check_complete("serve_paged contiguous", cont)
+    check_complete("serve_paged paged", paged)
+    check_paged("serve_paged paged", paged, blocks)
+    if any(launches.values()):
+        raise AssertionError(f"serving launched Gram kernels: {launches}")
+    if pstints != cstints or pstints[long_req.rid][0][0] != "chunk":
+        raise AssertionError("paged admissions differ from contiguous")
+    if paged.active_per_step != cont.active_per_step:
+        raise AssertionError("paged decode steps differ from contiguous")
+    same_logits("serve_paged paged vs contiguous", paged, cont)
+    cs, ps = serve_summary(cont), serve_summary(paged)
+    emit({"phase": "serve_paged", "check": "same_schedule",
+          "logits_bitwise": True, "contiguous": {**cs, "peak_mem_gb": cpeak},
+          "paged": {**ps, **pool_summary(paged), "peak_mem_gb": ppeak},
+          "decode_step_us_median": [cs["decode_step_us_median"],
+                                    ps["decode_step_us_median"]],
+          "decode_step_paged_over_contiguous":
+              ps["decode_step_us_median"] / cs["decode_step_us_median"],
+          "nvidia_smi": smi})
+
+    dscfg = dataclasses.replace(pscfg, preempt_every=PAGED_DRILL_EVERY)
+    dq = queue()
+    reqs = {r.rid: r for r in dq._pending}
+    drill, dstints, _, _ = served_run(torch, cfg, params, dscfg, dq)
+    check_complete("serve_paged drill", drill)
+    preempted = [rid for rid, v in dstints.items() if len(v) > 1]
+    if not drill.preemptions >= 1 or not preempted:
+        raise AssertionError("the drill preempted nothing")
+    emit({"phase": "serve_paged", "check": "drill",
+          **serve_summary(drill), **pool_summary(drill),
+          "preempted": preempted,
+          **replay_check(torch, cfg, params, dscfg, drill, reqs, dstints,
+                         preempted, solo=False),
+          "vs_unpreempted": first_divergence(drill, paged, preempted),
+          "nvidia_smi": smi})
+    del cont, paged, drill, reqs, dq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ecfg = ServeConfig(num_slots=PAGED_CONTIGUOUS_SLOTS,
+                       max_len=PAGED_MAX_LEN, prefill_pack=4,
+                       chunk_len=PAGED_CHUNK, cache_dtype=torch.bfloat16)
+    epcfg = dataclasses.replace(ecfg, num_slots=PAGED_SLOTS, kv="paged",
+                                block_size=PAGED_BLOCK, pool_blocks=PAGED_POOL)
+    ec, _, ecpeak, _ = served_run(torch, cfg, params, ecfg,
+                                  equal_memory_queue(cfg))
+    ep, _, eppeak, _ = served_run(torch, cfg, params, epcfg,
+                                  equal_memory_queue(cfg))
+    check_complete("serve_paged equal-memory contiguous", ec)
+    check_complete("serve_paged equal-memory paged", ep)
+    check_paged("serve_paged equal-memory paged", ep, PAGED_POOL)
+    ecs, eps = ec.summary(), ep.summary()
+    if eps["tokens"] != ecs["tokens"] or \
+            not eps["concurrent_mean"] > ecs["concurrent_mean"] or \
+            not eps["decode_steps"] < ecs["decode_steps"]:
+        raise AssertionError(
+            f"equal memory: paged concurrent_mean {eps['concurrent_mean']} "
+            f"/ {eps['decode_steps']} steps / {eps['tokens']} tokens "
+            f"against contiguous {ecs['concurrent_mean']} / "
+            f"{ecs['decode_steps']} / {ecs['tokens']}")
+    emit({"phase": "serve_paged", "check": "equal_memory",
+          "contiguous": {**serve_summary(ec), **pool_summary(ec),
+                         "peak_mem_gb": ecpeak,
+                         "cache_gb": PAGED_CONTIGUOUS_SLOTS * PAGED_MAX_LEN
+                         * kv_bytes / 1e9},
+          "paged": {**serve_summary(ep), **pool_summary(ep),
+                    "peak_mem_gb": eppeak,
+                    "cache_gb": PAGED_POOL * PAGED_BLOCK * kv_bytes / 1e9},
+          "nvidia_smi": smi})
+    if trace:
+        emit({"phase": "serve_paged", "trace": {
+            tier: trace_decode(torch, cfg, params, tcfg, str(
+                Path(trace) / f"trace_serve_{tier}.json.gz"))
+            for tier, tcfg in (("contiguous", ecfg), ("paged", epcfg))},
+            "nvidia_smi": smi})
+    del params, ec, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_paged", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
 
 
 def main() -> int:
@@ -3355,7 +3735,8 @@ def main() -> int:
                          + ",".join(r[0] for r in MESH_RUNS) + "; rank 0), "
                          "families-phase archs (of "
                          + ",".join(FAMILY_RUNS) + "; their Muon run) and "
-                         "'serve' (decode steps of the serve phase) to "
+                         "'serve' / 'serve_paged' (decode steps of the "
+                         "serve phase / of both equal-memory tiers) to "
                          "trace with torch.profiler")
     ap.add_argument("--trace-dir", default=str(ROOT / "build" / "traces"),
                     help="where --trace writes its .json.gz files")
@@ -3442,12 +3823,19 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_serve_families(torch, smi[0])
+    if "serve_paged" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_paged(torch, smi[0], args.trace_dir
+                          if "serve_paged" in args.trace.split(",")
+                          else None)
     if "mesh" in phases:
         world = torch.cuda.device_count()
         phase_mesh(torch, train_losses, {
             t: str(Path(args.trace_dir) / f"trace_{t}_mesh{world}.json.gz")
             for t in args.trace.split(",")
-            if t and t not in FAMILY_RUNS and t != "serve"})
+            if t and t not in FAMILY_RUNS
+            and t not in ("serve", "serve_paged")})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

@@ -4,15 +4,18 @@ batching (twin of ``examples/serve_decode.py``).
     PYTHONPATH=src python examples/torch_serve_decode.py --device cpu
     PYTHONPATH=src python examples/torch_serve_decode.py --arch xlstm-350m \
         --mode continuous --requests 12 --rate 50 --device cpu
+    PYTHONPATH=src python examples/torch_serve_decode.py --mode continuous \
+        --kv paged --device cpu
 
 ``--mode oneshot`` (default) prefills a batch of prompts together and
 decodes in lockstep.  ``--mode continuous`` drives the same reduced model
 through the serving tier (``repro_torch.serve``): a synthetic workload
 flows through the slot scheduler — insert on free, evict on budget,
 recycle cache rows — and the summary reports TTFT / throughput / slot
-occupancy.  Runs on CUDA unless ``--device cpu``; parameters are random
-from ``--seed``.  The paged cache layout (``--kv paged``) is ROADMAP item
-10b.
+occupancy.  ``--kv paged`` serves from the paged block pool
+(``repro_torch.serve.paged``) and also reports pool occupancy and
+preemptions.  Runs on CUDA unless ``--device cpu``; parameters are random
+from ``--seed``.
 """
 
 import argparse
@@ -40,6 +43,15 @@ def main():
                     help="continuous: synthetic workload size")
     ap.add_argument("--rate", type=float, default=None,
                     help="continuous: arrivals/sec (default: all at t=0)")
+    ap.add_argument("--kv", default="contiguous",
+                    choices=["contiguous", "paged"],
+                    help="continuous: cache layout, contiguous per-slot "
+                         "rows or the paged block pool")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged: tokens per cache block")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="paged: pool size in blocks (default: the "
+                         "contiguous reservation's bytes)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -91,10 +103,12 @@ def main():
     if cfg.frontend == "patch":
         attach_patches(queue._pending)
     scfg = ServeConfig(num_slots=args.batch, max_len=max_len,
-                       enc_len=S if cfg.encdec else None)
+                       enc_len=S if cfg.encdec else None, kv=args.kv,
+                       block_size=args.block_size,
+                       pool_blocks=args.pool_blocks)
     metrics = Scheduler(cfg, params, scfg).run(queue)
     s = metrics.summary()
-    print(f"continuous[{device.type}]: slots={args.batch} "
+    print(f"continuous[{device.type}]: slots={args.batch} kv={args.kv} "
           f"requests={s['requests']} (rate={args.rate or 'all-at-once'})")
     print(f"  tokens            {s['tokens']}  in {s['wall_s']:.2f}s")
     print(f"  tokens/sec        {s['tokens_per_sec']:.1f}")
@@ -103,6 +117,10 @@ def main():
     print(f"  per-token ms      {s['per_token_ms_median']:.1f} median")
     print(f"  decode steps      {s['decode_steps']}  "
           f"(occupancy {s['slot_occupancy']:.2f})")
+    if args.kv == "paged" and s.get("pool_blocks"):
+        print(f"  pool              {s['pool_blocks']} blocks "
+              f"(occupancy {s['pool_occupancy']:.2f}, frag "
+              f"{s['frag_pct']:.1f}%, preemptions {s['preemptions']})")
     rec = next(iter(metrics.requests.values()))
     print("sample token ids:", rec.tokens[:16])
 

@@ -196,9 +196,11 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor, cache,
                 pos, block_tables=None):
     """pos: a scalar shared position, or a (B,) tensor of per-slot
     positions (continuous batching: the self-attention rows advance
-    independently)."""
+    independently).  The paged cache covers decoder-only families."""
     if block_tables is not None:
-        raise NotImplementedError(layers.PAGED)
+        raise NotImplementedError(
+            "paged slots cover decoder-only families; enc-dec keeps the "
+            "contiguous SlotManager")
     x = _embed(cfg, params, token[:, None])
     x, cache = _dec_scan(cfg, params, x, cache, pos=pos,
                          positions=layers._query_positions(pos, 1, x.device))

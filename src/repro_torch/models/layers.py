@@ -8,10 +8,10 @@ Conventions kept from the reference so both packages compute the same thing:
   * rotary embeddings split the head dim into halves (no interleave);
   * attention is plain einsum + softmax with a -1e30 mask, in fp32;
   * attention caches are preallocated (B, S_max, KV, hd) rows written at
-    the decode position.  The reference donates them to its jitted
-    functions; the port writes them in place and returns them as well.
-
-The paged cache layout (``block_table``) is ROADMAP item 10b.
+    the decode position, or (P, bs, KV, hd) block pools read through
+    per-row block tables (``block_table``, the paged cache).  The
+    reference donates them to its jitted functions; the port writes them
+    in place and returns them as well.
 """
 
 from __future__ import annotations
@@ -144,8 +144,14 @@ def _pick_chunk(n: int, target: int) -> int:
     return best
 
 
-PAGED = ("the paged KV cache (block tables, init_paged_cache, "
-         "preemption) is ROADMAP item 10b")
+def _block_len(n: int, target: int) -> int:
+    """Block length for n rows: the reference's largest divisor of n up to
+    ``target``, or ``target`` with a shorter last block where that divisor
+    is below half of it (a prime n, such as a resumed request's prompt
+    plus its generated tokens, would otherwise loop over n blocks of one
+    row each)."""
+    c = _pick_chunk(n, target)
+    return c if 2 * c >= min(n, target) else target
 
 
 def _block_mask(qpos, kpos, *, causal, window):
@@ -200,13 +206,14 @@ def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
     B, S, G, R, hd = qg.shape
     T = k.shape[1]
     hv = v.shape[-1]
-    qc, kc = _pick_chunk(S, _Q_CHUNK), _pick_chunk(T, _KV_CHUNK)
+    qc, kc = _block_len(S, _Q_CHUNK), _block_len(T, _KV_CHUNK)
     outs = []
     for q0 in range(0, S, qc):
         q_i = qg[:, q0:q0 + qc].float()
-        m = q_i.new_full((B, qc, G, R), -1e30)
-        l = q_i.new_zeros((B, qc, G, R))
-        acc = q_i.new_zeros((B, qc, G, R, hv))
+        n = q_i.shape[1]
+        m = q_i.new_full((B, n, G, R), -1e30)
+        l = q_i.new_zeros((B, n, G, R))
+        acc = q_i.new_zeros((B, n, G, R, hv))
         for k0 in range(0, T, kc):
             logits = torch.einsum("bqgrh,bkgh->bqgrk", q_i,
                                   k[:, k0:k0 + kc].float()) * scale
@@ -261,6 +268,46 @@ def _cache_write(leaf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     return leaf
 
 
+def _paged_write(leaf: torch.Tensor, new: torch.Tensor, block_table,
+                 pos, block_size: int) -> torch.Tensor:
+    """Scatter new rows into a paged pool leaf, in place, in its dtype
+    (``repro.models.layers._paged_write``, layers.py:162).
+
+    leaf: (P, bs, ...) physical block pool; new: (B, S, ...) freshly
+    projected rows; block_table: (B, W) integer.  A (B,) ``pos`` (decode,
+    S == 1): row b writes at block ``block_table[b, pos[b] // bs]``,
+    offset ``pos[b] % bs``.  A scalar ``pos`` (chunked prefill, B == 1):
+    the S rows write at logical positions pos + arange(S) through row 0's
+    table.  Live tables are injective (``serve.paged.BlockPool``), so live
+    rows never share a target.  Free slots idle on the null block 0 with
+    all-null tables at pos 0, so their writes share (0, 0): on CUDA those
+    duplicate indices land in any order, which is harmless only because no
+    live table maps block 0 and nothing reads it unmasked."""
+    new = new.to(leaf.dtype)
+    if _is_vector(pos):
+        if new.shape[1] != 1:
+            raise ValueError("vector pos is a single-token decode path")
+        pos = pos.to(leaf.device).long()
+        rows = torch.arange(pos.shape[0], device=leaf.device)
+        blocks = block_table[rows, pos // block_size]
+        leaf[blocks, pos % block_size] = new[:, 0]
+    else:
+        p = int(pos) + torch.arange(new.shape[1], device=leaf.device)
+        leaf[block_table[0, p // block_size], p % block_size] = new[0]
+    return leaf
+
+
+def _paged_read(leaf: torch.Tensor, block_table) -> torch.Tensor:
+    """A slot-contiguous (B, W·bs, ...) view gathered from the (P, bs, ...)
+    pool (``repro.models.layers._paged_read``, layers.py:182): logical
+    block j of row b is ``leaf[block_table[b, j]]``.  Entries past a
+    slot's allocated length point at the null block; the causal mask
+    (kpos <= qpos) keeps them out of every softmax."""
+    B, W = block_table.shape
+    return leaf[block_table].reshape((B, W * leaf.shape[1])
+                                     + leaf.shape[2:])
+
+
 def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
               xk: Optional[torch.Tensor] = None,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -278,11 +325,15 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
     are written into the cache first (in place, in its dtype) and attention
     then reads the whole cache back, masked by position.  static_cache:
     attend over the cache as it is (the decoder's precomputed cross K / V).
+    block_table: (B, W) integer map of each row's logical cache blocks to
+    physical pool blocks; the cache is then (P, bs, KV, hd) pools shared
+    by every row, written through ``_paged_write`` and read back as a
+    gathered (B, W·bs, KV, hd) view (self attention only).
 
     Returns the output (B, S, d), or (output, cache) when a cache is given.
     """
-    if block_table is not None:
-        raise NotImplementedError(PAGED)
+    if block_table is not None and (cache is None or xk is not None):
+        raise ValueError("the paged cache is a self-attention cache path")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -300,7 +351,13 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
         cos_q, sin_q, cos_k, sin_k = rope_cs
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_k, sin_k)
-    if cache is not None and xk is None:
+    if block_table is not None:
+        bs = cache[0].shape[1]
+        k = _paged_read(_paged_write(cache[0], k, block_table, pos, bs),
+                        block_table)
+        v = _paged_read(_paged_write(cache[1], v, block_table, pos, bs),
+                        block_table)
+    elif cache is not None and xk is None:
         k = _cache_write(cache[0], k, pos)
         v = _cache_write(cache[1], v, pos)
     if xk is not None or not cfg.causal:
@@ -355,10 +412,12 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
     qk dim (``_sdpa`` reads it off v).  The cache holds (c_kv, k_rope):
     the latent (B, S_max, kv_lora) and the shared rope key
     (B, S_max, 1, rope_dim), written at ``pos`` as ``attention``'s; k and v
-    are then expanded from the whole cache, in its dtype.  Returns the
-    output, or (output, cache) when a cache is given."""
-    if block_table is not None:
-        raise NotImplementedError(PAGED)
+    are then expanded from the whole cache, in its dtype.  With
+    ``block_table`` both leaves are (P, bs, ...) pools read through the
+    per-row tables, as ``attention``'s.  Returns the output, or
+    (output, cache) when a cache is given."""
+    if block_table is not None and cache is None:
+        raise ValueError("block_table needs the paged cache")
     B, S, _ = x.shape
     H = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -375,7 +434,13 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
         cos_q, sin_q, cos_k, sin_k = rope_cs
         q_rope = apply_rope(q_rope, cos_q, sin_q)
         k_rope = apply_rope(k_rope, cos_k, sin_k)
-    if cache is not None:
+    if block_table is not None:
+        bs = cache[0].shape[1]
+        c_kv = _paged_read(_paged_write(cache[0], c_kv, block_table, pos,
+                                        bs), block_table)
+        k_rope = _paged_read(_paged_write(cache[1], k_rope, block_table, pos,
+                                          bs), block_table)
+    elif cache is not None:
         c_kv = _cache_write(cache[0], c_kv, pos)
         k_rope = _cache_write(cache[1], k_rope, pos)
 

@@ -28,10 +28,13 @@ The decode cache is a dict of stacked (L, B, ...) leaves, batch on axis 1:
 ``krope`` (L, B, S_max, 1, rd); hybrid adds the SSM's ``conv``
 (L, B, K-1, d_inner) and ``ssm_h`` (L, B, d_inner, d_state); xlstm holds
 ``mlstm`` (C, n, m) and ``slstm`` (c, n, h, m) tuples of (n, B, ...)
-leaves.  The serving entry points run under ``torch.inference_mode``, loop
-over the layers once with a per-layer view of every leaf, write the cache
-in place and return it (the reference donates it).  The paged cache
-(``init_paged_cache``, ``block_tables``) is ROADMAP item 10b.
+leaves.  The paged cache (``init_paged_cache``) keeps the attention
+leaves as (L, P, bs, ...) block pools shared by every slot and read
+through per-slot block tables (``block_tables=``); the recurrent leaves
+stay (L, B, ...).  The serving entry points run under
+``torch.inference_mode``, loop over the layers once with a per-layer view
+of every leaf, write the cache in place and return it (the reference
+donates it).
 """
 
 from __future__ import annotations
@@ -218,13 +221,15 @@ def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
                  global_layer: bool = False, *, cache=None, ssm_state=None,
-                 pos=None):
+                 pos=None, block_table=None):
     """Residual block; ``global_layer`` drops the sliding window (hymba's
     ``global_layers``, the reference's per-layer window flag).  With this
-    layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``,
-    returns (x, cache, new_ssm_state); x alone otherwise."""
+    layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``
+    (through ``block_table`` for a paged cache), returns
+    (x, cache, new_ssm_state); x alone otherwise."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-    kw = {} if cache is None else dict(cache=cache, pos=pos)
+    kw = {} if cache is None else dict(cache=cache, pos=pos,
+                                       block_table=block_table)
     if cfg.attn_kind == "mla":
         attn_out = layers.mla_attention(p["attn"], cfg.mla, h,
                                         rope_cs=rope_cs, **kw)
@@ -392,22 +397,61 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
-# cache leaves carrying a sequence axis: the ones a paged allocator would
-# store block-granular (ROADMAP item 10b); the recurrent leaves (conv /
-# ssm_h, the xLSTM memories) are O(1) per slot
+# cache leaves carrying a sequence axis: the ones the paged allocator
+# (serve/paged.py) stores block-granular; the recurrent leaves (conv /
+# ssm_h, the xLSTM memories) are O(1) per slot and stay batch-contiguous
 PAGED_CACHE_KEYS = ("k", "v", "ckv", "krope")
 
 
-def init_paged_cache(*args, **kwargs):
-    raise NotImplementedError(layers.PAGED)
+def init_paged_cache(cfg: ArchConfig, batch: int, num_blocks: int,
+                     block_size: int, dtype=torch.bfloat16,
+                     device: DeviceLike = None):
+    """Decode cache whose attention leaves are block pools
+    (``repro.models.transformer.init_paged_cache``, transformer.py:370):
+    (L, P, bs, ...) physical blocks shared by every slot through
+    per-request block tables (serve/paged.py), on ``device`` (CUDA unless
+    given).  Block 0 is the reserved null block: free slots' idle writes
+    land there and no live table maps it, so callers size ``num_blocks``
+    as ``pool_blocks + 1``.  Hybrid's ``conv`` / ``ssm_h`` keep
+    ``init_cache``'s (L, batch, ...) layout.  Pure-recurrent families
+    (ssm) have no sequence axis to page."""
+    _check_decoder(cfg)
+    if cfg.family == "ssm":
+        raise ValueError("ssm caches are O(1) recurrent state — nothing to "
+                         "page; use init_cache")
+    if cfg.sliding_window is not None and not cfg.global_layers:
+        # init_cache shrinks these to a rolling window buffer; paging a
+        # rolling buffer would remap blocks every window step
+        raise NotImplementedError(
+            "paged cache does not cover rolling sliding-window buffers")
+    device = resolve_device(device)
+    dtype = as_dtype(dtype)
+    L = cfg.n_layers
+    zeros = functools.partial(torch.zeros, device=device, dtype=dtype)
+    cache: Dict[str, Any] = {}
+    if cfg.attn_kind == "mla":
+        cache["ckv"] = zeros((L, num_blocks, block_size,
+                              cfg.mla.kv_lora_rank))
+        cache["krope"] = zeros((L, num_blocks, block_size, 1,
+                                cfg.mla.qk_rope_dim))
+    else:
+        kvshape = (L, num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = zeros(kvshape)
+        cache["v"] = zeros(kvshape)
+    if cfg.family == "hybrid":
+        cache["conv"], cache["ssm_h"] = ssm_lib.ssm_init_state(
+            cfg.ssm, batch, lead=(L,), device=device)
+    return cache
 
 
 def _cache_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
-                pos, positions: torch.Tensor):
+                pos, positions: torch.Tensor, block_tables=None):
     """The blocks over the decode cache, one layer at a time, each reading
     and writing its own view of every leaf: shared by prefill (pos 0),
     chunked prefill (a scalar offset) and decode (a scalar, or a (B,)
-    tensor of per-slot positions)."""
+    tensor of per-slot positions).  ``block_tables`` (B, W) reads and
+    writes the attention leaves as (L, P, bs, ...) pools, one table for
+    every layer."""
     rope_cs = _rope_for(cfg, positions)
     keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
     kv = [cache[k].unbind(0) for k in keys]
@@ -419,7 +463,8 @@ def _cache_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
         x, _, state = _block_apply(
             cfg, bp, x, rope_cs,
             global_layer=hybrid and l in cfg.global_layers,
-            cache=(kv[0][l], kv[1][l]), ssm_state=state, pos=pos)
+            cache=(kv[0][l], kv[1][l]), ssm_state=state, pos=pos,
+            block_table=block_tables)
         if hybrid:
             conv[l].copy_(state[0])
             ssm_h[l].copy_(state[1])
@@ -473,10 +518,11 @@ def prefill_chunk(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     """Continue a prefill: write a prompt chunk at positions
     [pos, pos + S) of an existing cache (chunked prefill of prompts too
     long for one call).  Token-only: frontend archs prepend their prefix in
-    the first full prefill.  Returns (chunk-final logits, cache)."""
+    the first full prefill.  ``block_tables`` (1, W): write the chunk
+    straight into a paged pool cache through the request's block table
+    (serve/paged.py's admission path).  Returns (chunk-final logits,
+    cache)."""
     _check_decoder(cfg)
-    if block_tables is not None:
-        raise NotImplementedError(layers.PAGED)
     if cfg.frontend is not None:
         raise ValueError("chunked prefill is token-only")
     x = _embed(cfg, params, tokens)
@@ -486,7 +532,8 @@ def prefill_chunk(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     else:
         x, cache = _cache_scan(
             cfg, params, x, cache, pos=pos,
-            positions=layers._query_positions(pos, S, x.device))
+            positions=layers._query_positions(pos, S, x.device),
+            block_tables=_tables(block_tables, x.device))
     return _last_logits(cfg, params, x), cache
 
 
@@ -495,18 +542,27 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                 cache, pos, block_tables=None):
     """One decode step: (B,) token ids + cache + pos -> (logits (B, vocab)
     fp32, cache).  pos is a scalar (every row at the same depth) or a (B,)
-    tensor of per-row positions (slot-based continuous batching)."""
+    tensor of per-row positions (slot-based continuous batching).
+    ``block_tables`` (B, W) reads and writes the attention cache through
+    per-slot block tables over a paged pool (serve/paged.py); recurrent
+    state is unaffected."""
     _check_decoder(cfg)
-    if block_tables is not None:
-        raise NotImplementedError(layers.PAGED)
     x = _embed(cfg, params, token[:, None])
     if cfg.family == "ssm":
         x, cache = _xlstm_serve(cfg, params, x, cache)
     else:
         x, cache = _cache_scan(
             cfg, params, x, cache, pos=pos,
-            positions=layers._query_positions(pos, 1, x.device))
+            positions=layers._query_positions(pos, 1, x.device),
+            block_tables=_tables(block_tables, x.device))
     return _last_logits(cfg, params, x), cache
+
+
+def _tables(block_tables, device):
+    """Block tables as int64 indices on ``device`` (None stays None)."""
+    if block_tables is None:
+        return None
+    return torch.as_tensor(block_tables, device=device).long()
 
 
 def _xlstm_serve(cfg: ArchConfig, params: Params, x: torch.Tensor, cache):

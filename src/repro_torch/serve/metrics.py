@@ -36,6 +36,7 @@ class RequestRecord:
     tokens: Optional[List[int]] = None
     logits: Optional[List[np.ndarray]] = None   # parity capture (tests)
     rejected: bool = False               # over-length, never admitted
+    preemptions: int = 0                 # paged pool preempt→resume cycles
 
     @property
     def ttft(self) -> float:
@@ -66,6 +67,7 @@ class ServeMetrics:
         # per-decode-step (reserved_tokens, used_tokens, pool_blocks,
         # used_blocks) samples from SlotManager.pool_stats()
         self.pool_samples: List[tuple] = []
+        self.preemptions = 0                     # fleet-level preempt count
 
     # -------------------------------------------------------------- events
 
@@ -97,6 +99,10 @@ class ServeMetrics:
         self.requests[req.rid] = RequestRecord(
             rid=req.rid, arrival=req.arrival, prompt_len=req.prompt_len,
             requested=req.max_new_tokens, t_done=now, rejected=True)
+
+    def on_preempt(self, rid: int, now: float) -> None:
+        self.requests[rid].preemptions += 1
+        self.preemptions += 1
 
     def on_decode_step(self, dt: float, n_active: int) -> None:
         self.decode_steps += 1
@@ -140,6 +146,7 @@ class ServeMetrics:
             "concurrent_peak": (int(max(self.active_per_step))
                                 if self.active_per_step else 0),
             "rejected": sum(1 for r in self.requests.values() if r.rejected),
+            "preemptions": self.preemptions,
         }
         if self.pool_samples:
             reserved = np.asarray([s[0] for s in self.pool_samples], float)

@@ -21,13 +21,21 @@ Everything runs under ``torch.inference_mode()``; the greedy
 ``argmax(...).cpu()`` is a step's one host sync, and ``decode_step_s``
 times the step up to it.
 
+``kv="paged"`` serves from the paged allocator (``serve/paged.py``): the
+attention cache is a pool of ``block_size``-token blocks read through
+per-slot block tables, admission holds back a ``watermark`` share of the
+pool, the youngest slot is preempted when the pool runs dry, and
+preempted requests resume first, in seniority order (``preempt_every``
+forces a preemption every N decode steps, a drill).  On the same schedule
+(``watermark=0``, the default pool, ``max_len`` a whole number of blocks)
+paged logits equal the contiguous tier's bit for bit: the gathered view
+has the contiguous cache's length, so the same kernels run on the same
+values.
+
 ``run_oneshot`` is the static-batch baseline: FIFO rounds of ``batch``
 requests prefilled together and decoded in lockstep until the slowest
-request in the round finishes.
-
-The paged allocator (``kv="paged"``, ``preempt_every``) is ROADMAP item
-10b; serving under a mesh (``mesh=``) needs the tensor-parallel forward,
-ROADMAP item 6.
+request in the round finishes.  Serving under a mesh (``mesh=``) needs
+the tensor-parallel forward, ROADMAP item 6.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike
-from repro_torch.models import layers, model_fns
+from repro_torch.models import model_fns
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.paged import PagedSlotManager, PreemptedSlot
 from repro_torch.serve.queue import Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
 from repro_torch.train import serve as serve_fns
@@ -61,10 +70,16 @@ class ServeConfig:
     cache_dtype: Any = torch.bfloat16
     enc_len: Optional[int] = None     # enc-dec: uniform encoder length
     record_logits: bool = False       # keep per-token logits (parity tests)
-    # the paged KV allocator (kv="paged") and its preemption drill are
-    # ROADMAP item 10b: anything but the defaults raises
-    kv: str = "contiguous"
-    preempt_every: Optional[int] = None
+    # ---- the paged KV allocator (serve/paged.py) ----
+    kv: str = "contiguous"            # "contiguous" | "paged"
+    block_size: int = 16              # tokens per cache block (paged)
+    pool_blocks: Optional[int] = None   # pool size; None = the contiguous
+                                        # reservation's bytes
+    watermark: float = 0.05           # free-block share held back from
+                                      # admission (preemption headroom)
+    preempt_every: Optional[int] = None   # drill: preempt the youngest
+                                          # slot every N decode steps
+                                          # (paged only)
 
 
 def _params_device(params) -> torch.device:
@@ -88,7 +103,8 @@ def _frontend_key(cfg) -> Optional[str]:
 
 
 class Scheduler:
-    """One model, one fixed decode batch, many requests.  The slot cache
+    """One model, one fixed decode batch, many requests
+    (``repro.serve.scheduler.Scheduler``, scheduler.py:71).  The slot cache
     lives on the parameters' device; an explicit ``device`` must name
     it."""
 
@@ -96,8 +112,10 @@ class Scheduler:
                  mesh=None, device: DeviceLike = None):
         if scfg.kv not in ("contiguous", "paged"):
             raise ValueError(f"kv must be contiguous|paged, got {scfg.kv!r}")
-        if scfg.kv == "paged" or scfg.preempt_every is not None:
-            raise NotImplementedError(layers.PAGED)
+        self.paged = scfg.kv == "paged"
+        if scfg.preempt_every is not None and not self.paged:
+            raise ValueError("preempt_every drills need kv='paged' "
+                             "(contiguous slots cannot resume)")
         if mesh is not None:
             raise NotImplementedError(MESH)
         self.device = _params_device(params)
@@ -108,10 +126,31 @@ class Scheduler:
         self.params = params
         self.scfg = scfg
         self.prefix = _prefix_len(cfg)
-        self.slots = SlotManager(cfg, scfg.num_slots, scfg.max_len,
-                                 cache_dtype=scfg.cache_dtype,
-                                 enc_len=scfg.enc_len, device=self.device)
+        if self.paged:
+            self.slots: SlotManager = PagedSlotManager(
+                cfg, scfg.num_slots, scfg.max_len,
+                block_size=scfg.block_size, pool_blocks=scfg.pool_blocks,
+                cache_dtype=scfg.cache_dtype, enc_len=scfg.enc_len,
+                device=self.device)
+        else:
+            self.slots = SlotManager(cfg, scfg.num_slots, scfg.max_len,
+                                     cache_dtype=scfg.cache_dtype,
+                                     enc_len=scfg.enc_len,
+                                     device=self.device)
+        # paged slots round max_len up to whole blocks; every staging cache
+        # takes the same length, so the gathered view matches it
         self.max_len = self.slots.max_len
+        # attention leaves pooled?  (pure-recurrent families keep the
+        # contiguous cache and gain only preempt / resume)
+        self._use_tables = self.paged and self.slots.paged
+        self._wm = (max(1, round(scfg.watermark * self.slots.pool.num_blocks))
+                    if self.paged and scfg.watermark > 0 else 0)
+        # hybrid recurrent leaves sit at the slot batch, so a batch-1
+        # chunked prefill cannot stream into the live cache: hybrids stage
+        # chunked prompts contiguously and scatter on insert
+        self._direct_chunk = self._use_tables and cfg.family != "hybrid"
+        self._resume: List[PreemptedSlot] = []   # preempted, awaiting blocks
+        self._steps = 0                          # decode steps (drill clock)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -143,9 +182,27 @@ class Scheduler:
                 cache, off)
         return logits, cache
 
+    def _prefill_chunked_paged(self, req: Request):
+        """Stream one long prompt straight into pool blocks through its
+        block table, with no contiguous staging cache (the paged
+        long-prompt admission path): (logits, table)."""
+        c = self.scfg.chunk_len
+        table = self.slots.new_table(req.prompt_len + 1)
+        bt = self._tensor(table.padded()[None])
+        toks = np.asarray(req.tokens)[None]
+        logits = None
+        for off in range(0, req.prompt_len, c):
+            logits, self.slots.cache = serve_fns.prefill_chunk_fn(
+                self.cfg, self.params, self._tensor(toks[:, off:off + c]),
+                self.slots.cache, off, block_tables=bt)
+        return logits, table
+
     def _admit(self, group: List[Request], metrics: ServeMetrics,
                t0: float, chunked: bool) -> None:
-        if chunked:
+        table = None
+        if chunked and self._direct_chunk:
+            logits, table = self._prefill_chunked_paged(group[0])
+        elif chunked:
             logits, rcache = self._prefill_chunked(group[0])
         else:
             logits, rcache = self._prefill_group(group)
@@ -156,7 +213,11 @@ class Scheduler:
         metrics.prefill_s.append(now)
         for row, r in enumerate(group):
             pos = r.prompt_len + self.prefix
-            i = self.slots.insert(r, rcache, row, int(first[row]), pos)
+            if table is not None:
+                i = self.slots.insert_prefilled(r, table, int(first[row]),
+                                                pos)
+            else:
+                i = self.slots.insert(r, rcache, row, int(first[row]), pos)
             metrics.on_admit(r, now, int(first[row]),
                              logits_np[row] if logits_np is not None
                              else None)
@@ -164,6 +225,53 @@ class Scheduler:
                     or (r.eos_id is not None and first[row] == r.eos_id)):
                 metrics.on_done(r.rid, now)
                 self.slots.evict(i)
+
+    # ----------------------------------------------------- preempt / resume
+
+    def _requeue(self, ps: PreemptedSlot, metrics: ServeMetrics,
+                 t0: float) -> None:
+        metrics.on_preempt(ps.request.rid, time.perf_counter() - t0)
+        self._resume.append(ps)
+        self._resume.sort(key=lambda p: p.seq)   # seniority order
+
+    def _admit_resumes(self, metrics: ServeMetrics, t0: float) -> None:
+        """Re-admit preempted requests, before any new admission: they
+        hold seniority and already consumed prefill work.  Attention
+        families rebuild their cache by re-prefilling prompt + generated
+        tokens (hybrids then restore their saved recurrent rows);
+        pure-recurrent families restore the exact saved state rows with
+        no recompute."""
+        while self._resume and self.slots.num_free > 0:
+            ps = self._resume[0]
+            r = ps.request
+            # tokens the model has consumed so far (the last sampled token
+            # has not been fed yet: it is the resumed slot's next input)
+            n_fed = r.prompt_len + ps.generated - 1
+            pos = n_fed + self.prefix
+            if self._use_tables:
+                need = self.slots.blocks_for(pos + 1)
+                head = 0 if self.slots.num_active == 0 else self._wm
+                if self.slots.pool.num_free < need + head:
+                    break                     # wait for blocks to free up
+            self._resume.pop(0)
+            last = int(ps.tokens[-1])
+            if not self.slots.paged:
+                self.slots.insert(r, None, 0, last, pos, resume=ps)
+                continue
+            toks = np.concatenate([np.asarray(r.tokens, np.int32),
+                                   np.asarray(ps.tokens[:-1], np.int32)])
+            req2 = dataclasses.replace(r, tokens=toks)
+            if (self.scfg.chunk_len is not None
+                    and len(toks) > self.scfg.chunk_len):
+                if self._direct_chunk:
+                    _, table = self._prefill_chunked_paged(req2)
+                    self.slots.insert_prefilled(r, table, last, pos,
+                                                resume=ps)
+                    continue
+                _, rcache = self._prefill_chunked(req2)
+            else:
+                _, rcache = self._prefill_group([req2])
+            self.slots.insert(r, rcache, 0, last, pos, resume=ps)
 
     # -------------------------------------------------------------- decode
 
@@ -173,14 +281,28 @@ class Scheduler:
             if slots.out_of_cache(i):
                 metrics.on_done(s.request.rid, time.perf_counter() - t0)
                 slots.evict(i)
+        if self.paged:
+            pe = self.scfg.preempt_every
+            if pe and self._steps and self._steps % pe == 0 \
+                    and slots.num_active >= 2:
+                # drill: force one preempt → requeue → resume cycle (the
+                # >= 2 guard keeps the fleet progressing between drills)
+                self._requeue(slots.preempt(slots._youngest()), metrics, t0)
+            # grow every table to cover its next write; preempt the
+            # youngest when the pool runs dry
+            for ps in slots.prepare_decode():
+                self._requeue(ps, metrics, t0)
         n_active = slots.num_active
         if n_active == 0:
             return
         t_start = time.perf_counter()
+        tables = (self._tensor(slots.block_tables()) if self._use_tables
+                  else None)
         logits, slots.cache = serve_fns.decode_fn(
             self.cfg, self.params, self._tensor(slots.tok), slots.cache,
-            self._tensor(slots.pos))
+            self._tensor(slots.pos), block_tables=tables)
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()  # host sync
+        self._steps += 1
         metrics.on_decode_step(time.perf_counter() - t_start, n_active)
         metrics.on_pool_sample(*slots.pool_stats())
         logits_np = (logits.cpu().numpy()
@@ -207,20 +329,35 @@ class Scheduler:
         while True:
             now = time.perf_counter() - t0
             queue.poll(now)
+            self._admit_resumes(metrics, t0)   # preempted hold seniority
             while self.slots.num_free > 0 and queue.num_ready > 0:
                 head = queue.peek()
-                if head.prompt_len + self.prefix >= self.max_len:
+                pos0 = head.prompt_len + self.prefix
+                if pos0 >= self.max_len:
                     # over-length: the prompt alone fills the cache.  Reject
                     # at admission instead of failing in insert()
                     r = queue.pop_group(1, self.scfg.chunk_len)[0]
                     metrics.on_reject(r, time.perf_counter() - t0)
                     continue
                 cap = min(self.slots.num_free, self.scfg.prefill_pack)
+                if self._use_tables:
+                    # watermark admission: admit only what the free pool
+                    # covers, holding back headroom for in-flight growth
+                    need = self.slots.blocks_for(pos0 + 1)
+                    afford = (self.slots.pool.num_free - self._wm) // need
+                    if afford < 1:
+                        if (self.slots.num_active == 0
+                                and not self._resume
+                                and self.slots.pool.num_free >= need):
+                            afford = 1     # progress guarantee
+                        else:
+                            break
+                    cap = min(cap, afford)
                 group = queue.pop_group(cap, self.scfg.chunk_len)
                 chunked = (self.scfg.chunk_len is not None
                            and group[0].prompt_len > self.scfg.chunk_len)
                 self._admit(group, metrics, t0, chunked)
-            if self.slots.num_active == 0:
+            if self.slots.num_active == 0 and not self._resume:
                 if queue.drained:
                     break
                 nxt = queue.next_arrival()

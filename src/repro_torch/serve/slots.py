@@ -38,7 +38,7 @@ class Slot:
     request: Request
     generated: int = 0          # tokens sampled so far (prefill's counts)
     tokens: Optional[List[int]] = None
-    seq: int = 0                # admission order
+    seq: int = 0                # admission order (preemption picks youngest)
 
     def __post_init__(self):
         if self.tokens is None:
@@ -81,6 +81,9 @@ class SlotManager:
         self._seq = 0            # monotonic admission counter (Slot.seq)
 
     def _alloc_cache(self, cache_dtype):
+        """Cache-layout hook: contiguous (L, B, S_max, ...) rows here;
+        ``paged.PagedSlotManager`` overrides it with the block-pool
+        layout."""
         m = model_fns(self.cfg)
         if self.cfg.encdec:
             if self.enc_len is None:
@@ -107,7 +110,9 @@ class SlotManager:
     def pool_stats(self) -> Tuple[int, int, int, int]:
         """(reserved_tokens, used_tokens, pool_blocks, used_blocks) for the
         occupancy / fragmentation metrics.  The contiguous tier reserves
-        every slot's full max_len row up front, occupied or not."""
+        every slot's full max_len row up front, occupied or not: the
+        worst-case reservation ``paged.PagedSlotManager``'s block-granular
+        accounting shrinks."""
         used = sum(int(self.pos[i]) for i, _ in self.active())
         return self.num_slots * self.max_len, used, 0, 0
 

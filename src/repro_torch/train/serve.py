@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers, model_fns
+from repro_torch.models import model_fns
 
 
 def prefill_fn(cfg, params, tokens, max_len: int, *,
@@ -31,22 +31,24 @@ def prefill_fn(cfg, params, tokens, max_len: int, *,
 
 def prefill_chunk_fn(cfg, params, tokens, cache, pos, block_tables=None):
     """Chunked-prefill continuation: write a prompt chunk at
-    [pos, pos + S) of an existing cache (decoder-only, token-only)."""
-    if block_tables is not None:
-        raise NotImplementedError(layers.PAGED)
+    [pos, pos + S) of an existing cache (decoder-only, token-only).
+    ``block_tables`` (1, W) writes the chunk straight into a paged pool
+    cache through the request's block table (serve/paged.py)."""
     if cfg.encdec:
         raise NotImplementedError(
             "chunked prefill covers decoder-only families; enc-dec prompts "
             "prefill in one shot")
-    return model_fns(cfg).prefill_chunk(cfg, params, tokens, cache, pos)
+    return model_fns(cfg).prefill_chunk(cfg, params, tokens, cache, pos,
+                                        block_tables=block_tables)
 
 
 def decode_fn(cfg, params, token, cache, pos, block_tables=None):
     """One decode step; ``pos`` is a scalar, or a (B,) tensor of per-slot
-    positions when driven by the continuous-batching scheduler."""
-    if block_tables is not None:
-        raise NotImplementedError(layers.PAGED)
-    return model_fns(cfg).decode_step(cfg, params, token, cache, pos)
+    positions when driven by the continuous-batching scheduler.  With
+    ``block_tables`` (B, W) the attention cache is the paged pool layout
+    (serve/paged.py) instead of contiguous per-slot rows."""
+    return model_fns(cfg).decode_step(cfg, params, token, cache, pos,
+                                      block_tables=block_tables)
 
 
 def make_cache_shapes(cfg, batch: int, max_len: int,

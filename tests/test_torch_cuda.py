@@ -304,3 +304,39 @@ def test_prefill_matches_forward_on_card(cuda_device, arch):
     assert cache["k"].dtype == torch.bfloat16
     err = float((got - want).abs().max())
     assert err <= 2e-2 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
+def test_paged_equals_contiguous_on_card(cuda_device, arch):
+    """The paged tier on the card, reduced width, bf16 cache: the same
+    queue through the contiguous and the paged tier (default pool,
+    watermark 0, chunks of 8 through the block table for smollm, staged
+    for hymba) gives the same admissions and every request's logits bit
+    for bit; the twin of tests/test_torch_serve_paged.py's CPU test and of
+    chip_smoke's serve_paged phase."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import model_fns
+    from repro_torch.serve import RequestQueue, Scheduler, ServeConfig
+    cfg = configs.get(arch, reduced=True)
+    params = model_fns(cfg).init(cfg, seed=0, device=cuda_device)
+    runs = {}
+    for kv in ("contiguous", "paged"):
+        scfg = ServeConfig(num_slots=3, max_len=32, prefill_pack=2,
+                           chunk_len=8, cache_dtype=torch.bfloat16,
+                           record_logits=True, kv=kv, block_size=8,
+                           watermark=0.0)
+        sched = Scheduler(cfg, params, scfg)
+        runs[kv] = sched.run(RequestQueue.synthetic(
+            7, cfg.vocab, prompt_lens=(4, 8, 12), new_tokens=(2, 6),
+            seed=3))
+    assert sched._use_tables and sched.slots.cache["k"].shape[1] == 13
+    cont, paged = runs["contiguous"], runs["paged"]
+    assert list(paged.requests) == list(cont.requests)
+    assert paged.active_per_step == cont.active_per_step
+    for rid, rec in paged.requests.items():
+        want = cont.requests[rid]
+        assert rec.generated == rec.requested and rec.tokens == want.tokens
+        for i, (a, b) in enumerate(zip(rec.logits, want.logits)):
+            assert np.array_equal(a, b), (rid, i)

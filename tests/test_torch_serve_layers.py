@@ -83,6 +83,44 @@ def test_bf16_attention_error_no_larger_than_reference(S):
     assert port_err <= 1.05 * ref_err, (port_err, ref_err, port_err / ref_err)
 
 
+@pytest.mark.parametrize("T", [1031, 1536])
+def test_chunked_attention_blocks_a_prime_length(T, monkeypatch):
+    """A prime query length past 1024 (a resumed request's prompt plus its
+    generated tokens) takes two query blocks (1024 rows and a shorter
+    last one), not 1031 blocks of one row, and so does a prime key length;
+    the output matches the dense softmax (1e-5) and the reference (1e-4).
+    The divisor-only blocking took 1031 query blocks of one row (4,124
+    einsums at T = 1536, 2,125,922 at T = 1031)."""
+    S = 1031
+    rng = _rng(9)
+    q = rng.standard_normal((1, S, 4, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((1, T, 2, 8)).astype(np.float32)
+            for _ in range(2))
+    qpos, kpos = np.arange(S) + (T - S), np.arange(T)
+    calls, einsum = [], torch.einsum
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return einsum(*a, **kw)
+    monkeypatch.setattr(torch, "einsum", counted)
+    got = tlayers._sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), scale=0.35,
+                        qpos=torch.from_numpy(qpos),
+                        kpos=torch.from_numpy(kpos), causal=True)
+    monkeypatch.undo()
+    assert len(calls) == 2 * 2 * 2      # q blocks × kv blocks × 2 einsums
+    dense = tlayers._dense_sdpa(
+        torch.from_numpy(q).reshape(1, S, 2, 2, 8), torch.from_numpy(k),
+        torch.from_numpy(v), 0.35, torch.from_numpy(qpos),
+        torch.from_numpy(kpos), True, None).reshape(1, S, 4, 8)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    want = jlayers._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         scale=0.35, qpos=jnp.asarray(qpos),
+                         kpos=jnp.asarray(kpos), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_block_mask_takes_per_row_positions():
     """A (B, qlen) qpos gives a (B, qlen, klen) mask, row b that of its own
     positions, windowed too."""
@@ -207,13 +245,56 @@ def test_mla_with_cache_matches_reference():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-def test_paged_arguments_raise_naming_item_10b():
-    kw = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8)
-    _, tcfg, _, tp = _attn_params(kw)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tlayers.attention(tp, tcfg, torch.zeros(1, 1, 32),
-                          cache=(torch.zeros(1, 4, 2, 8),) * 2, pos=0,
-                          block_table=torch.zeros(1, 1, dtype=torch.int32))
+@pytest.mark.parametrize("kind", ["gqa", "mla"])
+def test_paged_attention_matches_reference(kind):
+    """``attention`` / ``mla_attention`` over (P, bs, ...) pools through
+    block tables: a 5-token chunk through row 0's table (scalar pos), then
+    one token a row at per-row positions with the other tables (a free row
+    on the all-null table), outputs and pool leaves against the
+    reference's; a cross-attention call with a table raises."""
+    P, bs, W, B = 9, 4, 3, 3
+    tables = np.array([[3, 7, 1], [5, 0, 0], [0, 0, 0]], np.int32)
+    if kind == "gqa":
+        jcfg, tcfg, jp, tp = _attn_params(
+            dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8))
+        shapes, d, hd = [(P, bs, 2, 8)] * 2, 32, 8
+        jfn, tfn = jlayers.attention, tlayers.attention
+    else:
+        kw = dict(d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+                  qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+        jcfg, tcfg = jlayers.MLAConfig(**kw), tlayers.MLAConfig(**kw)
+        jp = jlayers.mla_init(jax.random.PRNGKey(5), jcfg)
+        tp = params_from_numpy(_np(jp), device="cpu")
+        shapes, d, hd = [(P, bs, 16), (P, bs, 1, 8)], 64, 8
+        jfn, tfn = jlayers.mla_attention, tlayers.mla_attention
+    rng = _rng(8)
+    init = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    jc = tuple(jnp.asarray(a) for a in init)
+    tc = tuple(torch.from_numpy(a.copy()) for a in init)
+    steps = [(0, 5, tables[:1]), (np.array([5, 2, 0], np.int32), 1, tables)]
+    for pos, S, bt in steps:
+        rows = bt.shape[0]
+        x = rng.standard_normal((rows, S, d)).astype(np.float32)
+        positions = (pos[:, None] + np.arange(S) if np.ndim(pos)
+                     else pos + np.arange(S))
+        jrope, trope = _rope(hd, positions)
+        tpos = torch.from_numpy(pos) if np.ndim(pos) else pos
+        jout, jc = jfn(jp, jcfg, jnp.asarray(x), cache=jc,
+                       pos=jnp.asarray(pos), rope_cs=jrope,
+                       block_table=jnp.asarray(bt))
+        tout, tc2 = tfn(tp, tcfg, torch.from_numpy(x), cache=tc, pos=tpos,
+                        rope_cs=trope,
+                        block_table=torch.from_numpy(bt).long())
+        assert all(a is b for a, b in zip(tc2, tc))      # written in place
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+        for a, b in zip(tc, jc):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    if kind == "gqa":
+        with pytest.raises(ValueError, match="self-attention"):
+            tlayers.attention(tp, tcfg, torch.zeros(1, 1, 32),
+                              xk=torch.zeros(1, 2, 32), cache=tc, pos=0,
+                              block_table=torch.zeros(1, 1,
+                                                      dtype=torch.long))
 
 
 # ------------------------------------------------------------- SSM state

@@ -3,8 +3,9 @@
 structure of a scheduler run against the reference's on the same
 synthetic queue (decode steps, tokens, each request's count and the
 admission order do not depend on the token values), the synthetic workload
-request for request, and the paths that are ROADMAP items 10b (paged) and
-6 (mesh) raising.  Slot parity is ``tests/test_torch_serve_parity.py``.
+request for request, and serving under a mesh (ROADMAP item 6) raising.
+Slot parity is ``tests/test_torch_serve_parity.py``; the paged tier is
+``tests/test_torch_serve_paged.py``.
 """
 
 import numpy as np
@@ -15,7 +16,6 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import transformer as ttransformer
 from repro_torch.serve import (Request, RequestQueue, Scheduler, ServeConfig,
                                SlotManager, run_oneshot)
-from repro_torch.train import serve as tserve
 
 F32 = torch.float32
 
@@ -239,24 +239,16 @@ def test_structure_equals_reference_scheduler():
 
 # ------------------------------------------------ what is not in the slice
 
-def test_paged_and_mesh_serving_raise_naming_their_items():
+def test_mesh_and_unknown_kv_serving_raise():
+    """Serving under a mesh is ROADMAP item 6; an unknown cache layout and
+    a preemption drill without the paged cache are refused, as the
+    reference's (the paged tier is tests/test_torch_serve_paged.py)."""
     cfg, params = _build("smollm-360m")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Scheduler(cfg, params, ServeConfig(kv="paged"))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Scheduler(cfg, params, ServeConfig(preempt_every=4))
     with pytest.raises(NotImplementedError, match="item 6"):
         Scheduler(cfg, params, ServeConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ttransformer.init_paged_cache(cfg, 2, 8, 4)
-    cache = ttransformer.init_cache(cfg, 1, 8, F32, device="cpu")
-    bt = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tserve.decode_fn(cfg, params, torch.zeros(1, dtype=torch.int32),
-                         cache, 0, block_tables=bt)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tserve.prefill_chunk_fn(cfg, params,
-                                torch.zeros(1, 2, dtype=torch.int32), cache,
-                                0, block_tables=bt)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Scheduler(cfg, params, ServeConfig(kv="paged"), mesh=object())
     with pytest.raises(ValueError, match="kv must be"):
         Scheduler(cfg, params, ServeConfig(kv="ring"))
+    with pytest.raises(ValueError, match="preempt_every"):
+        Scheduler(cfg, params, ServeConfig(preempt_every=4))
