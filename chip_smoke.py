@@ -39,6 +39,26 @@ Phases, each printing one JSON line and asserting what it checks:
            7 syrk / 35 gram_poly / 84 symmul launches per step.
   adamw    the same training with the elementwise AdamW baseline (no Gram
            kernels launched): the yardstick of the optimizer's overhead.
+  dryrun   the dry run held against the card on the train phase's
+           configuration: one step of it walked on the host under
+           ``FakeTensorMode`` by the op walker (``launch/op_walker.py``;
+           the kernel wrappers take their plain versions) predicts FLOPs by
+           dtype, bytes, the peak of live bytes and the H100 roofline
+           terms; 3 steps on the card, timed as the train phase times
+           them, measure ``max_memory_allocated`` (launches from the
+           plan); one more step walked on the card, with the caching
+           allocator's peak inside each op beside the walker's live bytes
+           (what the walker cannot see).  Gates: forward + backward FLOPs
+           (the step without ``opt.update``) on the card equal the host's
+           exactly; the predicted peak within 10% of the measured one.
+           Prints step ms, each roofline term, the kernel-adjusted compute
+           term, both peaks and the step's share of the roofline time.
+           The production cells smollm-360m train_4k (single mesh) and
+           deepseek-v3-671b decode_32k (multi) run as
+           ``python -m repro_torch.launch.dryrun`` subprocesses started
+           with the script (host only: a fake world of fake tensors),
+           each gated on ok; HBM utilization and the dominant term
+           printed.
   variants the same training with muon and each of normuon, muonbp
            (period 2, so step 2 reuses the cached polar map), dion2 (Gram
            NS on the rank-r factors, r = 240 / 80) and adamuon: 7 / 35 /
@@ -216,6 +236,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -253,8 +274,8 @@ KERNELS = {
 # smollm-360m's launches a step (``plan_launches`` of its 7 groups)
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
-PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "variants",
-          "pipeline", "resilience", "moe", "families", "serve",
+PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dryrun",
+          "variants", "pipeline", "resilience", "moe", "families", "serve",
           "serve_families", "serve_paged", "mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
@@ -854,8 +875,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     back after them (``gc.unfreeze``), so nothing of the run outlives it.
     With ``trace`` (a file path) the steps run under ``torch.profiler``
     (host and device), the Chrome trace is written there and a per-step
-    summary returned.  With ``keep_state`` the last ``TrainState`` is
-    returned too."""
+    summary returned.  With ``keep_state`` the last ``TrainState``, the
+    step function and the optimizer are returned too."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
@@ -975,7 +996,9 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "final_params": {p: v.detach().to("cpu") for p, v in
                              tree.flatten(state.params)} if capture else {},
             "plan": plan, "cfg": cfg, "data": dcfg,
-            "state": state if keep_state else None}
+            "state": state if keep_state else None,
+            "step": step if keep_state else None,
+            "opt": opt if keep_state else None}
 
 
 def phase_train(torch, variant: str) -> dict:
@@ -995,6 +1018,267 @@ def phase_train(torch, variant: str) -> dict:
           "launches_per_step": {k: v // TRAIN_STEPS
                                 for k, v in launches.items()}})
     return run
+
+
+# ------------------------------------------------------------------ dryrun
+
+# the dry run's production cells (arch, shape, mesh), each one
+# ``python -m repro_torch.launch.dryrun`` on the host: a fake world of fake
+# tensors, no card
+DRYRUN_CELLS = [("smollm-360m", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi")]
+DRYRUN_CELL_TIMEOUT_S = 600    # from the script's start
+PEAK_GATE = 0.10               # predicted peak vs max_memory_allocated
+
+
+def start_dryrun_cells() -> list:
+    """One dry-run subprocess per ``DRYRUN_CELLS`` cell, started at once;
+    JSONs and logs under the ignored ``build/dryrun_cells``."""
+    outdir = ROOT / "build" / "dryrun_cells"
+    outdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cells = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(outdir / f"{arch}__{shape}__{mesh}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, "--mesh", mesh, "--force",
+             "--outdir", str(outdir)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        cells.append({"cell": (arch, shape, mesh), "proc": proc, "log": log,
+                      "t0": time.perf_counter()})
+    return cells
+
+
+def stop_dryrun_cells(cells: list) -> None:
+    """Kill whatever of ``start_dryrun_cells`` still runs."""
+    for c in cells:
+        if c["proc"].poll() is None:
+            c["proc"].kill()
+            c["proc"].wait()
+        c["log"].close()
+
+
+def walked_step(step, opt, state, batch, walker):
+    """One ``step(state, batch)`` under ``walker`` (``launch.op_walker``,
+    ``state`` and ``batch`` counted as arguments): (new state, the costs of
+    ``opt.update`` alone)."""
+    inner = []
+    update = opt.update
+
+    def counted(*a, **kw):
+        before = walker.costs.snapshot()
+        out = update(*a, **kw)
+        inner.append(walker.costs.minus(before))
+        return out
+    opt.update = counted
+    try:
+        walker.track_arguments((state, batch))
+        with walker:
+            new = step(state, batch)
+    finally:
+        del opt.update
+    return new, inner[0]
+
+
+def allocator_probe(torch):
+    """An ``OpWalker`` that also asks the CUDA caching allocator, around
+    each top-level op, for its peak inside the op: ``invisible`` keeps the
+    ops whose peak passed the walker's live bytes the most (temporaries a
+    kernel allocates for itself, which no dispatch mode sees), and
+    ``allocator_peak`` the allocator's peak over the walk, both net of
+    what was allocated before the walk and is not tracked (``offset``)."""
+    from repro_torch.launch.op_walker import OpWalker, _tensors
+
+    class Probe(OpWalker):
+        def __init__(self):
+            super().__init__()
+            self.depth, self.offset, self.allocator_peak = 0, None, 0
+            self.invisible = []
+
+        def track_arguments(self, tree) -> None:
+            super().track_arguments(tree)
+            torch.cuda.synchronize()
+            self.offset = torch.cuda.memory_allocated() - self.live
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if self.depth:
+                return super().__torch_dispatch__(func, types, args, kwargs)
+            before = self.live
+            torch.cuda.reset_peak_memory_stats()
+            self.depth += 1
+            try:
+                out = super().__torch_dispatch__(func, types, args, kwargs)
+            finally:
+                self.depth -= 1
+            peak = torch.cuda.max_memory_allocated() - self.offset
+            self.allocator_peak = max(self.allocator_peak, peak)
+            excess = peak - max(before, self.live)
+            if excess > 0:
+                self.invisible.append((excess, str(func), [
+                    list(t.shape) for t in _tensors(args)][:3], peak))
+                self.invisible = sorted(self.invisible, reverse=True)[:8]
+            return out
+    return Probe()
+
+
+def predict_step(torch, cfg):
+    """One owner-mode Muon step of ``cfg`` (seed 0, batch 8 x 512, kernels
+    on) walked on the host under ``FakeTensorMode``: shapes only, so every
+    kernel wrapper takes its plain version.  Returns (walker, costs of
+    ``opt.update``, memory dict, plan)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.launch.op_walker import OpWalker
+    from repro_torch.models import model_fns
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import TrainState
+
+    plan = api.dedicate_params(model_fns(cfg).init(cfg, device="meta"))
+    opt = api.Muon(plan, None, config=MuonConfig(
+        variant="muon", mode="owner", pipeline="fused",
+        ns=GramNSConfig(use_kernels=True)), device="cpu")
+    with FakeTensorMode():
+        params = tree.tree_map(lambda v: v.requires_grad_(True),
+                               model_fns(cfg).init(cfg, 0, device="cpu"))
+        state = TrainState(0, params, opt.init(params),
+                           torch.zeros((), dtype=torch.float32))
+        batch = {k: torch.zeros((8, 512), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(cfg, opt, None, device="cpu")
+        walker = OpWalker()
+        new, update = walked_step(step, opt, state, batch, walker)
+        mem = walker.memory(new)
+    return walker, update, mem, plan
+
+
+def dryrun_cell_results(cells: list) -> list:
+    """Wait for each production cell (``DRYRUN_CELL_TIMEOUT_S`` from its
+    start) and read its JSON: ok, or a skip the reference makes too."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import cell_supported
+    rows = []
+    for c in cells:
+        arch, shape, mesh = c["cell"]
+        left = DRYRUN_CELL_TIMEOUT_S - (time.perf_counter() - c["t0"])
+        try:
+            rc = c["proc"].wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dry-run cell {c['cell']} still running "
+                                 f"after {DRYRUN_CELL_TIMEOUT_S} s") from None
+        seconds = time.perf_counter() - c["t0"]
+        path = ROOT / "build" / "dryrun_cells" / mesh / \
+            f"{arch}__{shape}__owner.json"
+        if rc != 0 or not path.exists():
+            c["log"].flush()
+            tail = Path(c["log"].name).read_text()[-2000:]
+            raise AssertionError(f"dry-run cell {c['cell']} exit {rc}: "
+                                 f"{tail}")
+        d = json.loads(path.read_text())
+        if d.get("skipped"):
+            if not cell_supported(configs.get(arch), shape):
+                raise AssertionError(f"{c['cell']} skipped: {d['skipped']}")
+        elif not d.get("ok"):
+            raise AssertionError(f"dry-run cell {c['cell']} failed: "
+                                 f"{d.get('error')}")
+        r = d.get("roofline", {})
+        rows.append({"cell": [arch, shape, mesh], "ok": d.get("ok"),
+                     "skipped": d.get("skipped"),
+                     "hbm_utilization": d.get("hbm_utilization"),
+                     "dominant": r.get("dominant"),
+                     "dominant_s": r.get(f"{r.get('dominant')}_s"),
+                     "terms_s": {k: r.get(k) for k in (
+                         "compute_s", "memory_s", "collective_s",
+                         "kernel_adjusted_compute_s")},
+                     "walk_s": d.get("timings_s", {}).get("compile"),
+                     "host_seconds": seconds})
+    return rows
+
+
+def phase_dryrun(torch, smi: str, cells: list) -> None:
+    """The dry run held against the card on the main path (full-width
+    smollm-360m, fp32, remat, owner Muon with the kernels, 8 x 512, seed
+    0): (1) predict one step on the host under ``FakeTensorMode`` with the
+    op walker (FLOPs by dtype, bytes, peak live bytes, the H100 roofline);
+    (2) measure ``TRAIN_STEPS`` steps on the card as ``train_run`` does
+    (launches from the plan, peak ``max_memory_allocated``); (3) walk one
+    more step on the card.  Gates: forward + backward FLOPs (the step
+    without ``opt.update``) on the card equal the host's exactly; the
+    predicted peak within ``PEAK_GATE`` of the measured one.  Then the
+    production cells of ``DRYRUN_CELLS``, gated on ok."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import ns_flops_for_plan
+
+    t_phase = time.perf_counter()
+    cfg = configs.get("smollm-360m")
+    t0 = time.perf_counter()
+    host, host_update, mem, plan = predict_step(torch, cfg)
+    predict_s = time.perf_counter() - t0
+    nsr, nsk = ns_flops_for_plan(plan, 5, 1)
+    roof = roofline.analyze(host.costs, num_devices=1,
+                            model_flops=6.0 * cfg.param_count() * 8 * 512,
+                            ns_flops_raw=nsr, ns_flops_kernel=nsk)
+
+    run = train_run(torch, "muon", keep_state=True)
+    measured = torch.cuda.max_memory_allocated()
+    card = allocator_probe(torch)
+    batch = batch_for_step(run["data"], TRAIN_STEPS, device="cuda")
+    state, card_update = walked_step(run["step"], run["opt"], run["state"],
+                                     batch, card)
+    torch.cuda.synchronize()
+    del state, batch
+    run["state"] = run["step"] = run["opt"] = None
+
+    host_fb = host.costs.flops - host_update.flops
+    card_fb = card.costs.flops - card_update.flops
+    predicted = mem["total_bytes"]
+    step_ms = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
+    terms = {"compute": roof.compute_s, "memory": roof.memory_s,
+             "collective": roof.collective_s}
+    emit({"phase": "dryrun", "arch": cfg.name, "steps": TRAIN_STEPS,
+          "step_ms": run["step_ms"], "step_ms_median": step_ms,
+          "optimizer_ms": run["optimizer_ms"],
+          "launches_per_step": {k: v // TRAIN_STEPS
+                                for k, v in run["launches"].items()},
+          "predicted": {
+              "flops": host.costs.flops,
+              "flops_by_dtype": host.costs.flops_by_dtype,
+              "flops_fwd_bwd": host_fb, "flops_update": host_update.flops,
+              "bytes": host.costs.bytes, "peak_gb": predicted / 1e9,
+              "memory": mem, "compute_s": roof.compute_s,
+              "memory_s": roof.memory_s, "collective_s": roof.collective_s,
+              "kernel_adjusted_compute_s": roof.kernel_adjusted_compute_s,
+              "dominant": roof.dominant, "useful_ratio": roof.useful_ratio,
+              "host_s": predict_s},
+          "card": {"flops_fwd_bwd": card_fb,
+                   "flops_update_seen": card_update.flops,
+                   "bytes": card.costs.bytes,
+                   "walked_peak_gb": card.peak / 1e9,
+                   "allocator_peak_gb": card.allocator_peak / 1e9,
+                   "untracked_gb": card.offset / 1e9,
+                   "invisible": [{"gb": e / 1e9, "op": op, "shapes": sh,
+                                  "allocator_gb": pk / 1e9}
+                                 for e, op, sh, pk in card.invisible]},
+          "measured_peak_gb": measured / 1e9,
+          "peak_predicted_over_measured": predicted / measured,
+          "roofline_share": max(terms.values()) / (step_ms / 1e3),
+          "nvidia_smi": smi})
+    if card_fb != host_fb:
+        raise AssertionError(f"forward + backward FLOPs on the card "
+                             f"{card_fb} != the host's fake-mode {host_fb}")
+    if abs(predicted - measured) > PEAK_GATE * measured:
+        raise AssertionError(f"predicted peak {predicted / 1e9:.3f} GB is "
+                             f"not within {PEAK_GATE:.0%} of the measured "
+                             f"{measured / 1e9:.3f} GB")
+    del run
+    gc.collect()
+    emit({"phase": "dryrun", "cells": dryrun_cell_results(cells),
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
 
 def adamuon_vs_o(got: dict, want: dict, o_got: dict, o_want: dict,
@@ -3757,6 +4041,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    # the dry run's production cells are host work (a fake world of fake
+    # tensors): started first, they run beside the card phases
+    cells = start_dryrun_cells() if "dryrun" in phases else []
+    try:
+        return run_phases(torch, args, phases, cells)
+    finally:
+        stop_dryrun_cells(cells)
+
+
+def run_phases(torch, args, phases: list, cells: list) -> int:
+    """The device line, each phase of ``phases`` in ``PHASES`` order, the
+    kernels summary and the closing lines; ``cells`` are the running
+    ``start_dryrun_cells`` processes."""
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import build
 
@@ -3792,6 +4089,10 @@ def main() -> int:
     if "adamw" in phases:
         torch.cuda.empty_cache()
         phase_train(torch, "adamw")
+    if "dryrun" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dryrun(torch, smi[0], cells)
     if "variants" in phases:
         phase_variants(torch)
     if "pipeline" in phases:

@@ -78,8 +78,11 @@ def dispatch_slots(idx: torch.Tensor, n_experts: int, cap: int):
     flat_e = idx.reshape(TK)
     order = torch.sort(flat_e, stable=True).indices
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
-    seg_start = torch.cumsum(counts, 0) - counts
+    # each expert's first position in the sorted ids; shapes depend on
+    # (T, K, E) alone, so the dispatch also runs on shape-only tensors
+    seg_start = torch.searchsorted(
+        e_sorted, torch.arange(n_experts, device=idx.device,
+                               dtype=e_sorted.dtype))
     rank = torch.arange(TK, device=idx.device) - seg_start[e_sorted]
     keep = rank < cap
     drop = n_experts * cap
@@ -87,8 +90,9 @@ def dispatch_slots(idx: torch.Tensor, n_experts: int, cap: int):
                                                                     drop))
     slot = torch.empty_like(dest)
     slot[order] = dest
+    # every dropped assignment writes the extra slot ``drop``, cut off
     src = torch.full((drop + 1,), TK, dtype=torch.long, device=idx.device)
-    src[dest[keep]] = order[keep]
+    src[dest] = order
     return slot, src[:drop]
 
 

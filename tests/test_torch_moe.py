@@ -119,6 +119,17 @@ def test_dispatch_slots_rank_within_expert():
     assert src.tolist() == [0, 2, 1, 4, 3, 7]
 
 
+def test_dispatch_runs_on_shape_only_tensors():
+    """The dispatch's shapes depend on (T, K, E, cap) alone, so it runs
+    under ``FakeTensorMode`` (the dry run): no ``bincount`` or boolean
+    mask, whose output sizes depend on the ids."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        idx = torch.zeros((64, 8), dtype=torch.long)
+        slot, src = tmoe.dispatch_slots(idx, 16, cap=40)
+    assert tuple(slot.shape) == (64 * 8,) and tuple(src.shape) == (16 * 40,)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_aux_load_balance_loss_matches_reference(arch):
     jcfg, tcfg, jp, tp, x = _setup(arch)
