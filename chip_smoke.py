@@ -220,6 +220,24 @@ Phases, each printing one JSON line and asserting what it checks:
            ``--trace serve_paged`` traces 5 decode steps of both (b)
            tiers at full slots.
 
+  tp       the tensor-parallel step (``train/step.py`` under a mesh whose
+           'model' axis has every card; one NCCL rank a card, spawned as
+           the mesh phase's): first the three kernels at the (B, m, n)
+           of one owner's rows of qwen2.5-14b on (1, 4) on this card
+           (held and timed as the families phase's); then full-width
+           smollm-360m 3 steps on (1, cards), sequence-sharded attention
+           (15 heads), launches from the plan; on one card bitwise the
+           train phase's run; on four also (2, 2), each mesh's step 1
+           loss, gradients and updates and last parameters held to one
+           card on the same batches by ``tp_gate`` (10x what one ulp on
+           half the parameters moves the one-card run, per leaf); then
+           qwen2.5-14b at its published widths cut to 45 of 48 layers on
+           (1, 4), batch 1 x 2048, 10 Muon and 10 AdamW steps with
+           ``donate`` (loss_ema falling, launches from the plan, step /
+           optimizer ms and peak GB per card beside the dry run's
+           predicted peak for the same runs, two ``--fake-mesh 1,4``
+           subprocesses started with the script).
+
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
 and families phases' Muon runs), the nvidia-smi line (the first card's;
@@ -276,7 +294,7 @@ LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
-          "serve_families", "serve_paged", "mesh")
+          "serve_families", "serve_paged", "mesh", "tp")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -850,7 +868,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               accum_steps: int = 1, prestage: bool | None = None,
               steps: int = TRAIN_STEPS, keep_state: bool = False,
               cfg=None, dcfg=None, donate: bool = False,
-              inputs=None) -> dict:
+              inputs=None, tensor_parallel: bool = False,
+              init_hook=None) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on; or
     the model ``cfg`` on the data ``dcfg``, each batch joined by
     ``inputs(step)``'s tensors (patches or frames) when given, the
@@ -873,6 +892,11 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     modules, this run's model, optimizer and state) from Python's cyclic
     garbage collector for the timed steps (``gc.freeze``), and hands it
     back after them (``gc.unfreeze``), so nothing of the run outlives it.
+    ``tensor_parallel``: the step of ``train/step.py`` tensor-parallel over
+    ``mesh``'s 'model' axis (``grad_specs`` from ``param_specs``, even on
+    a model axis of one rank); the captures are then whole tensors
+    (gathered over the mesh, on the host).  ``init_hook(params)`` runs on
+    the initial parameters (in place) before the first step.
     With ``trace`` (a file path) the steps run under ``torch.profiler``
     (host and device), the Chrome trace is written there and a per-step
     summary returned.  With ``keep_state`` the last ``TrainState``, the
@@ -885,20 +909,27 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     from repro_torch.core.muon import MuonConfig
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import model_fns
-    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.models import model_fns, sharding
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        placed_params)
 
     cfg = cfg or configs.get("smollm-360m")
-    plan = api.dedicate_params(model_fns(cfg).init(cfg, device="meta"),
-                               mesh=mesh)
+    shapes = model_fns(cfg).init(cfg, device="meta")
+    plan = api.dedicate_params(shapes, mesh=mesh)
+    specs = sharding.param_specs(cfg, shapes, mesh) if tensor_parallel \
+        else None
     per_step = plan_launches(plan)
     knobs = knobs or {}
     opt = api.Muon(plan, mesh, config=MuonConfig(
         variant=variant, mode=mode, pipeline=pipeline,
         ns=GramNSConfig(use_kernels=True), **knobs), device="cuda")
     state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+    if init_hook is not None:
+        with torch.no_grad():
+            init_hook(state.params)
     step = make_train_step(cfg, opt, mesh, accum_steps=accum_steps,
-                           prestage=prestage, donate=donate, device="cuda")
+                           prestage=prestage, donate=donate, device="cuda",
+                           grad_specs=specs)
     dcfg = dcfg or DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
 
     # time the optimizer transform inside the step (synchronised around it)
@@ -907,18 +938,25 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     def keep(t):
         return t.to("cpu") if capture == "host" else t.clone()
 
+    def part(u):
+        if not isinstance(u, DTensor):
+            return u
+        return u.full_tensor() if specs is not None else u.to_local()
+
     def timed(update, staged: bool):
         def run(*a, **kw):
             if grads and not staged and not first_grads:
-                first_grads.update(capture_grads(a[0], mesh))
+                first_grads.update(
+                    capture_grads(a[0], mesh) if specs is None else
+                    {p: (keep(g.full_tensor()),)
+                     for p, g in tree.flatten(a[0])})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = update(*a, **kw)
             torch.cuda.synchronize()
             opt_ms.append((time.perf_counter() - t0) * 1e3)
             if capture and not first:
-                first.update({p: keep(u.to_local() if isinstance(u, DTensor)
-                                      else u)
+                first.update({p: keep(part(u))
                               for p, u in tree.flatten(out[0])})
             return out
         return run
@@ -969,6 +1007,12 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
         traced = {"file": str(out),
                   "steps": trace_summary(prof, steps)}
 
+    def final_params(params):
+        if specs is not None:
+            params = placed_params(params, specs, mesh)
+        return {p: (v.full_tensor() if specs is not None else v.detach())
+                .to("cpu") for p, v in tree.flatten(params)}
+
     tag = f"{variant}/{mode}/{pipeline}/accum {accum_steps}" + (
         "" if mesh is None else " on the mesh")
     # the EMA is finite exactly when every step's loss so far is
@@ -993,8 +1037,7 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "trace": traced,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "first_updates": first, "first_grads": first_grads,
-            "final_params": {p: v.detach().to("cpu") for p, v in
-                             tree.flatten(state.params)} if capture else {},
+            "final_params": final_params(state.params) if capture else {},
             "plan": plan, "cfg": cfg, "data": dcfg,
             "state": state if keep_state else None,
             "step": step if keep_state else None,
@@ -2320,6 +2363,47 @@ def step_gate(torch, mesh_g: dict, ref_g: dict, abs_sum: dict,
             "per_leaf": rows}
 
 
+TP_SPREAD = 10                 # tp step: 10x the one-ulp spread, per leaf
+TP_QUANTITIES = ("loss", "grads", "updates", "params", "loss_ema")
+
+
+def tp_gate(torch, tp: dict, ref: dict, spread: dict) -> dict:
+    """The tensor-parallel training against one card's on the same batch
+    and parameters.  ``tp``, ``ref`` and ``spread`` each map every quantity
+    of ``TP_QUANTITIES`` (step 1's loss, gradients and updates; the
+    ``loss_ema`` and the parameters after the last step) to {path: whole
+    tensor} (the scalars under ""): the tensor-parallel run, the one-card
+    run, and the one-card run from the same parameters with a random half
+    of their entries one ulp up.
+
+    The tensor-parallel forward differs from one card's by rounding only:
+    each row-parallel output is a sum of ``tp`` partial products reduced
+    over the model axis where one card takes one product, and the vocab
+    and the query rows split the softmaxes' sums.  Each reordered sum
+    moves its result by a few ulps of its terms, as one ulp on the
+    parameters does.  So each leaf of each quantity passes where
+    max|tp − ref| <= ``TP_SPREAD`` · max(max|spread − ref|, one ulp of
+    max|ref|).  Returns the worst ratio (|Δ| over that bound) per quantity,
+    ``factor`` (their largest; <= 1 passes) and per-leaf rows."""
+    eps = 2.0 ** -23
+    ratios, rows = {}, {}
+    for q in TP_QUANTITIES:
+        worst = 0.0
+        for p, want in ref[q].items():
+            want = want.to("cpu", torch.float64)
+            d = float((tp[q][p].to("cpu", torch.float64) - want).abs().max())
+            s = float((spread[q][p].to("cpu", torch.float64)
+                       - want).abs().max())
+            bound = TP_SPREAD * max(s, eps * float(want.abs().max()))
+            r = d / bound if bound else (0.0 if d == 0 else math.inf)
+            rows[f"{q}/{p}" if p else q] = {"max_abs_diff": d, "spread": s,
+                                            "ratio": r}
+            worst = max(worst, r)
+        ratios[q] = worst
+    return {"ratios": ratios, "factor": max(ratios.values()),
+            "spread_factor": TP_SPREAD, "per_leaf": rows}
+
+
 def train_vs_single(torch, runs: dict, single: dict, accum: dict,
                     world: int, train_losses, matrices: set, pairs: dict):
     """Rank 0: emit the mesh runs against the same training on one card,
@@ -2447,6 +2531,321 @@ def train_vs_single(torch, runs: dict, single: dict, accum: dict,
     if world > 1 and weak:
         return f"planted faults within {STEP_FAULT}x of the gate: {weak}"
     return None
+
+
+# ---------------------------------------------------------------------- tp
+
+TP_TIMEOUT_S = 300             # every NCCL collective of the phase
+# qwen2.5-14b at its published widths on (1, 4): fp32, remat, donate,
+# batch 1 x 2048, and the host predictions of the same runs
+# (``launch.dryrun --fake-mesh 1,4``).  All 48 layers are predicted at
+# 82.8 GB (Muon) and 84.0 GB (AdamW) a card, 40 at 70.3 / 71.3: 1.6 GB a
+# layer, so 45 is the deepest cut within 80 GB (78.0 / 79.3 predicted)
+TP_QWEN = "qwen2.5-14b"
+TP_QWEN_LAYERS = 45
+TP_QWEN_BATCH, TP_QWEN_SEQ = 1, 2048
+TP_QWEN_STEPS = 10
+TP_QWEN_MESH = (1, 4)
+TP_PREDICT_TIMEOUT_S = 1000    # from the script's start
+
+
+def start_tp_predictions() -> list:
+    """The host's predicted peak of the qwen runs (Muon, AdamW), each one
+    ``python -m repro_torch.launch.dryrun --fake-mesh`` subprocess started
+    at once; JSONs and logs under the ignored ``build/tp_predict``."""
+    outdir = ROOT / "build" / "tp_predict"
+    outdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cells = []
+    for opt in ("owner", "adamw"):
+        log = open(outdir / f"{opt}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+             "--arch", TP_QWEN, "--fake-mesh",
+             ",".join(map(str, TP_QWEN_MESH)), "--batch", str(TP_QWEN_BATCH),
+             "--seq", str(TP_QWEN_SEQ), "--layers", str(TP_QWEN_LAYERS),
+             "--opt", opt, "--out", str(outdir / f"{opt}.json")],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        cells.append({"cell": opt, "proc": proc, "log": log,
+                      "t0": time.perf_counter()})
+    return cells
+
+
+def tp_predictions(cells: list) -> dict:
+    """{"owner" / "adamw": predicted peak GB} of ``start_tp_predictions``."""
+    out = {}
+    for c in cells:
+        left = TP_PREDICT_TIMEOUT_S - (time.perf_counter() - c["t0"])
+        try:
+            rc = c["proc"].wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"tp prediction {c['cell']} still running "
+                                 f"after {TP_PREDICT_TIMEOUT_S} s") from None
+        path = ROOT / "build" / "tp_predict" / f"{c['cell']}.json"
+        if rc != 0 or not path.exists():
+            c["log"].flush()
+            raise AssertionError(f"tp prediction {c['cell']} exit {rc}: "
+                                 f"{Path(c['log'].name).read_text()[-2000:]}")
+        d = json.loads(path.read_text())
+        out[c["cell"]] = {"peak_gb": d["memory_analysis"]["total_bytes"] / 1e9,
+                          "host_seconds": time.perf_counter() - c["t0"]}
+    return out
+
+
+def phase_tp(torch, smi: str, cells: list) -> None:
+    """Every visible card, one NCCL rank each (spawned, as the mesh
+    phase's), through the tensor-parallel step (``tp_checks``); then, on
+    four cards, the host's predicted peaks of the qwen runs beside the
+    measured ones (``cells``: ``start_tp_predictions``)."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    world = torch.cuda.device_count()
+    tp_kernels(torch)
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "tp_phase"
+    out.mkdir(parents=True, exist_ok=True)
+    measured = out / "qwen.json"
+    measured.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank, args=(world, free_port(), str(measured)),
+                       nprocs=world, start_method="spawn", join=True)
+    seconds = time.perf_counter() - t0
+    if not cells:
+        emit({"phase": "tp", "check": "done", "world": world,
+              "seconds": seconds, "nvidia_smi": smi})
+        return
+    predicted = tp_predictions(cells)
+    got = json.loads(measured.read_text())
+    emit({"phase": "tp", "check": "qwen_peak_vs_dryrun", "arch": TP_QWEN,
+          "mesh": list(TP_QWEN_MESH), "n_layers": TP_QWEN_LAYERS,
+          "predicted_peak_gb": {k: v["peak_gb"] for k, v in
+                                predicted.items()},
+          "measured_peak_gb_per_card": got,
+          "predicted_over_measured": {
+              k: predicted[k]["peak_gb"] / max(got[k]) for k in predicted},
+          "prediction_host_seconds": {k: v["host_seconds"] for k, v in
+                                      predicted.items()},
+          "world": world, "seconds": seconds, "nvidia_smi": smi})
+
+
+def tp_kernels(torch) -> None:
+    """The three kernels at the (B, m, n) of one owner's rows of each
+    Gram group of qwen2.5-14b on ``TP_QWEN_MESH`` (``TP_QWEN_LAYERS``
+    layers: B = ceil(layers / 4)), on this card, held and timed as the
+    families phase's (median of ``FAMILY_REPS``), each with its launches
+    a step on every rank (from the plan)."""
+    from repro_torch import configs
+    from repro_torch.core import api
+    from repro_torch.models import transformer
+    cfg = configs.get(TP_QWEN, n_layers=TP_QWEN_LAYERS)
+    owners = math.prod(TP_QWEN_MESH)
+    plan = api.dedicate_params(transformer.init(cfg, device="meta"),
+                               num_owners=owners)
+    syrk, gram = {}, {}
+    for g in plan.groups.values():
+        rows = g.packed_size // owners
+        syrk[(rows, *g.key)] = syrk.get((rows, *g.key), 0) + 1
+        gram[(rows, g.key[0])] = gram.get((rows, g.key[0]), 0) + 1
+    per_group = plan_launches(plan)
+    per_group = {k: v // len(plan.groups) for k, v in per_group.items()}
+    counter = {name: meta["counter"] for name, meta in KERNELS.items()}
+    gen = torch.Generator("cuda").manual_seed(0)
+    for case in gram_kernel_cases(torch, gen, list(syrk), list(gram)):
+        name, shape = case[0], case[1]
+        groups = syrk[shape] if name == "gram_syrk" else gram[shape[:2]]
+        emit({"phase": "tp", "arch": TP_QWEN, "n_layers": TP_QWEN_LAYERS,
+              "mesh": list(TP_QWEN_MESH),
+              "launches_per_step": groups * per_group[counter[name]],
+              **check_kernel_case(torch, case, FAMILY_REPS)})
+
+
+def tp_rank(rank: int, world: int, port: int, measured: str) -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    # qwen's runs fill the card: grow segments in place rather than keep
+    # freed blocks of each size apart (read when the allocator starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import strict_fp32
+    from repro_torch.launch.mesh import init_process_group
+
+    strict_fp32()
+    init_process_group("cuda", rank=rank, world_size=world,
+                       init_method=f"tcp://localhost:{port}",
+                       timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    tp_checks(torch, dist, rank, world, Path(measured))
+    dist.destroy_process_group()
+
+
+def tp_quantities(torch, run: dict) -> dict:
+    """``tp_gate``'s quantities of a ``train_run`` with whole captures."""
+    return {"loss": {"": torch.tensor(run["loss_ema"][0])},
+            "grads": {p: g[0] for p, g in run["first_grads"].items()},
+            "updates": run["first_updates"], "params": run["final_params"],
+            "loss_ema": {"": torch.tensor(run["loss_ema"][-1])}}
+
+
+def tp_checks(torch, dist, rank: int, world: int, measured: Path) -> None:
+    """The ``tp`` phase on one rank.
+
+    1. Full-width smollm-360m (fp32, remat, owner Muon with the kernels,
+       seed 0, 8 x 512) ``TRAIN_STEPS`` steps through the tensor-parallel
+       step on a (1, world) mesh, and on four cards also (2, 2): 15
+       heads, so the sequence-sharded attention wherever the model axis
+       has more than one rank.  Launches from the plan every step
+       (``train_run``); step ms, optimizer ms and peak GB per rank.
+    2. One card: the parameters after the steps bitwise those of the
+       train phase's run (the same ``train_run`` without a mesh).
+    3. More cards, rank 0: each mesh run against one card's on the same
+       batches (in ``data`` microbatches, as the mesh splits them) by
+       ``tp_gate``: step 1's loss, gradients and updates, the last
+       loss_ema and parameters, within ``TP_SPREAD`` x what one ulp on a
+       random half of the parameters moves the one-card run.
+    4. Four cards: qwen2.5-14b at its published widths
+       (``TP_QWEN_LAYERS`` layers) on (1, 4), head-parallel (40 / 8
+       heads), ``TP_QWEN_STEPS`` Muon steps then as many AdamW steps, each
+       releasing its spent state (``donate``): loss_ema finite and falling,
+       launches from the plan, step / optimizer ms and peak GB per card
+       (the peaks written to ``measured`` for the parent)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    lead = rank == 0
+    shapes = [(1, world)] + ([(2, world // 2)] if world == 4 else [])
+    runs = {}
+    for shape in shapes:
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        run = train_run(torch, "muon", "owner", mesh, capture="host",
+                        grads=True, tensor_parallel=True)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, timing)
+        if lead:
+            emit({"phase": "tp", "arch": run["arch"], "mesh": list(shape),
+                  "attention": "head-parallel" if run["cfg"].n_heads %
+                  shape[1] == 0 else "sequence-sharded",
+                  "loss_ema": run["loss_ema"],
+                  "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                                        run["launches"].items()},
+                  "per_rank": per_rank})
+            runs[shape] = run
+        del run
+        torch.cuda.empty_cache()
+
+    failure = None
+    if lead and world == 1:
+        single = train_run(torch, "muon", "owner", capture="host")
+        tp = runs[(1, 1)]
+        same = all(torch.equal(tp["final_params"][p], v)
+                   for p, v in single["final_params"].items())
+        emit({"phase": "tp", "check": "world1_vs_train_phase",
+              "bitwise_params": same,
+              "loss_ema": tp["loss_ema"], "train_loss_ema": single["loss_ema"],
+              "launches": tp["launches"],
+              "plan_launches_per_step": plan_launches(tp["plan"])})
+        if not same or tp["loss_ema"] != single["loss_ema"]:
+            failure = ("tensor-parallel step on one card is not the train "
+                       "phase's run bitwise")
+    elif lead:
+        failure = tp_vs_single(torch, runs)
+    failures = [None] * world
+    dist.all_gather_object(failures, failure)
+    if failures[0] is not None:
+        raise AssertionError(failures[0])
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if world != math.prod(TP_QWEN_MESH):
+        return
+
+    mesh = make_mesh(TP_QWEN_MESH, ("data", "model"), "cuda")
+    cfg = configs.get(TP_QWEN, n_layers=TP_QWEN_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TP_QWEN_SEQ,
+                      global_batch=TP_QWEN_BATCH)
+    peaks, rows = {}, {}
+    for variant in ("muon", "adamw"):
+        run = train_run(torch, variant, "owner", mesh, cfg=cfg, dcfg=dcfg,
+                        donate=True, tensor_parallel=True,
+                        steps=TP_QWEN_STEPS)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, timing)
+        loss = run["loss_ema"]
+        rows[variant] = {"loss_ema": loss, "per_rank": per_rank}
+        peaks["owner" if variant == "muon" else "adamw"] = [
+            r["peak_mem_gb"] for r in per_rank]
+        if lead:
+            emit({"phase": "tp", "arch": TP_QWEN, "variant": variant,
+                  "mesh": list(TP_QWEN_MESH), "n_layers": TP_QWEN_LAYERS,
+                  **rows[variant]})
+        if not loss[-1] < loss[0]:
+            raise AssertionError(f"{TP_QWEN} {variant}: loss_ema does not "
+                                 f"fall: {loss}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    if lead:
+        steady = {v: [{k: sum(r[k][1:]) / len(r[k][1:])
+                       for k in ("step_ms", "optimizer_ms")}
+                      for r in rows[v]["per_rank"]] for v in rows}
+        emit({"phase": "tp", "arch": TP_QWEN, "mesh": list(TP_QWEN_MESH),
+              "n_layers": TP_QWEN_LAYERS,
+              "cut": None if TP_QWEN_LAYERS == 48 else
+              f"{TP_QWEN_LAYERS} of 48 layers",
+              "batch": [TP_QWEN_BATCH, TP_QWEN_SEQ],
+              "params": cfg.param_count(), "attention": "head-parallel",
+              "loss_ema": {v: r["loss_ema"] for v, r in rows.items()},
+              "steady_mean_ms_per_rank": steady,
+              "owner_over_adamw_per_rank": [
+                  {k: m[k] / a[k] for k in m}
+                  for m, a in zip(steady["muon"], steady["adamw"])]})
+        measured.write_text(json.dumps(peaks))
+
+
+def tp_vs_single(torch, runs: dict):
+    """Rank 0: each mesh run against one card's on the same batches
+    (``tp_gate``); the first gate missed, or None."""
+    from repro_torch.core import tree
+
+    gen = torch.Generator("cuda").manual_seed(11)
+
+    def ulp(params):
+        for _, v in tree.flatten(params):
+            v.copy_(one_ulp_up(torch, v, gen))
+    refs = {}
+    for data in sorted({shape[0] for shape in runs}):
+        refs[data] = [train_run(torch, "muon", "owner", capture="host",
+                                grads=True, accum_steps=data,
+                                init_hook=hook) for hook in (None, ulp)]
+        torch.cuda.empty_cache()
+    failure = None
+    for shape, run in runs.items():
+        ref, spread = refs[shape[0]]
+        gate = tp_gate(torch, tp_quantities(torch, run),
+                       tp_quantities(torch, ref),
+                       tp_quantities(torch, spread))
+        worst = sorted(gate["per_leaf"].items(),
+                       key=lambda kv: -kv[1]["ratio"])[:8]
+        emit({"phase": "tp", "check": "tp_vs_single", "mesh": list(shape),
+              "reference": f"one card, accum_steps={shape[0]}",
+              "ratios": gate["ratios"], "factor": gate["factor"],
+              "spread_factor": gate["spread_factor"],
+              "worst_leaves": dict(worst),
+              "loss_ema_tp": run["loss_ema"], "loss_ema_single": ref["loss_ema"],
+              "single_step_ms": ref["step_ms"],
+              "single_optimizer_ms": ref["optimizer_ms"]})
+        if gate["factor"] > 1 and failure is None:
+            failure = (f"tensor-parallel step on {shape} misses the gate: "
+                       f"ratios {gate['ratios']}")
+    return failure
 
 
 # -------------------------------------------------------------------- main
@@ -4041,19 +4440,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    # the dry run's production cells are host work (a fake world of fake
-    # tensors): started first, they run beside the card phases
+    # the dry run's production cells and the tp phase's predictions are
+    # host work (a fake world of fake tensors): started first, they run
+    # beside the card phases
     cells = start_dryrun_cells() if "dryrun" in phases else []
+    tp_cells = start_tp_predictions() if "tp" in phases and \
+        torch.cuda.device_count() == math.prod(TP_QWEN_MESH) else []
     try:
-        return run_phases(torch, args, phases, cells)
+        return run_phases(torch, args, phases, cells, tp_cells)
     finally:
-        stop_dryrun_cells(cells)
+        stop_dryrun_cells(cells + tp_cells)
 
 
-def run_phases(torch, args, phases: list, cells: list) -> int:
+def run_phases(torch, args, phases: list, cells: list,
+               tp_cells: list) -> int:
     """The device line, each phase of ``phases`` in ``PHASES`` order, the
     kernels summary and the closing lines; ``cells`` are the running
-    ``start_dryrun_cells`` processes."""
+    ``start_dryrun_cells`` processes, ``tp_cells`` the
+    ``start_tp_predictions`` ones."""
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import build
 
@@ -4137,6 +4541,10 @@ def run_phases(torch, args, phases: list, cells: list) -> int:
             for t in args.trace.split(",")
             if t and t not in FAMILY_RUNS
             and t not in ("serve", "serve_paged")})
+    if "tp" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp(torch, smi[0], tp_cells)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

@@ -29,11 +29,15 @@ place), then writes the copies on a background thread (``async_save``), one
 save in flight at a time.
 
 Under a ``torch.distributed`` world of more than one rank, leaves are
-replicated unless ``save``'s ``row_blocks`` says otherwise: those rank 0
-writes once.  Leaves under a ``row_blocks`` prefix (the owner-major
-optimizer buffers) hold block ``index`` of ``count`` equal row blocks of
-the logical array; each rank writes its block as ``shard<index>`` with its
-global row range, so ``restore`` reassembles all D·cap rows.  The commit
+replicated unless ``save``'s ``row_blocks`` or ``parts`` says otherwise:
+those rank 0 writes once.  A leaf of ``parts`` (a parameter split over the
+'model' axis, and the state placed like it) is this rank's ``LeafPart``
+of the logical array: its writer (one rank of those holding the same
+part) writes it as ``shard<index>`` with its global ranges.  Leaves
+under a ``row_blocks`` prefix (the owner-major optimizer buffers) hold
+block ``index`` of ``count`` equal row blocks of the logical array; each
+rank writes its block as ``shard<index>`` with its global row range.
+``restore`` reassembles every leaf whole.  The commit
 across ranks uses files, not collectives, so no writer thread ever issues
 a collective beside the training thread's: each rank's writer ends with a
 ``rank<r>.done`` file in the ``.tmp``
@@ -83,6 +87,18 @@ class RowBlocks:
     def covers(self, path: str) -> bool:
         return any(path == p or path.startswith(p + "/")
                    for p in self.prefixes)
+
+
+@dataclass(frozen=True)
+class LeafPart:
+    """This rank's part of one leaf: the logical ``shape``, the part's
+    ``start`` in each dim, its ``index`` among the parts (the shard file's
+    number) and whether this rank writes it (``models.sharding
+    .shard_range``)."""
+    shape: Tuple[int, ...]
+    start: Tuple[int, ...]
+    index: int
+    write: bool
 
 
 def _leaf_file(path: str) -> str:
@@ -193,10 +209,12 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
 
     def save(self, step: int, tree: Any, *, block: bool = False,
-             row_blocks: Optional[RowBlocks] = None) -> None:
+             row_blocks: Optional[RowBlocks] = None,
+             parts: Optional[Dict[str, LeafPart]] = None) -> None:
         """Snapshot ``tree`` to host memory now; write and commit it on a
         background thread (``async_save``, unless ``block``) or before
-        returning.  ``row_blocks``: see the module docstring."""
+        returning.  ``row_blocks`` and ``parts`` ({path: LeafPart}): see
+        the module docstring."""
         self.wait()                       # one in-flight save at a time
         t0 = time.perf_counter()
         rank, world = _world()
@@ -206,21 +224,27 @@ class CheckpointManager:
         host = []
         for path, leaf in leaves:
             rows = row_blocks is not None and row_blocks.covers(path)
-            if not rows and rank != 0:
+            part = (parts or {}).get(path)
+            if part is not None:
+                if not part.write:
+                    continue              # another rank holds this part
+            elif not rows and rank != 0:
                 continue                  # replicated: rank 0 writes it
             arr, dtype = _to_host(path, leaf)
-            shape, start, shard = arr.shape, 0, 0
+            shape, starts, shard = arr.shape, [0] * arr.ndim, 0
             if rows:
                 shape = (arr.shape[0] * row_blocks.count,) + arr.shape[1:]
-                start, shard = row_blocks.index * arr.shape[0], \
+                starts[0], shard = row_blocks.index * arr.shape[0], \
                     row_blocks.index
+            elif part is not None:
+                shape, starts, shard = part.shape, list(part.start), \
+                    part.index
             if rank == 0:
                 manifest["leaves"][path] = {"shape": list(shape),
                                             "dtype": dtype,
                                             "file": _leaf_file(path)}
-            index = np.asarray([[start, arr.shape[0]]] + [
-                [0, s] for s in arr.shape[1:]] if arr.ndim else [],
-                dtype=np.int64).reshape(-1, 2)
+            index = np.asarray([[a, s] for a, s in zip(starts, arr.shape)],
+                               dtype=np.int64).reshape(-1, 2)
             host.append((f"{_leaf_file(path)}.shard{shard}.npz", arr, index))
         tmp = self._step_dir(step, tmp=True)
         if rank == 0 and os.path.exists(tmp):

@@ -21,17 +21,20 @@ that make it cost nothing but host time:
 
 Train cells run ``train/step.make_train_step`` with ``Muon`` in owner /
 gather / AdamW mode, once; the costs are those of rank 0.  Serve cells run
-``train/serve.prefill_fn`` / ``decode_fn`` on one rank's rows.  The port's
-layout is the data-parallel one of ``train/step.py``: parameters
-replicated on every card, the batch split over the mesh's data axes
-(``models.sharding.dp_axes``), a batch smaller than the data-parallel size
-run whole on each card.  The tensor-parallel forward (ROADMAP item 6) is
-not ported, so no cell shards what the step does not shard: a model of
-more than ~10 B parameters does not fit a card in this layout, and
-``fits_hbm`` says so.  The eager step has no lowering: a cell's
-``timings_s`` hold ``build`` (parameters, optimizer state and inputs),
-``lower`` (0) and ``compile`` (the walked call, where the reference
-compiles).
+``train/serve.prefill_fn`` / ``decode_fn`` on one rank's rows.  The
+batch is split over the mesh's data axes (``models.sharding.dp_axes``), a
+batch smaller than the data-parallel size run whole on each card.  The
+dense family's train cells walk the tensor-parallel step of
+``train/step.py``: parameters split by ``param_specs`` over the 'model'
+axis (16 cards), the forward's collectives on it.  ZeRO-3 is not ported,
+so nemotron-4-340b's cells run without it, and their ``detail`` says so.
+Every other cell keeps the parameters replicated on every card (the
+tensor-parallel forward of the other families and of serving is ROADMAP
+item 6): a model of more than ~10 B parameters does not fit a card in
+that layout, and ``fits_hbm`` says so.  The eager step has no lowering: a
+cell's ``timings_s`` hold ``build`` (parameters, optimizer state and
+inputs), ``lower`` (0) and ``compile`` (the walked call, where the
+reference compiles).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun               # all cells
@@ -54,6 +57,8 @@ import os
 import time
 import traceback
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -67,7 +72,8 @@ from repro_torch.launch.mesh import HBM_BYTES, axis_sizes, \
     make_production_mesh
 from repro_torch.launch.op_walker import OpWalker
 from repro_torch.models import model_fns
-from repro_torch.models.sharding import dp_axes
+from repro_torch.models.sharding import dp_axes, local_part, param_specs
+from repro_torch.models.tp import model_extent
 from repro_torch.train.train_state import TrainState
 
 RESULT_DIR = os.path.abspath(os.path.join(
@@ -138,22 +144,40 @@ def rank_inputs(cfg, shape_name: str, mesh) -> dict:
     return out
 
 
-def build_train_cell(cfg, arch_id, shape_name, mesh, mode):
+def tensor_parallel(cfg, mesh) -> bool:
+    """Whether the cell's step is tensor-parallel: the dense family on a
+    mesh whose 'model' axis has more than one rank."""
+    return cfg.family == "dense" and model_extent(mesh) > 1
+
+
+def build_train_cell(cfg, arch_id, shape_name, mesh, mode,
+                     accum: Optional[int] = None):
     """(fn, example_args, plan) of one training cell, built under the
     caller's ``FakeTensorMode``: the state from ``init`` directly (not
     ``init_state``, whose cross-rank checksum reads a collective's
-    result), the step with the buffers of the spent state released
-    (``donate``)."""
-    from repro_torch.train.step import make_train_step
+    result), cut to this rank's parts where the step is tensor-parallel,
+    the step with the buffers of the spent state released (``donate``)."""
+    from repro_torch.train.step import make_train_step, placed_params
     m = model_fns(cfg)
-    params = tree.tree_map(lambda v: v.requires_grad_(True),
-                           m.init(cfg, 0, device="cpu"))
+    params = m.init(cfg, 0, device="cpu")
     plan = api.dedicate_params(params, mesh=mesh, strategy="greedy")
     opt = api.Muon(plan, mesh, config=opt_config(arch_id, mode),
                    device="cpu")
-    state = TrainState(0, params, opt.init(params),
+    if tensor_parallel(cfg, mesh):
+        specs = param_specs(cfg, params, mesh)
+        params = tree.rebuild(params, {
+            p: local_part(v, specs[p], mesh).clone()
+            for p, v in tree.flatten(params)})
+        for _, v in tree.flatten(params):
+            v.requires_grad_(True)
+        opt_state = opt.init(placed_params(params, specs, mesh))
+    else:
+        params = tree.tree_map(lambda v: v.requires_grad_(True), params)
+        opt_state = opt.init(params)
+    state = TrainState(0, params, opt_state,
                        torch.zeros((), dtype=torch.float32))
-    step = make_train_step(cfg, opt, mesh, accum_steps=accum_steps(arch_id),
+    step = make_train_step(cfg, opt, mesh,
+                           accum_steps=accum or accum_steps(arch_id),
                            donate=True, device="cpu")
     return step, (state, rank_inputs(cfg, shape_name, mesh)), plan
 
@@ -244,11 +268,18 @@ def walk_cell(cfg, arch_id: str, shape_name: str, mesh_kind: str,
                          ns_flops_kernel=nsk,
                          ns_dtype=opt_config(arch_id, mode).ns.compute_dtype)
     rows = local_rows(sp.global_batch, mesh)
-    r.detail["layout"] = (
-        f"parameters replicated on every card; {rows} of "
-        f"{sp.global_batch} rows a card (the batch over {dp_axes(mesh)}"
-        f"{'' if rows < sp.global_batch else ', smaller than them: whole'})"
-        "; no tensor-parallel forward (ROADMAP item 6)")
+    batch = (f"{rows} of {sp.global_batch} rows a card (the batch over "
+             f"{dp_axes(mesh)}"
+             f"{'' if rows < sp.global_batch else ', smaller than them: whole'})")
+    if sp.kind == "train" and tensor_parallel(cfg, mesh):
+        r.detail["layout"] = (
+            f"parameters split by param_specs over 'model' "
+            f"({model_extent(mesh)} cards), without ZeRO-3 (not ported, "
+            f"ROADMAP item 6); {batch}; the tensor-parallel forward")
+    else:
+        r.detail["layout"] = (
+            f"parameters replicated on every card; {batch}; no "
+            "tensor-parallel forward (ROADMAP item 6)")
     result = {
         "ok": True,
         "num_devices": ndev,
@@ -263,6 +294,39 @@ def walk_cell(cfg, arch_id: str, shape_name: str, mesh_kind: str,
     if plan is not None:
         result["plan_stats"] = plan.stats
     return result
+
+
+def walk_train(arch_id: str, mesh_shape, batch: int, seq: int, mode: str,
+               *, n_layers: Optional[int] = None) -> dict:
+    """One training step of ``arch_id`` (``n_layers`` of its blocks, all
+    by default) walked on a fake world of ``mesh_shape`` = ("data",
+    "model") ranks, as the card runs it: ``build_train_cell``'s state and
+    step (tensor-parallel for the dense family on a model axis of more
+    than one rank), this rank's rows of a (``batch``, ``seq``) token
+    batch, one microbatch.  Returns rank 0's memory dict (``total_bytes``
+    the predicted peak) and roofline."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = configs.get(arch_id, **({} if n_layers is None
+                                  else {"n_layers": n_layers}))
+    with fake_world(math.prod(mesh_shape)):
+        mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                                mesh_dim_names=("data", "model"))
+        with FakeTensorMode():
+            fn, (state, _), _ = build_train_cell(cfg, arch_id, "train_4k",
+                                                 mesh, mode, accum=1)
+            rows = local_rows(batch, mesh)
+            inputs = {k: torch.zeros((rows, seq), dtype=torch.int32)
+                      for k in ("tokens", "labels")}
+            walker = OpWalker()
+            walker.track_arguments((state, inputs))
+            with walker:
+                out = fn(state, inputs)
+            mem = roofline.memory_analysis_dict(walker, out)
+    r = roofline.analyze(walker.costs, num_devices=math.prod(mesh_shape))
+    return {"arch": arch_id, "mesh": list(mesh_shape), "batch": batch,
+            "seq": seq, "n_layers": cfg.n_layers, "opt": mode,
+            "memory_analysis": mem, "roofline": r.to_dict()}
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, mode: str,
@@ -320,7 +384,24 @@ def main(argv=None):
     ap.add_argument("--outdir", default=RESULT_DIR)
     ap.add_argument("--reduced", action="store_true",
                     help="the archs' reduced configs (CPU-test widths)")
+    ap.add_argument("--fake-mesh", default=None, metavar="D,M",
+                    help="walk one train step of --arch on a fake world "
+                         "of this (data, model) mesh (walk_train) and "
+                         "write its JSON to --out")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+
+    if args.fake_mesh:
+        r = walk_train(args.arch, tuple(map(int, args.fake_mesh.split(","))),
+                       args.batch, args.seq, args.opt, n_layers=args.layers)
+        _write(args.out, r)
+        print(f"[fake {args.fake_mesh}] {args.arch} peak "
+              f"{r['memory_analysis']['total_bytes'] / 1e9:.3f} GB",
+              flush=True)
+        return
 
     archs = [args.arch] if args.arch else list(configs.ARCH_IDS)
     shapes = [args.shape] if args.shape else list(SHAPES)

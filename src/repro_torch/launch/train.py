@@ -13,11 +13,18 @@ owner loss / preemption.  ``--faults`` injects a scripted adversity drill
 
 ``--mesh`` runs one process per rank under a ``torch.distributed`` launch
 (``torchrun``, or ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
-``MASTER_PORT`` set by the caller; rank r takes card r): a ("data",
-"model") = (world, 1) mesh, data-parallel, since the port's model has no
-tensor-parallel forward (ROADMAP item 6).  ``--faults`` kill / readd
-raise there (ROADMAP item 8); ``--resume`` restores a checkpoint written
-at any world size.
+``MASTER_PORT`` set by the caller; rank r takes card r): the reference's
+("data", "model") mesh, ``remesh()``'s largest model axis up to
+``--prefer-model`` (16, the reference's default: (1, 4) on four cards;
+``--prefer-model 2`` gives (2, 2)), tensor-parallel over 'model' and
+data-parallel over 'data'.  The families whose tensor-parallel forward is
+not ported (all but dense, ROADMAP item 6) keep (world, 1); the ``[mesh]``
+line says which mesh ran and why.  ``--faults`` kill / readd raise there
+(ROADMAP item 8); ``--resume`` restores a checkpoint written at any world
+size and mesh shape.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2.5-14b --mesh --batch 4 --seq 2048 --steps 10
 
 The last line is ``[result] {json}``: the steps, the final ``loss_ema``,
 a float64 sum of every parameter (which two runs compare bit for bit) and
@@ -45,9 +52,10 @@ from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
 
 
-def make_mesh(device: torch.device):
-    """The (world, 1) mesh of a ``torch.distributed`` launch; raises
-    unless the environment names this process's rank and the world."""
+def make_mesh(device: torch.device, prefer_model: int):
+    """The ("data", "model") mesh of a ``torch.distributed`` launch
+    (``remesh(prefer_model=...)``); raises unless the environment names
+    this process's rank and the world."""
     from repro_torch.launch.mesh import init_process_group
     from repro_torch.runtime.elastic import remesh
     missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
@@ -58,7 +66,7 @@ def make_mesh(device: torch.device):
     init_process_group(device.type, rank=int(os.environ["RANK"]),
                        world_size=int(os.environ["WORLD_SIZE"]),
                        init_method="env://")
-    return remesh(prefer_model=1, device_type=device.type)
+    return remesh(prefer_model=prefer_model, device_type=device.type)
 
 
 def main(argv=None):
@@ -88,7 +96,10 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", action="store_true",
                     help="one rank per process under a torch.distributed "
-                         "launch, data-parallel over the world")
+                         "launch, tensor-parallel over the mesh's 'model' "
+                         "axis and data-parallel over 'data'")
+    ap.add_argument("--prefer-model", type=int, default=16,
+                    help="largest 'model' axis --mesh builds (remesh)")
     ap.add_argument("--faults", default=None, metavar="SPEC",
                     help="fault-injection drill, e.g. "
                          "'slow@8:r3x4.0; kill@30:r1; readd@40; preempt@52'")
@@ -105,7 +116,16 @@ def main(argv=None):
     if cfg.frontend is not None or cfg.encdec:
         raise SystemExit(f"{args.arch} reads patches or frames, which the "
                          "token pipeline does not make")
-    mesh = make_mesh(device) if args.mesh else None
+    mesh = None
+    if args.mesh:
+        # the tensor-parallel forward is the dense family's
+        dense = cfg.family == "dense"
+        mesh = make_mesh(device, args.prefer_model if dense else 1)
+        why = "" if dense else (f": the {cfg.family} family's "
+                                "tensor-parallel forward is not ported "
+                                "(ROADMAP item 6)")
+        print(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))}{why}",
+              flush=True)
     # the Hopper kernels on the card; a CPU tensor runs each kernel's plain
     # version
     mcfg = MuonConfig(mode=args.opt, variant=args.variant,
@@ -148,8 +168,15 @@ def main(argv=None):
           f"loss_ema={float(loop.state.loss_ema):.4f} "
           f"avg_step={np.mean(report.step_times or [0.0])*1e3:.0f} ms")
     with torch.no_grad():
-        sums = {p: float(v.double().sum())
-                for p, v in tree.flatten(loop.state.params)}
+        sums = {p: v.double().sum() for p, v in tree.flatten(loop.state.params)}
+        if loop.specs is not None:
+            # a split parameter's sum is its parts' over the model axis
+            import torch.distributed as dist
+            group = mesh.get_group("model")
+            for p, spec in loop.specs.items():
+                if any(e is not None for e in spec):
+                    dist.all_reduce(sums[p], group=group)
+        sums = {p: float(v) for p, v in sums.items()}
     print("[result] " + json.dumps({
         "steps": report.steps, "executed_steps": report.executed_steps,
         "loss_ema": float(loop.state.loss_ema), "param_sums": sums,

@@ -12,10 +12,21 @@ Conventions kept from the reference so both packages compute the same thing:
     per-row block tables (``block_table``, the paged cache).  The
     reference donates them to its jitted functions; the port writes them
     in place and returns them as well.
+
+``attention``, ``mlp``, ``embed`` and ``unembed`` take ``tp``, a
+``models.tp.ModelParallel`` (default None, the one-card code path): their
+leaves are then this rank's parts as ``models.sharding.param_specs``
+splits them over the 'model' axis, and they issue the collectives GSPMD
+inserts in the reference (``models/tp.py``).  The caller passes ``tp`` to
+``mlp``, ``embed`` and ``unembed`` only where the specs split them (their
+width divides the axis); ``attention`` reads each projection's split off
+its config.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -23,7 +34,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as tp_lib
+
 Params = Dict[str, Any]
+
+# a function every random leaf ``normal`` draws passes through first
+# (``drawing``), or None
+_DRAW = contextvars.ContextVar("draw", default=None)
 
 
 # ---------------------------------------------------------------- utilities
@@ -51,11 +68,27 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    """Standard normal fp32 samples; shape-only (uninitialised) on ``meta``."""
+    """Standard normal fp32 samples; shape-only (uninitialised) on ``meta``.
+    Inside ``drawing(keep)`` the samples are ``keep(samples)``."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    keep = _DRAW.get()
+    return x if keep is None else keep(x)
+
+
+@contextlib.contextmanager
+def drawing(keep):
+    """Within the block every random leaf is ``keep(whole draw)`` as soon
+    as it is drawn: the generator draws what it always draws, and what the
+    init does next (a scale, a cast: elementwise) acts on what ``keep``
+    returned.  ``train.step.init_state`` keeps each leaf's shard, so one
+    whole leaf at a time is ever on the card."""
+    token = _DRAW.set(keep)
+    try:
+        yield
+    finally:
+        _DRAW.reset(token)
 
 
 def rmsnorm_init(d: int, *, lead: tuple = (), dtype=torch.float32,
@@ -75,12 +108,25 @@ def embed_init(gen, vocab: int, d: int, *, dtype=torch.float32,
     return {"embedding": (normal(gen, (vocab, d), device) * 0.02).to(dtype)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["embedding"])
+def embed(p: Params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token embeddings.  With ``tp`` the table is this rank's rows of the
+    vocab: tokens outside them look up nothing (zeros), and the sum over
+    the model axis is every token's row."""
+    if tp is None:
+        return F.embedding(tokens.long(), p["embedding"])
+    w = p["embedding"]
+    local = tokens.long() - tp.rank * w.shape[0]
+    outside = (local < 0) | (local >= w.shape[0])
+    rows = F.embedding(local.masked_fill(outside, 0), w)
+    return tp_lib.reduce_from_model(rows.masked_fill(outside[..., None], 0),
+                                    tp)
 
 
-def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied or untied output head: logits in fp32."""
+def unembed(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Tied or untied output head: logits in fp32.  With ``tp``, this
+    rank's vocab columns (B, S, V/tp)."""
+    if tp is not None:
+        x = tp_lib.copy_to_model(x, tp)
     return torch.matmul(x.float(), p["embedding"].float().mT)
 
 
@@ -117,6 +163,13 @@ class AttnConfig:
     rope_theta: float = 10000.0
     sliding_window: Optional[int] = None   # None = full causal
     causal: bool = True
+    # the reference's GSPMD pins of sequence-sharded attention
+    # (``src/repro/models/layers.py:116-119``): its activation batch axes
+    # and the axis its query rows split over.  The port's tensor-parallel
+    # attention shards the rows wherever the heads do not divide the model
+    # axis, whatever these say.
+    batch_axes: Optional[tuple] = None
+    seq_axis: Optional[str] = None
 
 
 def attention_init(gen, cfg: AttnConfig, *, lead: tuple = (),
@@ -312,7 +365,7 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
               xk: Optional[torch.Tensor] = None,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               pos=None, rope_cs=None, static_cache: bool = False,
-              block_table=None):
+              block_table=None, tp=None):
     """Self (``xk`` None) or cross attention with an optional KV cache, as
     the reference's ``attention``: self attention is causal, with the
     sliding window, unless ``cfg.causal`` is off, and rotary when
@@ -331,7 +384,15 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
     gathered (B, W·bs, KV, hd) view (self attention only).
 
     Returns the output (B, S, d), or (output, cache) when a cache is given.
+
+    tp: a ``models.tp.ModelParallel``: the training path's self attention
+    with the projections split over the model axis (``_attention_tp``).
     """
+    if tp is not None:
+        if cache is not None or xk is not None:
+            raise ValueError("tensor-parallel attention is the training "
+                             "path: self attention, no cache")
+        return _attention_tp(p, cfg, x, rope_cs, tp)
     if block_table is not None and (cache is None or xk is not None):
         raise ValueError("the paged cache is a self-attention cache path")
     B, S, _ = x.shape
@@ -369,6 +430,102 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
                     causal=True, window=cfg.sliding_window)
     out = linear(p["o_proj"], out.reshape(B, S, H * hd))
     return out if cache is None else (out, cache)
+
+
+def _whole(t: torch.Tensor, split: bool, tp) -> torch.Tensor:
+    """The whole (B, T, F) of a column projection's output on every rank,
+    for a computation of each rank's own: gathered (the backward
+    reduce-scatters the ranks' partial gradients) or, where it was whole,
+    passed through ``copy_to_model`` (the backward sums them)."""
+    if split:
+        return tp_lib.gather_from_model(t, tp, -1, reduce_grad=True)
+    return tp_lib.copy_to_model(t, tp)
+
+
+def _kv_groups(k: torch.Tensor, n_heads: int, tp) -> torch.Tensor:
+    """The KV heads that this rank's ``n_heads / tp`` query heads read,
+    from all of them (B, T, KV, hd): whole groups in order where the local
+    heads cover each group they touch equally (``_sdpa``'s grouping), else
+    one KV head per query head."""
+    KV = k.shape[2]
+    rep, local = n_heads // KV, n_heads // tp.size
+    groups = [(tp.rank * local + i) // rep for i in range(local)]
+    uniq = sorted(set(groups))
+    per = local // len(uniq)
+    if local % len(uniq) == 0 and groups == [uniq[i // per]
+                                             for i in range(local)]:
+        return k[:, :, uniq[0]:uniq[-1] + 1]
+    return k[:, :, groups]
+
+
+def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp):
+    """Self attention of the replicated (B, S, d) ``x`` with the
+    projections split by ``param_specs`` over the model axis: q / k / v
+    column-parallel (a projection whose width does not divide the axis is
+    whole on every rank), o row-parallel, its partial sums reduced once.
+    Three layouts (the reference's GSPMD choices,
+    ``src/repro/models/layers.py:358-383``):
+
+    * head-parallel, where ``n_heads`` and ``n_kv_heads`` divide the axis:
+      each rank attends with its own heads;
+    * KV-gathered, where only ``n_kv_heads`` does not: k and v are
+      gathered, each rank keeps the KV heads its query heads read;
+    * sequence-sharded, where ``n_heads`` does not (the reference's
+      ``seq_axis="model"`` pin): q goes to whole heads of this rank's S/tp
+      query rows (an all-to-all), k and v to whole heads of every row (a
+      gather), so a split that falls mid-head is undone before the
+      reshape; each rank attends its rows against every key at their own
+      causal offsets, and the all-to-all back gives o its feature split.
+
+    Rotary embeddings act within a head, so they follow the gathers; each
+    query row keeps its global position."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = tp.size
+    # column-parallel: a split projection takes this rank's columns from
+    # x through copy_to_model; a whole one is computed alike everywhere
+    x_in = tp_lib.copy_to_model(x, tp)
+    q_split, kv_split = tp.divides(H * hd), tp.divides(KV * hd)
+    q = linear(p["q_proj"], x_in if q_split else x)
+    k, v = (linear(p[n], x_in if kv_split else x)
+            for n in ("k_proj", "v_proj"))
+    cos_q, sin_q, cos_k, sin_k = rope_cs
+    scale = 1.0 / math.sqrt(hd)
+    if tp.divides(H):
+        q = q.reshape(B, S, H // n, hd)
+        if tp.divides(KV):
+            k, v = (t.reshape(B, S, KV // n, hd) for t in (k, v))
+        else:
+            k, v = (_kv_groups(_whole(t, kv_split, tp).reshape(B, S, KV, hd),
+                               H, tp) for t in (k, v))
+        q, k = apply_rope(q, cos_q, sin_q), apply_rope(k, cos_k, sin_k)
+        pos = torch.arange(S, device=x.device)
+        out = _sdpa(q, k, v, scale=scale, qpos=pos, kpos=pos,
+                    causal=cfg.causal, window=cfg.sliding_window)
+        out = out.reshape(B, S, (H // n) * hd)
+    else:
+        if S % n:
+            raise ValueError(f"sequence-sharded attention splits {S} "
+                             f"positions over {n} ranks")
+        rows = S // n
+        r0 = tp.rank * rows
+        q = tp_lib.features_to_seq(q, tp) if q_split else \
+            tp_lib.split_to_model(q, tp, 1)
+        q = apply_rope(q.reshape(B, rows, H, hd), cos_q[r0:r0 + rows],
+                       sin_q[r0:r0 + rows])
+        k, v = (_whole(t, kv_split, tp).reshape(B, S, KV, hd)
+                for t in (k, v))
+        k = apply_rope(k, cos_k, sin_k)
+        out = _sdpa(q, k, v, scale=scale,
+                    qpos=torch.arange(r0, r0 + rows, device=x.device),
+                    kpos=torch.arange(S, device=x.device),
+                    causal=cfg.causal, window=cfg.sliding_window)
+        out = out.reshape(B, rows, H * hd)
+        out = tp_lib.seq_to_features(out, tp) if q_split else \
+            tp_lib.gather_from_model(out, tp, 1)
+    if q_split:     # o_proj's rows split as q_proj's columns
+        return tp_lib.reduce_from_model(linear(p["o_proj"], out), tp)
+    return linear(p["o_proj"], out)
 
 
 # -------------------------------------------------------- MLA (DeepSeek-V3)
@@ -468,7 +625,12 @@ def mlp_init(gen, d: int, d_ff: int, act: str, *, lead: tuple = (),
     return p
 
 
-def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """The MLP of ``act``.  With ``tp``: up / gate column-parallel, down
+    row-parallel, its partial sums reduced over the model axis."""
+    if tp is not None:
+        return tp_lib.reduce_from_model(
+            mlp(p, tp_lib.copy_to_model(x, tp), act), tp)
     up = linear(p["up_proj"], x)
     if act == "swiglu":
         h = F.silu(linear(p["gate_proj"], x)) * up

@@ -132,18 +132,53 @@ def placements(spec: Spec, mesh) -> tuple:
     return tuple(out)
 
 
+def local_part(x, spec: Spec, mesh):
+    """This rank's part of ``x`` (the same full tensor on every rank) under
+    ``spec``: a view, no communication."""
+    for i, p in enumerate(placements(spec, mesh)):
+        if p.is_shard():
+            x = x.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return x
+
+
 def shard_of(x, spec: Spec, mesh):
     """``x`` (the same full tensor on every rank) as a ``DTensor`` placed
     by ``spec``: each rank keeps its own shard, no communication."""
     from torch.distributed.tensor import DTensor
-    pl = placements(spec, mesh)
-    local = x
-    for i, p in enumerate(pl):
-        if p.is_shard():
-            n = mesh.size(i)
-            local = local.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
-    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+    return DTensor.from_local(local_part(x, spec, mesh).contiguous(), mesh,
+                              placements(spec, mesh), run_check=False,
                               shape=x.shape, stride=x.stride())
+
+
+def placed(local, spec: Spec, mesh, shape):
+    """This rank's part ``local`` of a tensor of ``shape`` as the
+    ``DTensor`` ``spec`` places (no communication, no copy)."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def shard_range(spec: Spec, mesh, local_shape) -> Tuple[tuple, tuple, int,
+                                                          bool]:
+    """Where this rank's part of a leaf placed by ``spec`` sits: (the
+    leaf's shape, the part's start in each dim, its index among the parts,
+    whether this rank is the one that holds it first: coordinate 0 on
+    every mesh axis that does not split the leaf).  The index is
+    row-major over the splitting axes, in mesh order."""
+    shape, start = list(local_shape), [0] * len(local_shape)
+    index, writer = 0, True
+    pl = placements(spec, mesh)
+    for i, p in enumerate(pl):
+        r = mesh.get_local_rank(i)
+        if p.is_shard():
+            start[p.dim] = start[p.dim] * mesh.size(i) + r * local_shape[p.dim]
+            shape[p.dim] *= mesh.size(i)
+            index = index * mesh.size(i) + r
+        elif r:
+            writer = False
+    return tuple(shape), tuple(start), index, writer
 
 
 def place(params_tree, specs: Dict[str, Spec], mesh):

@@ -98,6 +98,13 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     remat: bool = True
+    # the reference's GSPMD activation pins
+    # (``src/repro/models/transformer.py:70-76``): the batch axes pinned at
+    # every block boundary, and the sequence-sharded attention axis.  The
+    # port's tensor-parallel forward (``forward(..., tp=...)``) decides its
+    # layout from the head counts and reads neither.
+    act_batch_axes: Optional[Tuple[str, ...]] = None
+    act_seq_axis: Optional[str] = None
 
     @property
     def hd(self) -> int:
@@ -107,7 +114,9 @@ class ArchConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                           self.hd, qkv_bias=self.qkv_bias,
                           rope_theta=self.rope_theta,
-                          sliding_window=self.sliding_window)
+                          sliding_window=self.sliding_window,
+                          batch_axes=self.act_batch_axes,
+                          seq_axis=self.act_seq_axis)
 
     def sub_quadratic(self) -> bool:
         """Eligible for the long_500k shape (the reference's rule)."""
@@ -221,15 +230,21 @@ def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
                  global_layer: bool = False, *, cache=None, ssm_state=None,
-                 pos=None, block_table=None):
+                 pos=None, block_table=None, tp=None):
     """Residual block; ``global_layer`` drops the sliding window (hymba's
     ``global_layers``, the reference's per-layer window flag).  With this
     layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``
     (through ``block_table`` for a paged cache), returns
-    (x, cache, new_ssm_state); x alone otherwise."""
+    (x, cache, new_ssm_state); x alone otherwise.  With ``tp`` (the dense
+    family's training path) the block's leaves are this rank's parts and
+    ``x`` is replicated over the model axis: the attention and the MLP each
+    reduce their row-parallel partial sums once, before the residual
+    add."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     kw = {} if cache is None else dict(cache=cache, pos=pos,
                                        block_table=block_table)
+    if tp is not None:
+        kw["tp"] = tp
     if cfg.attn_kind == "mla":
         attn_out = layers.mla_attention(p["attn"], cfg.mla, h,
                                         rope_cs=rope_cs, **kw)
@@ -255,8 +270,21 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
     if cfg.moe is not None:
         x = x + moe_lib.moe(p["moe"], cfg.moe, h)
     else:
-        x = x + layers.mlp(p["mlp"], h, cfg.act)
+        x = x + layers.mlp(p["mlp"], h, cfg.act, tp=_split(tp, cfg.d_ff))
     return x if cache is None else (x, cache, ssm_state)
+
+
+def _split(tp, width: int):
+    """``tp`` where ``param_specs`` splits a leaf of ``width`` over the
+    model axis, else None (the leaf is whole on every rank)."""
+    return tp if tp is not None and tp.divides(width) else None
+
+
+def _check_tp(cfg: ArchConfig, tp) -> None:
+    if tp is not None and tp.size > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the tensor-parallel forward of the {cfg.family} family is not "
+            "ported (ROADMAP item 6); train it on a (world, 1) mesh")
 
 
 def _xlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
@@ -309,15 +337,28 @@ def apply_layer(body, x: torch.Tensor, *args, remat: bool) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+            frames: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """Training forward: (B, S) tokens -> (B, S, vocab) fp32 logits.  With
     a frontend, the projected ``patches`` (or ``frames``) (B, P, F) are
     prepended to the token embeddings, and the logits cover the S token
     positions only (the reference cuts its full-sequence logits to them;
-    norm and head act per position, so the port cuts before them)."""
+    norm and head act per position, so the port cuts before them).
+
+    ``tp`` (a ``models.tp.ModelParallel``; dense family only): the
+    tensor-parallel forward (``src/repro/models/transformer.py:310-335``
+    under GSPMD).  ``params`` are this rank's parts as
+    ``models.sharding.param_specs`` places them, the activations between
+    blocks replicated over the model axis, and the logits this rank's
+    (B, S, V/tp) vocab columns where the vocab divides the axis (whole
+    otherwise).  Under ``remat`` the recompute issues each block's
+    collectives again, in the same order (non-reentrant checkpointing)."""
     _check_decoder(cfg)
+    _check_tp(cfg, tp)
+    if cfg.family != "dense":
+        tp = None
+    vocab_tp = _split(tp, cfg.vocab)
     x = _embed(cfg, params, tokens, patches if patches is not None
-               else frames)
+               else frames, tp=vocab_tp)
     n_prefix = x.shape[1] - tokens.shape[1]
     if cfg.family == "ssm":
         x = _xlstm_forward(cfg, params, x)
@@ -327,11 +368,12 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
         for l, bp in enumerate(unbound_layers(params["blocks"])):
             body = functools.partial(
                 _block_apply, cfg, bp, rope_cs=rope_cs,
-                global_layer=hybrid and l in cfg.global_layers)
+                global_layer=hybrid and l in cfg.global_layers,
+                **({} if tp is None else {"tp": tp}))
             x = apply_layer(body, x, remat=cfg.remat)
     x = layers.rmsnorm(params["final_norm"], x[:, n_prefix:], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return layers.unembed(head, x)
+    return layers.unembed(head, x, tp=vocab_tp)
 
 
 def _xlstm_forward(cfg: ArchConfig, params: Params,
@@ -472,10 +514,12 @@ def _cache_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
 
 
 def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-           prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+           prefix: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, after the projected frontend
-    ``prefix`` (patches or frames) where given."""
-    x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
+    ``prefix`` (patches or frames) where given; with ``tp``, from this
+    rank's vocab rows (``layers.embed``)."""
+    x = layers.embed(params["embed"], tokens, tp=tp).to(
+        as_dtype(cfg.compute_dtype))
     if cfg.frontend is not None and prefix is not None:
         pe = frontend(params["frontend_proj"], prefix.to(x.dtype))
         x = torch.cat([pe, x], dim=1)

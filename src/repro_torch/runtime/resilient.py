@@ -30,7 +30,11 @@ recovery behaviours:
   run replays batch k, k+1, ... exactly and, if the owner count changed in
   between, reshards the restored state onto the live plan.  Under a mesh a
   job restarted at another world size (a new process group) restores the
-  same way (``resume=True``).
+  same way (``resume=True``).  Under tensor parallelism (a 'model' axis of
+  more than one rank: ``train/step.py``) each parameter, and the AdamW
+  moments (and the gather baseline's momentum) placed like it, are saved
+  as their parts and restored whole, then cut to the live mesh's parts:
+  a checkpoint of one layout restores into any other.
 
 Invariant (tests/test_torch_resilience.py): the *logical* optimizer
 trajectory — params, loss curve, and the unpacked per-matrix rows of
@@ -58,6 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.sharding import local_part, param_specs, shard_range
+from repro_torch.models.tp import model_extent
 from repro_torch.runtime.elastic import StepTimer, StragglerMonitor
 from repro_torch.runtime.faults import (FaultInjector, FaultPlan, OwnerLost,
                                         Preemption)
@@ -112,7 +118,8 @@ class ResilientLoop:
     def __init__(self, model_cfg, data_cfg, *, muon=None, run=None,
                  num_owners: int = 1, mesh=None, ckpt_dir: Optional[str] = None,
                  ckpt_keep: int = 3, faults: Optional[FaultPlan] = None,
-                 resume: bool = False, log=None, device: DeviceLike = None):
+                 resume: bool = False, log=None, device: DeviceLike = None,
+                 tensor_parallel: Optional[bool] = None):
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.core.muon import MuonConfig
         from repro_torch.data.pipeline import Pipeline
@@ -130,6 +137,14 @@ class ResilientLoop:
 
         self.shapes = model_fns(model_cfg).init(model_cfg, self.rcfg.seed,
                                                 device="meta")
+        # the parameters' specs where the step is tensor-parallel (by
+        # default where the mesh's model axis has more than one rank)
+        self.specs = None
+        if tensor_parallel is None:
+            tensor_parallel = model_extent(mesh) > 1
+        self.tensor_parallel = tensor_parallel and mesh is not None
+        if self.tensor_parallel and model_extent(mesh) > 1:
+            self.specs = param_specs(model_cfg, self.shapes, mesh)
         self._step_cache: dict = {}      # plan signature -> step function
         self._install(self._plan_for(num_owners=num_owners))
         self._plan_speed = np.ones(self.num_owners)
@@ -144,7 +159,8 @@ class ResilientLoop:
             threshold=self.rcfg.threshold)
 
         self.state = init_state(model_cfg, self.opt, self.rcfg.seed,
-                                self.device, mesh=mesh)
+                                self.device, mesh=mesh,
+                                tensor_parallel=self.tensor_parallel)
         self.pipe = Pipeline(data_cfg, mesh=mesh, start_step=0,
                              device=self.device)
         if resume and self.mgr is not None and self.mgr.latest_step():
@@ -181,7 +197,8 @@ class ResilientLoop:
         if sig not in self._step_cache:
             self._step_cache[sig] = make_train_step(
                 self.model_cfg, self.opt, self.mesh,
-                accum_steps=self.rcfg.accum_steps, device=self.device)
+                accum_steps=self.rcfg.accum_steps, device=self.device,
+                tensor_parallel=self.tensor_parallel)
         self.step_fn = self._step_cache[sig]
 
     def _owner_state(self) -> bool:
@@ -206,11 +223,32 @@ class ResilientLoop:
                          OwnerLayout(self.plan, self.mesh).owner_index(),
                          self.num_owners)
 
+    def _parts(self, tree) -> Optional[dict]:
+        """{checkpoint path: LeafPart} of this rank's parts in ``tree``
+        under tensor parallelism: every split parameter, and the AdamW
+        moments (and the gather baseline's momentum) placed like it."""
+        from repro_torch.checkpoint.manager import LeafPart, _flatten
+        if self.specs is None:
+            return None
+        prefixes = ["train/params", "train/opt_state/adamw/mu",
+                    "train/opt_state/adamw/nu"]
+        if not self._owner_state():
+            prefixes.append("train/opt_state/momentum")
+        placed = {f"{pre}/{p}": spec for pre in prefixes
+                  for p, spec in self.specs.items()
+                  if any(e is not None for e in spec)}
+        leaves: list = []
+        _flatten(tree, (), leaves)
+        return {path: LeafPart(*shard_range(placed[path], self.mesh,
+                                            tuple(leaf.shape)))
+                for path, leaf in leaves if path in placed}
+
     def _save_checkpoint(self, step: int, *, block: bool = False) -> None:
         if self.mgr is None:
             return
-        self.mgr.save(step, self._checkpoint_tree(), block=block,
-                      row_blocks=self._row_blocks())
+        tree = self._checkpoint_tree()
+        self.mgr.save(step, tree, block=block, row_blocks=self._row_blocks(),
+                      parts=self._parts(tree))
         self.report.checkpoints.append(step)
 
     def _restore_from_checkpoint(self) -> int:
@@ -222,7 +260,9 @@ class ResilientLoop:
         from repro_torch.core.owner_comms import OwnerLayout
         from repro_torch.train.train_state import TrainState
         tree = self.mgr.restore(like=self._checkpoint_tree())
-        state = TrainState(**tree["train"])
+        train = tree["train"] if self.specs is None else \
+            self._cut_to_parts(tree["train"])
+        state = TrainState(**train)
         opt_state = state.opt_state
         if self._owner_state():
             saved_owners = int(np.asarray(tree["meta"]["num_owners"]))
@@ -243,6 +283,26 @@ class ResilientLoop:
                                 state.loss_ema)
         self.pipe.restore(tree["data"])
         return self.state.step
+
+    def _cut_to_parts(self, train: dict) -> dict:
+        """The restored (whole) train tree with each parameter, and the
+        state placed like it, cut to this rank's part."""
+        from repro_torch.core import tree
+
+        def cut(p, v, grad=False):
+            return local_part(v.detach(), self.specs[p], self.mesh).clone() \
+                .requires_grad_(grad)
+        st = train["opt_state"]
+        adamw = st.adamw._replace(
+            mu={p: cut(p, v) for p, v in st.adamw.mu.items()},
+            nu={p: cut(p, v) for p, v in st.adamw.nu.items()})
+        momentum = st.momentum if self._owner_state() else \
+            {p: cut(p, v) for p, v in st.momentum.items()}
+        return {**train, "opt_state": st._replace(adamw=adamw,
+                                                  momentum=momentum),
+                "params": tree.rebuild(train["params"], {
+                    p: cut(p, v, True)
+                    for p, v in tree.flatten(train["params"])})}
 
     # ----------------------------------------------------------- recovery
 
@@ -322,7 +382,8 @@ class ResilientLoop:
             from repro_torch.train.step import init_state
             self.state = init_state(self.model_cfg, self.opt,
                                     self.rcfg.seed, self.device,
-                                    mesh=self.mesh)
+                                    mesh=self.mesh,
+                                    tensor_parallel=self.tensor_parallel)
             self.pipe.seek(0)
         self._sync()
         latency = time.perf_counter() - t0
@@ -429,3 +490,4 @@ class ResilientLoop:
         self.report.steps = step
         self.report.final_owner_count = self.num_owners
         return self.report
+

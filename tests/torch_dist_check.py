@@ -17,6 +17,12 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 1,2 --out DIR/restore
     python tests/torch_dist_check.py moe --rank R --world W \\
         --port P --mesh 2,2 --out DIR
+    python tests/torch_dist_check.py tp --rank R --world W \\
+        --port P --mesh 1,4 --out DIR [--configs qwen256,smollm3h]
+    python tests/torch_dist_check.py tp_restore --rank R --world W \\
+        --port P --mesh 2,1 --out DIR/restore
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/torch_dist_check.py jax_tp --mesh 1,4 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python tests/torch_dist_check.py jax --mesh 2,4 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -37,7 +43,11 @@ another mesh (the checkpoint of DIR's parent); ``moe`` runs 2 Muon steps
 of the reduced Kimi-K2 with its expert leaves sharded on E over "model"
 (expert parallelism), replicated, and data-parallel; ``jax`` runs
 the reference's own multi-device owner update on an Auto-axis mesh, and
-``jax_moe`` its update of ``moe``'s parameters and gradients.  Each
+``jax_moe`` its update of ``moe``'s parameters and gradients; ``tp``
+runs the tensor-parallel train step of the dense family (``TP_CONFIGS``)
+against its one-process run, and ``models/tp.py``'s Functions, and saves
+a checkpoint that ``tp_restore`` resumes on another mesh; ``jax_tp`` runs
+the reference's sharded train step on the same inputs.  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
@@ -94,10 +104,10 @@ def dist_grads(seed: int = 1) -> dict:
 
 
 def launch(mode: str, world: int, mesh: tuple, out: Path,
-           timeout: float = 240.0) -> None:
+           timeout: float = 240.0, extra: tuple = ()) -> None:
     """Run ``mode`` on ``world`` gloo ranks (one process each, logs in
-    ``out``); raise with the logs if one fails or the deadline passes, and
-    leave no process behind."""
+    ``out``, ``extra`` appended to each command line); raise with the logs
+    if one fails or the deadline passes, and leave no process behind."""
     from repro_torch.launch.mesh import free_port
     out.mkdir(parents=True, exist_ok=True)
     port = free_port()
@@ -108,7 +118,7 @@ def launch(mode: str, world: int, mesh: tuple, out: Path,
         procs.append(subprocess.Popen(
             [sys.executable, __file__, mode, "--rank", str(r), "--world",
              str(world), "--port", str(port), "--mesh",
-             ",".join(map(str, mesh)), "--out", str(out)],
+             ",".join(map(str, mesh)), "--out", str(out), *extra],
             env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
     try:
@@ -132,17 +142,18 @@ def launch(mode: str, world: int, mesh: tuple, out: Path,
 
 
 def run_jax(mesh: tuple, out: Path, timeout: float = 240.0,
-            mode: str = "jax") -> None:
-    """The reference's owner update (``mode`` "jax" or "jax_moe") on
-    ``mesh`` host devices, into ``out/jax.npz``."""
+            mode: str = "jax", extra: tuple = ()) -> None:
+    """The reference's owner update (``mode`` "jax" or "jax_moe") or
+    sharded train step ("jax_tp") on ``mesh`` host devices, into
+    ``out/jax.npz``."""
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count="
                          f"{int(np.prod(mesh))}")
     proc = subprocess.run(
         [sys.executable, __file__, mode, "--mesh", ",".join(map(str, mesh)),
-         "--out", str(out)], env=env, capture_output=True, text=True,
-        timeout=timeout)
+         "--out", str(out), *extra], env=env, capture_output=True,
+        text=True, timeout=timeout)
     if proc.returncode != 0:
         raise AssertionError(f"jax reference failed:\n{proc.stdout}\n"
                              f"{proc.stderr[-4000:]}")
@@ -336,8 +347,10 @@ def train_rank(args) -> None:
     def train(m):
         plan = api.dedicate_params(shapes, mesh=m)
         opt = api.Muon(plan, m, config=mcfg, device="cpu")
-        state = init_state(cfg, opt, seed=0, device="cpu", mesh=m)
-        step = make_train_step(cfg, opt, m, device="cpu")
+        state = init_state(cfg, opt, seed=0, device="cpu", mesh=m,
+                           tensor_parallel=False)
+        step = make_train_step(cfg, opt, m, device="cpu",
+                               tensor_parallel=False)
         losses = []
         for i in range(3):
             state = step(state, batch_for_step(dcfg, i, device="cpu",
@@ -570,9 +583,11 @@ def pipeline_rank(args) -> None:
         opt = api.Muon(tplan, mesh, config=MuonConfig(
             learning_rate=0.02, momentum=0.95, pipeline="bucketed"),
             device="cpu")
-        state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+        state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
+                           tensor_parallel=False)
         step = make_train_step(cfg, opt, mesh, accum_steps=2,
-                               prestage=prestage, device="cpu")
+                               prestage=prestage, device="cpu",
+                               tensor_parallel=False)
         losses[str(prestage)] = []
         for i in range(2):
             before = {p: v.detach().clone()
@@ -598,9 +613,12 @@ def pipeline_rank(args) -> None:
     # 5
     opt = api.Muon(tplan, mesh, config=MuonConfig(variant="adamw"),
                    device="cpu")
-    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
-    step = make_train_step(cfg, opt, mesh, device="cpu")
-    ref = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
+                       tensor_parallel=False)
+    step = make_train_step(cfg, opt, mesh, device="cpu",
+                           tensor_parallel=False)
+    ref = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
+                     tensor_parallel=False)
     loss_fn = make_loss_fn(cfg)
     data = mesh.get_group(0)
     ref_adamw = ref.opt_state.adamw
@@ -656,7 +674,7 @@ def _resilient_loop(mesh, ckpt_dir=None, *, faults=None, steps=CKPT_STEPS,
         run=ResilientConfig(steps=steps, ckpt_every=steps, **run),
         mesh=mesh, ckpt_dir=None if ckpt_dir is None else str(ckpt_dir),
         faults=None if faults is None else FaultPlan.parse(faults),
-        resume=resume, device="cpu")
+        resume=resume, device="cpu", tensor_parallel=False)
 
 
 def _owner_arrays(loop) -> dict:
@@ -951,11 +969,421 @@ def jax_reference(args) -> None:
     np.savez(Path(args.out) / "jax.npz", **arrays)
 
 
+# ------------------------------------------------------ tensor parallelism
+
+# the configs of the tensor-parallel step: head-parallel with the vocab
+# split (its 2 KV heads gathered at model 4), sequence-sharded (3 heads),
+# and head-parallel without a vocab split; ``guarded`` (model 4 only)
+# leaves every leaf whole where param_specs' guard keeps it: q / k / v / o
+# (18 and 6 columns), the MLP (30) and the vocab (257)
+TP_CONFIGS = {
+    "qwen256": ("qwen2.5-14b", dict(vocab=256)),
+    "smollm3h": ("smollm-360m", dict(d_model=48, n_heads=3, n_kv_heads=1,
+                                     head_dim=16)),
+    "qwen257": ("qwen2.5-14b", {}),
+    "guarded": ("smollm-360m", dict(d_model=20, n_heads=3, n_kv_heads=1,
+                                    head_dim=6, d_ff=30)),
+}
+TP_STEPS, TP_BATCH, TP_SEQ = 3, 4, 16
+TP_LR, TP_MOMENTUM = 0.02, 0.95
+TP_CKPT = "qwen256"
+
+
+def tp_config(name: str, jax: bool = False):
+    arch, kw = TP_CONFIGS[name]
+    if jax:
+        from repro import configs
+    else:
+        from repro_torch import configs
+    return configs.get(arch, reduced=True, **kw)
+
+
+def tp_params(name: str) -> dict:
+    """``name``'s parameters drawn with numpy, leaf by leaf in path order
+    (the same in both packages): weights N(0, 1/fan_in), embeddings
+    N(0, 0.02²), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²)."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(0)
+    flat = {}
+    for p, v in tree.flatten(transformer.init(tp_config(name),
+                                              device="meta")):
+        shape, leaf = tuple(v.shape), p.rsplit("/", 1)[-1]
+        x = rng.standard_normal(shape)
+        if leaf == "w":
+            x = x / np.sqrt(shape[-2])
+        elif leaf == "norm_scale":
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.02 * x
+        flat[p] = x.astype(np.float32)
+    return _nest(flat)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for p, v in flat.items():
+        *parents, last = p.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def tp_batch(name: str, step: int) -> dict:
+    """Global batch ``step``: tokens and next-token labels."""
+    vocab = tp_config(name).vocab
+    rng = np.random.default_rng(100 + step)
+    seq = rng.integers(0, vocab, (TP_BATCH, TP_SEQ + 1))
+    return {"tokens": seq[:, :-1].astype(np.int32),
+            "labels": seq[:, 1:].astype(np.int32)}
+
+
+def tp_muon_config():
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    return MuonConfig(mode="owner", learning_rate=TP_LR,
+                      momentum=TP_MOMENTUM,
+                      ns=GramNSConfig(num_steps=NS_STEPS))
+
+
+def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
+    """The port's train step of ``name`` from the numpy parameters
+    ``params_np``: tensor-parallel over ``mesh`` (its 'model' axis, even of
+    one rank), or in one process without a mesh.  Returns whole tensors:
+    {quantity: {path: tensor}} for ``chip_smoke.tp_gate``, plus the
+    per-step ``loss_ema``, the gradients' placements and whether each
+    AdamW moment is shaped as its parameter's part."""
+    import torch
+
+    from repro_torch.core import api, tree
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import (local_batch, local_part,
+                                             param_specs)
+    from repro_torch.train.step import make_train_step, placed_params
+    from repro_torch.train.train_state import TrainState
+
+    cfg = tp_config(name)
+    shapes = transformer.init(cfg, device="meta")
+    plan = api.dedicate_params(shapes, mesh=mesh, strategy="greedy")
+    opt = api.Muon(plan, mesh, config=tp_muon_config(), device="cpu")
+    full = tree.tree_map(torch.from_numpy, params_np)
+    specs = None if mesh is None else param_specs(cfg, shapes, mesh)
+    params = tree.tree_map(lambda v: v.clone().requires_grad_(True), full) \
+        if mesh is None else tree.rebuild(full, {
+            p: local_part(v, specs[p], mesh).clone().requires_grad_(True)
+            for p, v in tree.flatten(full)})
+    state = TrainState(0, params, opt.init(
+        params if mesh is None else placed_params(params, specs, mesh)),
+        torch.zeros(()))
+    step = make_train_step(cfg, opt, mesh, device="cpu", grad_specs=specs)
+    first = {}
+    update = opt.update
+
+    def captured(grads, *a, **kw):
+        out = update(grads, *a, **kw)
+        if not first:
+            first["grads"] = {p: _full(g) for p, g in tree.flatten(grads)}
+            first["placements"] = {
+                p: [str(q) for q in g.placements] if hasattr(
+                    g, "placements") else None
+                for p, g in tree.flatten(grads)}
+            first["updates"] = {p: _full(u) for p, u in tree.flatten(out[0])}
+        return out
+    opt.update = captured
+    ema = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 tp_batch(name, i).items()}
+        if mesh is not None:
+            batch = {k: local_batch(v, mesh) for k, v in batch.items()}
+        state = step(state, batch)
+        ema.append(float(state.loss_ema))
+    del opt.update
+
+    def whole(p, v):
+        return v.detach() if mesh is None else _full(
+            placed_params({"x": v}, {"x": specs[p]}, mesh)["x"])
+    adamw_local = {p: list(v.shape) for p, v in
+                   state.opt_state.adamw.mu.items()}
+    local = {p: list(v.shape) for p, v in tree.flatten(state.params)}
+    return {"loss": {"": torch.tensor(ema[0])},
+            "grads": first["grads"], "updates": first["updates"],
+            "params": {p: whole(p, v) for p, v in
+                       tree.flatten(state.params)},
+            "loss_ema": {"": torch.tensor(ema[-1])},
+            "ema": ema, "placements": first["placements"],
+            "adamw_local_shapes": adamw_local == {
+                p: local[p] for p in adamw_local},
+            "specs": None if specs is None else
+            {p: list(s) for p, s in specs.items()}}
+
+
+def ulp_params(params_np: dict, rng=None) -> dict:
+    """``params_np`` with a random half of every leaf's entries one ulp
+    up."""
+    rng = rng or np.random.default_rng(11)
+
+    def up(x):
+        if isinstance(x, dict):
+            return ulp_params(x, rng)
+        half = rng.random(x.shape) < 0.5
+        return np.where(half, np.nextafter(x, np.float32(np.inf)), x)
+    return {k: up(v) for k, v in params_np.items()}
+
+
+def _tp_functions(mesh) -> dict:
+    """Each Function of ``models/tp.py`` on this rank of a model axis of
+    two, float64, against the unsplit computation: max|Δ| of the forward
+    and of the gradient."""
+    import torch
+
+    from repro_torch.models import tp as T
+    mp = T.model_parallel(mesh)
+    n, r = mp.size, mp.rank
+    rng = np.random.default_rng(7)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape))
+    X = draw(2, 8, 6)                      # (B, S, F), the same everywhere
+    R = [draw(2, 8, 6) for _ in range(n)]  # each rank's loss weights
+
+    def chunk(t, dim, i):
+        return t.chunk(n, dim=dim)[i]
+
+    def run(fn, x, weight):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        (y * weight).sum().backward()
+        return y.detach(), x.grad
+
+    def err(a, b):
+        return float((a - b).abs().max())
+    out = {}
+    # copy: replicated X used by each rank's own loss; dL/dX = sum_r R_r
+    y, g = run(lambda x: T.copy_to_model(x, mp), X, R[r])
+    out["copy_to_model"] = [err(y, X), err(g, sum(R))]
+    # reduce: rank parts X_r summed; one replicated loss R_0
+    parts = [draw(2, 8, 6) for _ in range(n)]
+    y, g = run(lambda x: T.reduce_from_model(x, mp), parts[r], R[0])
+    out["reduce_from_model"] = [err(y, sum(parts)), err(g, R[0])]
+    for dim in (1, -1):
+        y, g = run(lambda x: T.gather_from_model(x, mp, dim),
+                   chunk(X, dim, r), R[0])
+        out[f"gather_from_model_{dim}"] = [err(y, X),
+                                           err(g, chunk(R[0], dim, r))]
+        y, g = run(lambda x: T.gather_from_model(x, mp, dim,
+                                                 reduce_grad=True),
+                   chunk(X, dim, r), R[r])
+        out[f"gather_from_model_reduce_grad_{dim}"] = [
+            err(y, X), err(g, chunk(sum(R), dim, r))]
+        y, g = run(lambda x: T.split_to_model(x, mp, dim), X,
+                   chunk(R[r], dim, r))
+        out[f"split_to_model_{dim}"] = [
+            err(y, chunk(X, dim, r)),
+            err(g, torch.cat([chunk(R[i], dim, i) for i in range(n)], dim))]
+    # the all-to-alls: one loss sum(X * R_0) split either way
+    y, g = run(lambda x: T.seq_to_features(x, mp), chunk(X, 1, r),
+               chunk(R[0], 2, r))
+    out["seq_to_features"] = [err(y, chunk(X, 2, r)),
+                              err(g, chunk(R[0], 1, r))]
+    y, g = run(lambda x: T.features_to_seq(x, mp), chunk(X, 2, r),
+               chunk(R[0], 1, r))
+    out["features_to_seq"] = [err(y, chunk(X, 1, r)),
+                              err(g, chunk(R[0], 2, r))]
+    return out
+
+
+def _tp_ckpt_loop(mesh, ckpt_dir, *, resume: bool = False):
+    """The resilient loop on ``TP_CKPT`` (Muon with AdamW leaves split:
+    biases and the embedding), 2 steps, a checkpoint at the end."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
+    cfg = tp_config(TP_CKPT)
+    return ResilientLoop(
+        cfg, DataConfig(vocab=cfg.vocab, seq_len=TP_SEQ,
+                        global_batch=TP_BATCH),
+        muon=tp_muon_config(), run=ResilientConfig(steps=2, ckpt_every=2),
+        mesh=mesh, ckpt_dir=str(ckpt_dir), resume=resume, device="cpu")
+
+
+def _tp_ckpt_arrays(loop) -> dict:
+    """The loop's parameters and AdamW moments, whole."""
+    import torch
+
+    from repro_torch.core import tree
+    st = loop.state
+    out = {"step": np.asarray(st.step),
+           "loss_ema": np.asarray(float(st.loss_ema))}
+    specs = loop.specs
+    for prefix, t in (("params", st.params), ("mu", st.opt_state.adamw.mu),
+                      ("nu", st.opt_state.adamw.nu)):
+        for p, v in tree.flatten(t):
+            v = v.detach()
+            if specs is not None:
+                from repro_torch.train.step import placed_params
+                v = _full(placed_params({"x": v}, {"x": specs[p]},
+                                        loop.mesh)["x"])
+            out[f"{prefix}/{p}"] = v.to(torch.float32).numpy()
+    return out
+
+
+def tp_rank(args) -> None:
+    """The tensor-parallel step on a ("data", "model") mesh.
+
+    1. On a model axis of two (mesh (1, 2)): each Function of
+       ``models/tp.py`` against the unsplit float64 computation.
+    2. Each of ``args.configs`` trained ``TP_STEPS`` steps from
+       ``tp_params`` on ``tp_batch``: loss_ema per step, step 1's
+       gradients (and their placements) and updates, the last parameters;
+       whether the AdamW moments are shaped as the parameters' parts and
+       ``init_state``'s parts are the slices of the one-process ``init``.
+       Rank 0 also runs each in one process, and from the parameters one
+       ulp up, and holds the mesh run to them (``chip_smoke.tp_gate``).
+    3. At (1, 2): the resilient loop on ``TP_CKPT`` with a checkpoint into
+       DIR/ckpt, its whole parameters and AdamW moments saved.
+    ``--train-only``: 2 alone, without the one-process runs and the
+    ``init_state`` check."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.core import api, tree
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import local_part, param_specs
+    from repro_torch.train.step import init_state
+
+    mesh = _setup(args)
+    info, arrays = {"rank": args.rank, "configs": {}}, {}
+    extras = not args.train_only
+    if extras and tuple(args.mesh) == (1, 2):
+        info["functions"] = _tp_functions(mesh)
+    for name in args.configs.split(","):
+        cfg = tp_config(name)
+        params_np = tp_params(name)
+        got = tp_train(name, mesh, params_np)
+        row = {"ema": got["ema"], "placements": got["placements"],
+               "specs": got["specs"],
+               "adamw_local_shapes": got["adamw_local_shapes"]}
+        if args.rank == 0:
+            arrays.update({f"{name}/params/{p}": v.numpy()
+                           for p, v in got["params"].items()})
+        info["configs"][name] = row
+        if not extras:
+            continue
+        # init_state's parts against the one-process init's slices
+        shapes = transformer.init(cfg, device="meta")
+        opt = api.Muon(api.dedicate_params(shapes, mesh=mesh), mesh,
+                       config=tp_muon_config(), device="cpu")
+        st = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+        specs = param_specs(cfg, shapes, mesh)
+        whole = dict(tree.flatten(transformer.init(cfg, 0, "cpu")))
+        row["init_parts_bitwise"] = all(
+            torch.equal(v.detach(), local_part(whole[p], specs[p], mesh))
+            for p, v in tree.flatten(st.params))
+        row["local_numel"] = sum(v.numel() for _, v in
+                                 tree.flatten(st.params))
+        if args.rank == 0:
+            ref = tp_train(name, None, params_np)
+            spread = tp_train(name, None, ulp_params(params_np))
+            keep = chip_smoke.TP_QUANTITIES
+            gate = chip_smoke.tp_gate(torch, {k: got[k] for k in keep},
+                                      {k: ref[k] for k in keep},
+                                      {k: spread[k] for k in keep})
+            row.update({"gate": gate, "single_ema": ref["ema"],
+                        "single_placements": ref["placements"]})
+    if extras and tuple(args.mesh) == (1, 2):
+        loop = _tp_ckpt_loop(mesh, Path(args.out) / "ckpt")
+        loop.run()
+        loop.mgr.wait()
+        arrays.update({f"ckpt/{k}": v
+                       for k, v in _tp_ckpt_arrays(loop).items()})
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def tp_restore_rank(args) -> None:
+    """Resume the ``tp`` mode's checkpoint (DIR's parent/ckpt) on this
+    mesh and, on rank 0, in one process: whole parameters and AdamW
+    moments saved (``restored/``, ``single/``)."""
+    mesh = _setup(args)
+    ckpt = Path(args.out).parent / "ckpt"
+    loop = _tp_ckpt_loop(mesh, ckpt, resume=True)
+    loop.pipe.close()
+    arrays = {f"restored/{k}": v for k, v in _tp_ckpt_arrays(loop).items()}
+    if args.rank == 0:
+        one = _tp_ckpt_loop(None, ckpt, resume=True)
+        one.pipe.close()
+        arrays.update({f"single/{k}": v
+                       for k, v in _tp_ckpt_arrays(one).items()})
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(
+        json.dumps({"rank": args.rank}))
+
+
+def jax_tp_reference(args) -> None:
+    """The reference's sharded train step (``init_state``'s placements,
+    ``make_train_step(..., grad_specs=param_specs(...))``) of each of
+    ``args.configs`` on an Auto-axis mesh of ``args.mesh``, from
+    ``tp_params`` on ``tp_batch``, ``TP_STEPS`` steps: loss_ema per step
+    and the last parameters, into ``jax.npz``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as Pspec
+
+    from repro.core import api
+    from repro.core.gram_ns import GramNSConfig
+    from repro.core.muon import MuonConfig
+    from repro.models.sharding import batch_spec, param_specs
+    from repro.train.step import make_train_step
+    from repro.train.train_state import TrainState
+
+    n = int(np.prod(args.mesh))
+    mesh = jax.make_mesh(tuple(args.mesh), AXES,
+                         axis_types=(AxisType.Auto,) * len(AXES),
+                         devices=jax.devices()[:n])
+    arrays = {}
+    for name in args.configs.split(","):
+        cfg = tp_config(name, jax=True)
+        params = jax.tree.map(jnp.asarray, tp_params(name))
+        specs = param_specs(cfg, params, mesh)
+        params = jax.device_put(params, jax.tree.map(
+            lambda s: NamedSharding(mesh, s), specs,
+            is_leaf=lambda x: isinstance(x, Pspec)))
+        plan = api.dedicate_params(params, mesh=mesh, strategy="greedy")
+        opt = api.Muon(plan, mesh=mesh, config=MuonConfig(
+            mode="owner", learning_rate=TP_LR, momentum=TP_MOMENTUM,
+            ns=GramNSConfig(num_steps=NS_STEPS)))
+        state = TrainState(jnp.zeros((), jnp.int32), params,
+                           jax.jit(opt.init)(params),
+                           jnp.zeros((), jnp.float32))
+        step = make_train_step(cfg, opt, mesh, grad_specs=specs)
+        ema = []
+        for i in range(TP_STEPS):
+            batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(
+                mesh, Pspec(*batch_spec(mesh, TP_BATCH), None)))
+                for k, v in tp_batch(name, i).items()}
+            state = step(state, batch)
+            ema.append(float(state.loss_ema))
+        arrays[f"{name}/ema"] = np.asarray(ema)
+        for kp, v in jax.tree_util.tree_leaves_with_path(state.params):
+            path = "/".join(str(getattr(k, "key", k)) for k in kp)
+            arrays[f"{name}/params/{path}"] = np.asarray(jax.device_get(v))
+    np.savez(Path(args.out) / "jax.npz", **arrays)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
                                      "checkpoint", "restore", "moe", "jax",
-                                     "jax_moe"))
+                                     "jax_moe", "tp", "tp_restore",
+                                     "jax_tp"))
+    ap.add_argument("--configs", default=",".join(TP_CONFIGS),
+                    help="tp / jax_tp: comma-separated TP_CONFIGS names")
+    ap.add_argument("--train-only", action="store_true",
+                    help="tp: the training runs alone (no one-process "
+                         "references, Functions or checkpoint)")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--port", type=int, default=0)
@@ -965,15 +1393,17 @@ def main() -> None:
     # yield the CPU to the test processes running beside these worlds
     # (several tests compare solver results that a time limit bounds)
     os.nice(10)
-    if args.mode in ("jax", "jax_moe"):
-        {"jax": jax_reference, "jax_moe": jax_moe_reference}[args.mode](args)
+    if args.mode in ("jax", "jax_moe", "jax_tp"):
+        {"jax": jax_reference, "jax_moe": jax_moe_reference,
+         "jax_tp": jax_tp_reference}[args.mode](args)
         return
     import torch.distributed as dist
     try:
         {"owner": owner_rank, "train": train_rank,
          "variants": variants_rank, "pipeline": pipeline_rank,
          "checkpoint": checkpoint_rank, "restore": restore_rank,
-         "moe": moe_rank}[args.mode](args)
+         "moe": moe_rank, "tp": tp_rank,
+         "tp_restore": tp_restore_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
