@@ -37,7 +37,8 @@ part) writes it as ``shard<index>`` with its global ranges.  Leaves
 under a ``row_blocks`` prefix (the owner-major optimizer buffers) hold
 block ``index`` of ``count`` equal row blocks of the logical array; each
 rank writes its block as ``shard<index>`` with its global row range.
-``restore`` reassembles every leaf whole.  The commit
+``restore`` reassembles every leaf whole, or only the region of it
+that the caller keeps (``parts``).  The commit
 across ranks uses files, not collectives, so no writer thread ever issues
 a collective beside the training thread's: each rank's writer ends with a
 ``rank<r>.done`` file in the ``.tmp``
@@ -329,10 +330,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, *, like: Any = None,
-                device: DeviceLike = None) -> Any:
+                device: DeviceLike = None,
+                parts: Optional[Dict[str, Tuple[tuple, tuple]]] = None
+                ) -> Any:
         """The tree saved at ``step`` (default: the latest committed).
 
-        Every leaf comes back whole: a leaf saved in row blocks by several
+        A leaf comes back whole unless ``parts`` ({path: (start, shape)}
+        of the region this rank keeps: its part of a leaf split over the
+        'model' axis) names it: then only that region is read, from the
+        shard files that overlap it, so no rank holds the whole leaf on
+        its host or its card.  A leaf saved in row blocks by several
         ranks is reassembled to all its rows, and the caller keeps its own
         (``OwnerLayout.local_block``), after ``reshard_owner_state`` where
         the owner count changed.  ``like``: a tree whose structure the
@@ -352,7 +359,7 @@ class CheckpointManager:
         for path, meta in manifest["leaves"].items():
             if meta.get("none"):
                 continue
-            arr = _assemble(d, meta)
+            arr = _assemble(d, meta, (parts or {}).get(path))
             arrays[path] = torch.from_numpy(arr).view(torch.bfloat16) \
                 if meta["dtype"] == "bfloat16" else arr
         if like is not None:
@@ -368,25 +375,37 @@ class CheckpointManager:
         return _build(structure, (), arrays, like_leaf, dev)
 
 
-def _assemble(d: str, meta: dict) -> np.ndarray:
-    """Reassemble a logical array from its shard files (host numpy; a
-    bfloat16 leaf as its int16 bits)."""
+def _assemble(d: str, meta: dict, region=None) -> np.ndarray:
+    """Reassemble a logical array, or its ``region`` (start, shape), from
+    the shard files that overlap it (host numpy; a bfloat16 leaf as its
+    int16 bits)."""
     shape = tuple(meta["shape"])
     dtype = np.int16 if meta["dtype"] == "bfloat16" else meta["dtype"]
+    start, size = region or ((0,) * len(shape), shape)
+    start, size = tuple(start), tuple(size)
     out = None
     i = 0
     while True:
         fp = os.path.join(d, f"{meta['file']}.shard{i}.npz")
         if not os.path.exists(fp):
             break
+        i += 1
         with np.load(fp) as z:
-            data, index = z["data"], z["index"]
-        if i == 0 and tuple(data.shape) == shape:
+            index = z["index"]
+            lo = [max(int(a), s) for (a, _), s in zip(index, start)]
+            hi = [min(int(a) + int(b), s + n)
+                  for (a, b), s, n in zip(index, start, size)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue                  # no overlap: not read
+            data = z["data"]
+        if tuple(data.shape) == size and all(int(a) == s for (a, _), s in
+                                             zip(index, start)):
             return data.astype(dtype, copy=False)
         if out is None:
-            out = np.zeros(shape, dtype=dtype)
-        out[tuple(slice(int(a), int(a) + int(b)) for a, b in index)] = data
-        i += 1
+            out = np.zeros(size, dtype=dtype)
+        out[tuple(slice(a - s, b - s) for a, b, s in zip(lo, hi, start))] = \
+            data[tuple(slice(a - int(o), b - int(o))
+                       for a, b, (o, _) in zip(lo, hi, index))]
     if out is None:
         raise FileNotFoundError(fp)
     return out

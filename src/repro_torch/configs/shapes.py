@@ -54,12 +54,13 @@ def _sd(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, torch.Tensor]:
+def input_specs(cfg: ArchConfig, shape) -> Dict[str, torch.Tensor]:
     """Model inputs for the step function of this (arch, shape) cell, as
     meta tensors: int32 tokens, ``cfg.compute_dtype`` patches and frames,
     the decode cell's ``token`` (B,) and 0-d ``pos``.  Reference:
-    ``src/repro/configs/shapes.py:55``."""
-    sp = SHAPES[shape_name]
+    ``src/repro/configs/shapes.py:55``.  ``shape``: a name of ``SHAPES``
+    or a ``ShapeSpec`` of other sizes."""
+    sp = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
     B, S = sp.global_batch, sp.seq_len
     tok = torch.int32
     emb = as_dtype(cfg.compute_dtype)

@@ -57,13 +57,12 @@ import os
 import time
 import traceback
 
-from typing import Optional
-
 import torch
 import torch.distributed as dist
 
 from repro_torch import configs
-from repro_torch.configs.shapes import SHAPES, cell_supported, input_specs
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, cell_supported,
+                                        input_specs)
 from repro_torch.core import api, tree
 from repro_torch.core.gram_ns import GramNSConfig, gram_ns_flops
 from repro_torch.core.muon import MuonConfig
@@ -73,7 +72,7 @@ from repro_torch.launch.mesh import HBM_BYTES, axis_sizes, \
 from repro_torch.launch.op_walker import OpWalker
 from repro_torch.models import model_fns
 from repro_torch.models.sharding import dp_axes, local_part, param_specs
-from repro_torch.models.tp import model_extent
+from repro_torch.models.tp import model_extent, tensor_parallel
 from repro_torch.train.train_state import TrainState
 
 RESULT_DIR = os.path.abspath(os.path.join(
@@ -129,14 +128,15 @@ def local_rows(global_batch: int, mesh) -> int:
     return global_batch // dp if global_batch % dp == 0 else global_batch
 
 
-def rank_inputs(cfg, shape_name: str, mesh) -> dict:
-    """``input_specs`` as this rank's zero-filled tensors (fake under the
-    dry run's ``FakeTensorMode``); the decode cell's ``pos`` is the last
-    cache position, a Python int, as the serving loop passes it."""
-    sp = SHAPES[shape_name]
+def rank_inputs(cfg, shape, mesh) -> dict:
+    """``input_specs`` of ``shape`` (a name of ``SHAPES`` or a
+    ``ShapeSpec``) as this rank's zero-filled tensors (fake under the dry
+    run's ``FakeTensorMode``); the decode cell's ``pos`` is the last cache
+    position, a Python int, as the serving loop passes it."""
+    sp = _spec(shape)
     rows = local_rows(sp.global_batch, mesh)
     out = {}
-    for k, v in input_specs(cfg, shape_name).items():
+    for k, v in input_specs(cfg, sp).items():
         if k == "pos":
             out[k] = sp.seq_len - 1
             continue
@@ -144,14 +144,7 @@ def rank_inputs(cfg, shape_name: str, mesh) -> dict:
     return out
 
 
-def tensor_parallel(cfg, mesh) -> bool:
-    """Whether the cell's step is tensor-parallel: the dense family on a
-    mesh whose 'model' axis has more than one rank."""
-    return cfg.family == "dense" and model_extent(mesh) > 1
-
-
-def build_train_cell(cfg, arch_id, shape_name, mesh, mode,
-                     accum: Optional[int] = None):
+def build_train_cell(cfg, arch_id, shape, mesh, mode):
     """(fn, example_args, plan) of one training cell, built under the
     caller's ``FakeTensorMode``: the state from ``init`` directly (not
     ``init_state``, whose cross-rank checksum reads a collective's
@@ -176,20 +169,22 @@ def build_train_cell(cfg, arch_id, shape_name, mesh, mode,
         opt_state = opt.init(params)
     state = TrainState(0, params, opt_state,
                        torch.zeros((), dtype=torch.float32))
-    step = make_train_step(cfg, opt, mesh,
-                           accum_steps=accum or accum_steps(arch_id),
-                           donate=True, device="cpu")
-    return step, (state, rank_inputs(cfg, shape_name, mesh)), plan
+    inputs = rank_inputs(cfg, shape, mesh)
+    # the arch's microbatches, as many as this rank's rows allow
+    accum = math.gcd(accum_steps(arch_id), inputs["tokens"].shape[0])
+    step = make_train_step(cfg, opt, mesh, accum_steps=accum, donate=True,
+                           device="cpu")
+    return step, (state, inputs), plan
 
 
-def build_serve_cell(cfg, arch_id, shape_name, mesh):
+def build_serve_cell(cfg, arch_id, shape, mesh):
     """(fn, example_args) of one prefill or decode cell on this rank's
     rows; parameters in the serving dtype (bf16)."""
     from repro_torch.train.serve import decode_fn, prefill_fn
     m = model_fns(cfg)
-    sp = SHAPES[shape_name]
+    sp = _spec(shape)
     params = m.init(cfg, 0, device="cpu")
-    inputs = rank_inputs(cfg, shape_name, mesh)
+    inputs = rank_inputs(cfg, sp, mesh)
     if sp.kind == "prefill":
         max_len = sp.seq_len + (cfg.frontend_len if cfg.frontend == "patch"
                                 else 0)
@@ -226,24 +221,41 @@ def ns_flops_for_plan(plan, ns_steps: int, num_devices: int):
     return raw / num_devices, kern / num_devices
 
 
-def walk_cell(cfg, arch_id: str, shape_name: str, mesh_kind: str,
-              mode: str) -> dict:
+def _spec(shape) -> ShapeSpec:
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
+def _fake_mesh(mesh_kind):
+    """The mesh of ``mesh_kind`` over the fake world: the production
+    "single" / "multi" mesh, or a (data, model) shape."""
+    if mesh_kind in MESH_WORLD:
+        return make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", tuple(mesh_kind),
+                            mesh_dim_names=("data", "model"))
+
+
+def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str) -> dict:
     """Build and walk one cell on the fake world; the result's fields
-    (``ok`` and after), or an exception."""
+    (``ok`` and after), or an exception.  ``shape``: a name of ``SHAPES``
+    or a ``ShapeSpec``; ``mesh_kind``: "single", "multi" or a (data,
+    model) shape (``_fake_mesh``), as ``chip_smoke.py`` predicts a run on
+    the cards it has."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    sp = SHAPES[shape_name]
-    with fake_world(MESH_WORLD[mesh_kind]):
+    sp = _spec(shape)
+    world = MESH_WORLD.get(mesh_kind) or math.prod(mesh_kind)
+    with fake_world(world):
         # the mesh reads its rank map, so it is built on real tensors
-        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+        mesh = _fake_mesh(mesh_kind)
         ndev = mesh.size()
         with FakeTensorMode():
             t0 = time.time()
             plan = None
             if sp.kind == "train":
-                fn, args, plan = build_train_cell(cfg, arch_id, shape_name,
-                                                  mesh, mode)
+                fn, args, plan = build_train_cell(cfg, arch_id, sp, mesh,
+                                                  mode)
             else:
-                fn, args = build_serve_cell(cfg, arch_id, shape_name, mesh)
+                fn, args = build_serve_cell(cfg, arch_id, sp, mesh)
             t_build = time.time() - t0
 
             t0 = time.time()
@@ -294,39 +306,6 @@ def walk_cell(cfg, arch_id: str, shape_name: str, mesh_kind: str,
     if plan is not None:
         result["plan_stats"] = plan.stats
     return result
-
-
-def walk_train(arch_id: str, mesh_shape, batch: int, seq: int, mode: str,
-               *, n_layers: Optional[int] = None) -> dict:
-    """One training step of ``arch_id`` (``n_layers`` of its blocks, all
-    by default) walked on a fake world of ``mesh_shape`` = ("data",
-    "model") ranks, as the card runs it: ``build_train_cell``'s state and
-    step (tensor-parallel for the dense family on a model axis of more
-    than one rank), this rank's rows of a (``batch``, ``seq``) token
-    batch, one microbatch.  Returns rank 0's memory dict (``total_bytes``
-    the predicted peak) and roofline."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.device_mesh import init_device_mesh
-    cfg = configs.get(arch_id, **({} if n_layers is None
-                                  else {"n_layers": n_layers}))
-    with fake_world(math.prod(mesh_shape)):
-        mesh = init_device_mesh("cpu", tuple(mesh_shape),
-                                mesh_dim_names=("data", "model"))
-        with FakeTensorMode():
-            fn, (state, _), _ = build_train_cell(cfg, arch_id, "train_4k",
-                                                 mesh, mode, accum=1)
-            rows = local_rows(batch, mesh)
-            inputs = {k: torch.zeros((rows, seq), dtype=torch.int32)
-                      for k in ("tokens", "labels")}
-            walker = OpWalker()
-            walker.track_arguments((state, inputs))
-            with walker:
-                out = fn(state, inputs)
-            mem = roofline.memory_analysis_dict(walker, out)
-    r = roofline.analyze(walker.costs, num_devices=math.prod(mesh_shape))
-    return {"arch": arch_id, "mesh": list(mesh_shape), "batch": batch,
-            "seq": seq, "n_layers": cfg.n_layers, "opt": mode,
-            "memory_analysis": mem, "roofline": r.to_dict()}
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, mode: str,
@@ -384,24 +363,7 @@ def main(argv=None):
     ap.add_argument("--outdir", default=RESULT_DIR)
     ap.add_argument("--reduced", action="store_true",
                     help="the archs' reduced configs (CPU-test widths)")
-    ap.add_argument("--fake-mesh", default=None, metavar="D,M",
-                    help="walk one train step of --arch on a fake world "
-                         "of this (data, model) mesh (walk_train) and "
-                         "write its JSON to --out")
-    ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--seq", type=int, default=2048)
-    ap.add_argument("--layers", type=int, default=None)
-    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-
-    if args.fake_mesh:
-        r = walk_train(args.arch, tuple(map(int, args.fake_mesh.split(","))),
-                       args.batch, args.seq, args.opt, n_layers=args.layers)
-        _write(args.out, r)
-        print(f"[fake {args.fake_mesh}] {args.arch} peak "
-              f"{r['memory_analysis']['total_bytes'] / 1e9:.3f} GB",
-              flush=True)
-        return
 
     archs = [args.arch] if args.arch else list(configs.ARCH_IDS)
     shapes = [args.shape] if args.shape else list(SHAPES)

@@ -48,6 +48,7 @@ from repro_torch.core.muon import MuonConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.models.tp import ported
 from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
 
@@ -118,10 +119,9 @@ def main(argv=None):
                          "token pipeline does not make")
     mesh = None
     if args.mesh:
-        # the tensor-parallel forward is the dense family's
-        dense = cfg.family == "dense"
-        mesh = make_mesh(device, args.prefer_model if dense else 1)
-        why = "" if dense else (f": the {cfg.family} family's "
+        split = ported(cfg)
+        mesh = make_mesh(device, args.prefer_model if split else 1)
+        why = "" if split else (f": the {cfg.family} family's "
                                 "tensor-parallel forward is not ported "
                                 "(ROADMAP item 6)")
         print(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))}{why}",

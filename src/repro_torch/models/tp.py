@@ -67,6 +67,22 @@ def model_extent(mesh) -> int:
     return mesh.size(mesh.mesh_dim_names.index("model"))
 
 
+def ported(cfg) -> bool:
+    """Whether ``cfg``'s family has the tensor-parallel forward: the dense
+    decoders (the other families' is ROADMAP item 6)."""
+    return cfg.family == "dense" and not cfg.encdec
+
+
+def tensor_parallel(cfg, mesh) -> bool:
+    """Whether training ``cfg`` on ``mesh`` is tensor-parallel: its
+    family's forward is ``ported`` and the mesh's 'model' axis has more
+    than one rank.  The one rule by which the train step, its loss,
+    ``init_state``, the resilient loop, the launcher and the dry run
+    decide; otherwise the parameters are replicated and the model axis
+    only spreads the owners."""
+    return ported(cfg) and model_extent(mesh) > 1
+
+
 def model_parallel(mesh) -> Optional[ModelParallel]:
     """The ``ModelParallel`` of ``mesh``'s 'model' axis, or None without
     one."""

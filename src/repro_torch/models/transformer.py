@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike, as_dtype, resolve_device
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
-from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models import tp as tp_lib, xlstm as xlstm_lib
 from repro_torch.models.layers import AttnConfig, MLAConfig
 
 Params = Dict[str, Any]
@@ -281,7 +281,7 @@ def _split(tp, width: int):
 
 
 def _check_tp(cfg: ArchConfig, tp) -> None:
-    if tp is not None and tp.size > 1 and cfg.family != "dense":
+    if tp is not None and tp.size > 1 and not tp_lib.ported(cfg):
         raise NotImplementedError(
             f"the tensor-parallel forward of the {cfg.family} family is not "
             "ported (ROADMAP item 6); train it on a (world, 1) mesh")

@@ -30,11 +30,12 @@ recovery behaviours:
   run replays batch k, k+1, ... exactly and, if the owner count changed in
   between, reshards the restored state onto the live plan.  Under a mesh a
   job restarted at another world size (a new process group) restores the
-  same way (``resume=True``).  Under tensor parallelism (a 'model' axis of
-  more than one rank: ``train/step.py``) each parameter, and the AdamW
-  moments (and the gather baseline's momentum) placed like it, are saved
-  as their parts and restored whole, then cut to the live mesh's parts:
-  a checkpoint of one layout restores into any other.
+  same way (``resume=True``).  Under tensor parallelism
+  (``models.tp.tensor_parallel``) each parameter, and the AdamW moments
+  (and the gather baseline's momentum) placed like it, are saved as their
+  parts, and each rank reads back only its part on the live mesh, from
+  the shard files that overlap it: a checkpoint of one layout restores
+  into any other.
 
 Invariant (tests/test_torch_resilience.py): the *logical* optimizer
 trajectory — params, loss curve, and the unpacked per-matrix rows of
@@ -62,8 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.sharding import local_part, param_specs, shard_range
-from repro_torch.models.tp import model_extent
+from repro_torch.models.sharding import param_specs, shard_range
+from repro_torch.models.tp import tensor_parallel
 from repro_torch.runtime.elastic import StepTimer, StragglerMonitor
 from repro_torch.runtime.faults import (FaultInjector, FaultPlan, OwnerLost,
                                         Preemption)
@@ -118,8 +119,7 @@ class ResilientLoop:
     def __init__(self, model_cfg, data_cfg, *, muon=None, run=None,
                  num_owners: int = 1, mesh=None, ckpt_dir: Optional[str] = None,
                  ckpt_keep: int = 3, faults: Optional[FaultPlan] = None,
-                 resume: bool = False, log=None, device: DeviceLike = None,
-                 tensor_parallel: Optional[bool] = None):
+                 resume: bool = False, log=None, device: DeviceLike = None):
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.core.muon import MuonConfig
         from repro_torch.data.pipeline import Pipeline
@@ -137,14 +137,9 @@ class ResilientLoop:
 
         self.shapes = model_fns(model_cfg).init(model_cfg, self.rcfg.seed,
                                                 device="meta")
-        # the parameters' specs where the step is tensor-parallel (by
-        # default where the mesh's model axis has more than one rank)
-        self.specs = None
-        if tensor_parallel is None:
-            tensor_parallel = model_extent(mesh) > 1
-        self.tensor_parallel = tensor_parallel and mesh is not None
-        if self.tensor_parallel and model_extent(mesh) > 1:
-            self.specs = param_specs(model_cfg, self.shapes, mesh)
+        # the parameters' specs where the step is tensor-parallel
+        self.specs = param_specs(model_cfg, self.shapes, mesh) \
+            if tensor_parallel(model_cfg, mesh) else None
         self._step_cache: dict = {}      # plan signature -> step function
         self._install(self._plan_for(num_owners=num_owners))
         self._plan_speed = np.ones(self.num_owners)
@@ -159,8 +154,7 @@ class ResilientLoop:
             threshold=self.rcfg.threshold)
 
         self.state = init_state(model_cfg, self.opt, self.rcfg.seed,
-                                self.device, mesh=mesh,
-                                tensor_parallel=self.tensor_parallel)
+                                self.device, mesh=mesh)
         self.pipe = Pipeline(data_cfg, mesh=mesh, start_step=0,
                              device=self.device)
         if resume and self.mgr is not None and self.mgr.latest_step():
@@ -197,8 +191,7 @@ class ResilientLoop:
         if sig not in self._step_cache:
             self._step_cache[sig] = make_train_step(
                 self.model_cfg, self.opt, self.mesh,
-                accum_steps=self.rcfg.accum_steps, device=self.device,
-                tensor_parallel=self.tensor_parallel)
+                accum_steps=self.rcfg.accum_steps, device=self.device)
         self.step_fn = self._step_cache[sig]
 
     def _owner_state(self) -> bool:
@@ -255,16 +248,30 @@ class ResilientLoop:
         """Rebuild (state, data cursor) from the latest committed checkpoint;
         reshards the owner-sharded state if the live owner count differs from
         the one at save time, and keeps this rank's rows under a mesh.
-        Returns the resumed step."""
+        Nothing comes to the card whole that this rank keeps a part of:
+        each split leaf is read as this rank's part alone (``_parts``), and
+        the owner rows come back on the host, where they are resharded and
+        this rank's block is cut before it moves.  Returns the resumed
+        step."""
+        from repro_torch.checkpoint.manager import _flatten
         from repro_torch.core import api
         from repro_torch.core.owner_comms import OwnerLayout
         from repro_torch.train.train_state import TrainState
-        tree = self.mgr.restore(like=self._checkpoint_tree())
-        train = tree["train"] if self.specs is None else \
-            self._cut_to_parts(tree["train"])
-        state = TrainState(**train)
+        like = self._checkpoint_tree()
+        owner = self._owner_state()
+        if owner:
+            host = torch.empty(0)
+            like["train"]["opt_state"] = api.map_owner_buffers(
+                like["train"]["opt_state"], lambda _, buf: host)
+        leaves: list = []
+        _flatten(like, (), leaves)
+        local = dict(leaves)
+        regions = {p: (lp.start, tuple(local[p].shape))
+                   for p, lp in (self._parts(like) or {}).items()}
+        tree = self.mgr.restore(like=like, parts=regions)
+        state = TrainState(**tree["train"])
         opt_state = state.opt_state
-        if self._owner_state():
+        if owner:
             saved_owners = int(np.asarray(tree["meta"]["num_owners"]))
             if saved_owners != self.num_owners:
                 # The restored buffers hold all D·cap rows: repack them as
@@ -275,34 +282,15 @@ class ResilientLoop:
                     self.shapes, num_owners=saved_owners, strategy="greedy")
                 opt_state = api.reshard_owner_state(opt_state, saved_plan,
                                                     self.plan)
-            if self.mesh is not None:
-                layout = OwnerLayout(self.plan, self.mesh)
-                opt_state = api.map_owner_buffers(
-                    opt_state, lambda _, buf: layout.local_block(buf).clone())
+            layout = None if self.mesh is None else \
+                OwnerLayout(self.plan, self.mesh)
+            opt_state = api.map_owner_buffers(
+                opt_state, lambda _, buf: buf.to(self.device) if layout is
+                None else layout.local_block(buf).to(self.device, copy=True))
         self.state = TrainState(state.step, state.params, opt_state,
                                 state.loss_ema)
         self.pipe.restore(tree["data"])
         return self.state.step
-
-    def _cut_to_parts(self, train: dict) -> dict:
-        """The restored (whole) train tree with each parameter, and the
-        state placed like it, cut to this rank's part."""
-        from repro_torch.core import tree
-
-        def cut(p, v, grad=False):
-            return local_part(v.detach(), self.specs[p], self.mesh).clone() \
-                .requires_grad_(grad)
-        st = train["opt_state"]
-        adamw = st.adamw._replace(
-            mu={p: cut(p, v) for p, v in st.adamw.mu.items()},
-            nu={p: cut(p, v) for p, v in st.adamw.nu.items()})
-        momentum = st.momentum if self._owner_state() else \
-            {p: cut(p, v) for p, v in st.momentum.items()}
-        return {**train, "opt_state": st._replace(adamw=adamw,
-                                                  momentum=momentum),
-                "params": tree.rebuild(train["params"], {
-                    p: cut(p, v, True)
-                    for p, v in tree.flatten(train["params"])})}
 
     # ----------------------------------------------------------- recovery
 
@@ -382,8 +370,7 @@ class ResilientLoop:
             from repro_torch.train.step import init_state
             self.state = init_state(self.model_cfg, self.opt,
                                     self.rcfg.seed, self.device,
-                                    mesh=self.mesh,
-                                    tensor_parallel=self.tensor_parallel)
+                                    mesh=self.mesh)
             self.pipe.seek(0)
         self._sync()
         latency = time.perf_counter() - t0

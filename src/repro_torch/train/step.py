@@ -14,15 +14,17 @@ its own rows of the global batch
 (``data.pipeline.batch_for_step(..., mesh=mesh)``), and its gradients go to
 the optimizer as ``Partial("avg")`` ``DTensor``s over those axes, so the
 owner update reduces each gradient straight to its owner.  The published
-deltas are added on every rank.  Where the mesh's 'model' axis has more
-than one rank (or ``grad_specs`` is given), the step is also
-tensor-parallel over it, the dense family only (``models/tp.py``): each
+deltas are added on every rank.  For the dense family on a mesh whose
+'model' axis has more than one rank (``models.tp.tensor_parallel``, the
+one rule), or where ``grad_specs`` is given, the step is also
+tensor-parallel over that axis (``models/tp.py``): each
 parameter is this rank's part as ``models.sharding.param_specs`` places it
 (``init_state``), the forward works from those parts, the loss is the
 vocab-parallel cross entropy where the vocab is split, and each gradient
 reaches the optimizer with the spec's ``Shard`` on the model axis and
 ``Partial("avg")`` over the data axes.  Otherwise the parameters are
-replicated (the same seed on every rank, checked once by ``init_state``).
+replicated (the same seed on every rank, checked once by ``init_state``)
+and the model axis only spreads the owners.
 ZeRO-3 (``param_specs(..., zero3=True)``) is not ported (ROADMAP item 6).
 
 Pipelines (``pipeline=`` / ``MuonConfig.pipeline``):
@@ -90,37 +92,37 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(torch.log(sumexp) + shift - gold)
 
 
-def _model_parallel(cfg, mesh, tensor_parallel: Optional[bool]):
-    """The ``ModelParallel`` the forward runs under, or None: ``mesh``'s
-    model axis where it has more than one rank (``tensor_parallel`` None)
-    or where ``tensor_parallel`` asks for it (a mesh of one model rank
-    then runs the tensor-parallel code path, identity collectives)."""
-    if tensor_parallel is None:
-        tensor_parallel = tp_lib.model_extent(mesh) > 1
-    if not tensor_parallel:
-        return None
+def _model_parallel(cfg, mesh):
+    """The model axis of the tensor-parallel step on ``mesh``; raises
+    where the family's tensor-parallel forward is not ported."""
+    if not tp_lib.ported(cfg):
+        raise NotImplementedError(
+            f"the tensor-parallel step of the {cfg.family} family is not "
+            "ported (ROADMAP item 6); train it on a (world, 1) mesh")
     mp = tp_lib.model_parallel(mesh)
     if mp is None:
         raise ValueError("tensor parallelism needs a mesh with a 'model' "
                          "axis")
-    if cfg.family != "dense" or cfg.encdec:
-        raise NotImplementedError(
-            f"the tensor-parallel step of the {cfg.family} family is not "
-            "ported (ROADMAP item 6); train it on a (world, 1) mesh")
     return mp
 
 
-def make_loss_fn(cfg, mesh=None, *,
-                 tensor_parallel: Optional[bool] = None) -> Callable:
+def make_loss_fn(cfg, mesh=None) -> Callable:
     """``loss_fn(params, batch)``: the mean cross entropy of the forward's
-    logits.  Under a tensor-parallel ``mesh`` (``_model_parallel``) the
-    forward runs on this rank's parameter parts; its logits are this rank's
-    vocab columns where the vocab divides the model axis (the loss then
-    ``vocab_parallel_xent``), whole on every rank otherwise (the reference
-    then falls back to sequence-sharded or replicated logits,
+    logits.  Where the step on ``mesh`` is tensor-parallel
+    (``models.tp.tensor_parallel``) the forward runs on this rank's
+    parameter parts (``_loss_fn``)."""
+    return _loss_fn(cfg, _model_parallel(cfg, mesh)
+                    if tp_lib.tensor_parallel(cfg, mesh) else None)
+
+
+def _loss_fn(cfg, mp) -> Callable:
+    """``make_loss_fn``'s function under the model axis ``mp`` (None: the
+    whole model): the logits are this rank's vocab columns where the vocab
+    divides the axis (the loss then ``vocab_parallel_xent``), whole on
+    every rank otherwise (the reference then falls back to
+    sequence-sharded or replicated logits,
     ``src/repro/train/step.py:62-77``: the same values)."""
     m = model_fns(cfg)
-    mp = _model_parallel(cfg, mesh, tensor_parallel)
 
     def loss_fn(params, batch):
         kwargs = {k: batch[k] for k in ("patches", "frames") if k in batch}
@@ -168,20 +170,18 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                     prestage: Optional[bool] = None,
                     donate: bool = False,
                     device: DeviceLike = None,
-                    grad_specs: Optional[dict] = None,
-                    tensor_parallel: Optional[bool] = None):
+                    grad_specs: Optional[dict] = None):
     """Returns ``step(state, batch) -> state`` running on ``device`` (CUDA
     unless given; it must be where ``init_state`` put the parameters).
     With ``mesh`` (the optimizer's), ``batch`` is this rank's rows.
 
     ``grad_specs`` (the reference's): {path: spec} of the parameters'
-    placements.  Given, or where ``mesh`` has a 'model' axis of more than
-    one rank (``param_specs`` of the model then), the step is
-    tensor-parallel (module docstring): ``state.params`` hold this rank's
-    parts and each gradient reaches the optimizer placed as its spec
-    says.  ``tensor_parallel=False`` keeps the step data-parallel on any
-    mesh (the model axis then only spreads the owners), as
-    ``init_state``'s.
+    placements.  Given, or where the step on ``mesh`` is tensor-parallel
+    (``models.tp.tensor_parallel``; ``param_specs`` of the model then),
+    the step is tensor-parallel (module docstring): ``state.params`` hold
+    this rank's parts and each gradient reaches the optimizer placed as
+    its spec says.  Given on a model axis of one rank, the step runs the
+    tensor-parallel code path, whose collectives are then identities.
 
     ``pipeline`` overrides ``opt.config.pipeline`` through ``opt.replace``
     (the caller's ``opt`` is untouched).  ``prestage`` forces the
@@ -204,11 +204,10 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
     prestage = (prestage and opt.config.pipeline == "bucketed"
                 and accum_steps > 1 and opt.effective_mode == "owner"
                 and not opt.config.compress_grads)
-    if tensor_parallel is None:
-        tensor_parallel = grad_specs is not None or \
-            tp_lib.model_extent(mesh) > 1
-    tensor_parallel = mesh is not None and tensor_parallel
-    loss_fn = make_loss_fn(cfg, mesh, tensor_parallel=tensor_parallel)
+    tensor_parallel = mesh is not None and (
+        grad_specs is not None or tp_lib.tensor_parallel(cfg, mesh))
+    loss_fn = _loss_fn(cfg, _model_parallel(cfg, mesh)
+                       if tensor_parallel else None)
     specs = shapes = None
     if mesh is not None:
         if opt.mesh is not mesh:
@@ -343,21 +342,21 @@ def _global_shape(local_shape, spec, mesh) -> tuple:
 
 
 def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
-               *, mesh=None, zero3: bool = False,
-               tensor_parallel: Optional[bool] = None) -> TrainState:
+               *, mesh=None, zero3: bool = False) -> TrainState:
     """Random parameters (``torch.Generator(device)`` seeded with ``seed``)
     as leaf tensors requiring grad, plus the optimizer state
     (``src/repro/train/step.py:226-247``).
 
-    Under a ``mesh`` whose 'model' axis has more than one rank the
-    parameters are placed by ``param_specs``: each rank keeps its parts,
+    Where the step on ``mesh`` is tensor-parallel
+    (``models.tp.tensor_parallel``) the parameters are placed by
+    ``param_specs``: each rank keeps its parts,
     bitwise the slices of the one-card ``init`` from the same seed,
     drawing one whole leaf at a time on ``device`` (``layers.drawing``:
     the generator's sequence is ``init``'s).  The AdamW moments follow
     their parameters' placements and the Muon momentum is in the owner
     layout (the reference's ``_opt_state_shardings``).  Under any other
-    mesh, or with ``tensor_parallel=False`` (``make_train_step``'s), the
-    parameters are replicated: every rank draws them from the same seed.
+    mesh the parameters are replicated: every rank draws them from the
+    same seed.
     A checksum compared across ranks proves either layout.
     ``zero3`` (the ≥ 340 B policy) is not ported: it raises (ROADMAP
     item 6)."""
@@ -367,16 +366,12 @@ def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
     device = resolve_device(device)
     m = model_fns(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    if tensor_parallel is None:
-        tensor_parallel = tp_lib.model_extent(mesh) > 1
-    if mesh is None or not tensor_parallel or \
-            tp_lib.model_extent(mesh) == 1:
+    if not tp_lib.tensor_parallel(cfg, mesh):
         params = tree.tree_map(lambda v: v.requires_grad_(True),
                                m.init(cfg, seed, device))
         if mesh is not None:
             _check_replicated(params)
         return TrainState(0, params, opt.init(params), zero)
-    _model_parallel(cfg, mesh, True)
     specs = param_specs(cfg, m.init(cfg, device="meta"), mesh)
     params = tree.tree_map(lambda v: v.requires_grad_(True),
                            init_parts(cfg, seed, device, specs, mesh))

@@ -21,13 +21,18 @@ gradients placed as ``param_specs`` says, with ``Partial("avg")`` over
 'data'; AdamW moments shaped as their parameters' parts; ``init_state``'s
 parts bitwise the slices of the one-process ``init``; each rank holding
 1 / tp of every split leaf; a checkpoint written at (1, 2) restored at
-(2, 1) and in one process, bitwise; without a context (and with a model
+(2, 1) and in one process, bitwise, and at (1, 2) with each rank making
+only its part of every split leaf; without a context (and with a model
 axis of one rank) the forward, the loss and the gradients bitwise those
-of the one-card path.
+of the one-card path; the one rule that decides tensor parallelism
+(``models.tp.tensor_parallel``), and the dry run's train cells walking
+the replicated step for another family and the split step on a (1, 4)
+mesh.
 """
 
 import concurrent.futures
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -67,10 +72,15 @@ def worlds(tmp_path_factory):
                               240.0, ("--configs", ",".join(cs)))
                   for m, cs in WORLDS.items()]:
             f.result()
-    restore = outs[(1, 2)] / "restore"
-    dc.launch("tp_restore", 2, (2, 1), restore)
+    restores = {m: outs[(1, 2)] / f"restore_{m[0]}x{m[1]}"
+                for m in ((2, 1), (1, 2))}
+    with concurrent.futures.ThreadPoolExecutor(len(restores)) as pool:
+        for f in [pool.submit(dc.launch, "tp_restore", 2, m, out)
+                  for m, out in restores.items()]:
+            f.result()
     res = {m: dc.load(outs[m], math.prod(m)) for m in WORLDS}
-    res["restore"] = dc.load(restore, 2)
+    res["restore"] = dc.load(restores[(2, 1)], 2)
+    res["restore_1x2"] = dc.load(restores[(1, 2)], 2)
     return res
 
 
@@ -160,6 +170,144 @@ def test_checkpoint_restores_at_2x1_and_one_process(worlds):
     z1 = worlds[(1, 2)]["npz"][1]
     for k, v in saved.items():
         np.testing.assert_array_equal(z1["ckpt/" + k], v, err_msg=k)
+
+
+def test_checkpoint_restores_only_each_ranks_part(worlds):
+    """Restored at (1, 2), each rank makes on its host only its part of
+    every split leaf (parameters and AdamW moments), never the whole
+    leaf, and reads back the same values as the (2, 1) restore."""
+    saved = {k[len("ckpt/"):]: v for k, v in
+             worlds[(1, 2)]["npz"][0].items() if k.startswith("ckpt/")}
+    for z, info in zip(worlds["restore_1x2"]["npz"],
+                       worlds["restore_1x2"]["json"]):
+        split = {p: h for p, h in info["held"].items() if h["split"]}
+        assert any("/adamw/" in p for p in split) and \
+            any("/params/" in p for p in split)
+        for p, h in info["held"].items():
+            made, whole = h["assembled_whole"]
+            assert made == h["bytes"], p
+            assert made * 2 == whole if h["split"] else made == whole, p
+        assert info["assembled_bytes"] < info["whole_bytes"]
+        for k, v in saved.items():
+            np.testing.assert_array_equal(z[f"restored/{k}"], v, err_msg=k)
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", dc.ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tp_gate_admits_adamw_sign_flips_and_catches_faults():
+    """``chip_smoke.tp_gate`` on synthetic runs: an AdamW leaf whose
+    step-1 update (about −lr · sign(g)) flips where its gradient is at
+    rounding size passes by the AdamW rule, and would not as a Muon leaf;
+    a Muon leaf's update off by 1e-4 of its scale, or a gradient doubled,
+    fails."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    lr, eps = 3e-4, 1e-8
+
+    def adamw(g):
+        return -lr * g / (g.abs() + eps)
+    g = {"w": torch.randn(64, 32, generator=gen),
+         "norm": torch.randn(256, generator=gen) * 1e-3}
+    g["norm"][:8] = 1e-9 * torch.randn(8, generator=gen)
+    ref = {"grads": g, "updates": {"w": g["w"] * 0.01,
+                                   "norm": adamw(g["norm"])}}
+    spread = {q: {p: v.clone() for p, v in d.items()}
+              for q, d in ref.items()}
+    tp_g = {p: v * (1 + 2.0 ** -22) for p, v in g.items()}
+    tp_g["norm"][:8] = -g["norm"][:8]          # rounding-size entries
+    tp = {"grads": tp_g, "updates": {"w": tp_g["w"] * 0.01,
+                                     "norm": adamw(tp_g["norm"])}}
+    for d in (ref, spread, tp):
+        for q in ("loss", "params", "loss_ema"):
+            d[q] = {"": torch.tensor(1.0)}
+
+    def factor(tp, matrices):
+        return cs.tp_gate(torch, tp, ref, spread, matrices)["factor"]
+    assert factor(tp, {"w"}) <= 1
+    assert factor(tp, {"w", "norm"}) > 100
+    off = {**tp, "updates": {**tp["updates"],
+                             "w": tp["updates"]["w"] + 1e-6}}
+    assert factor(off, {"w"}) > 10
+    doubled = {**tp, "grads": {**tp["grads"], "w": 2 * tp["grads"]["w"]}}
+    assert factor(doubled, {"w"}) > 100
+
+
+def test_one_rule_decides_tensor_parallelism():
+    """``models.tp.tensor_parallel``: the dense decoders on a model axis
+    of more than one rank; every other family, a model axis of one rank
+    and no mesh keep the parameters replicated."""
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+
+        def __init__(self, shape):
+            self.shape = shape
+
+        def size(self, i):
+            return self.shape[i]
+    dense = [a for a in configs.ARCH_IDS
+             if configs.get(a, reduced=True).family == "dense"]
+    assert set(dense) == {"smollm-360m", "stablelm-1.6b", "qwen2.5-14b",
+                          "nemotron-4-340b"}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get(arch, reduced=True)
+        assert tp_lib.tensor_parallel(cfg, Mesh((16, 16))) == (arch in dense)
+        assert tp_lib.tensor_parallel(cfg, Mesh((2, 2))) == (arch in dense)
+        assert not tp_lib.tensor_parallel(cfg, Mesh((4, 1)))
+        assert not tp_lib.tensor_parallel(cfg, None)
+
+
+def _dryrun_walks():
+    """Two dry-run walks in subprocesses on fake worlds: the reduced
+    hymba-1.5b's train_4k cell on the (16, 16) production mesh (the CLI),
+    and ``walk_cell`` of the reduced qwen2.5-14b at a 1 x 16 batch on a
+    (1, 4) mesh (as ``chip_smoke.tp_predict`` predicts the card's run)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    root = dc.ROOT
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    out = Path(tempfile.mkdtemp())
+    code = ("import json, sys; from repro_torch import configs; "
+            "from repro_torch.configs.shapes import ShapeSpec; "
+            "from repro_torch.launch.dryrun import walk_cell; "
+            "r = walk_cell(configs.get('qwen2.5-14b', reduced=True), "
+            "'qwen2.5-14b', ShapeSpec('x', 16, 1, 'train'), (1, 4), "
+            "'owner'); json.dump(r, open(sys.argv[1], 'w'), default=str)")
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "hymba-1.5b", "--shape", "train_4k", "--mesh", "single",
+             "--reduced", "--outdir", str(out)],
+            [sys.executable, "-c", code, str(out / "qwen_1x4.json")]]
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        procs = list(pool.map(lambda c: subprocess.run(
+            c, env=env, cwd=str(out), capture_output=True, text=True,
+            timeout=180), cmds))
+    for p in procs:
+        assert p.returncode == 0, (p.stdout[-2000:], p.stderr[-2000:])
+    return [json.loads((out / f).read_text()) for f in
+            ("single/hymba-1.5b__train_4k__owner.json", "qwen_1x4.json")]
+
+
+def test_dryrun_walks_replicated_and_split_train_steps():
+    """A family whose tensor-parallel forward is not ported walks the
+    replicated step on the 16-wide model axis; the dense family on a fake
+    (1, 4) mesh walks the split step."""
+    hymba, qwen = _dryrun_walks()
+    assert hymba["ok"], hymba.get("traceback")
+    assert hymba["roofline"]["detail"]["layout"].startswith(
+        "parameters replicated")
+    assert qwen["ok"] and qwen["num_devices"] == 4
+    assert qwen["roofline"]["detail"]["layout"].startswith(
+        "parameters split by param_specs over 'model' (4 cards)")
+    assert qwen["memory_analysis"]["total_bytes"] > 0
 
 
 @pytest.mark.parametrize("name", BASE + ("guarded",))

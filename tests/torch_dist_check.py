@@ -184,6 +184,34 @@ def _full(v):
     return (v.full_tensor() if isinstance(v, DTensor) else v).detach()
 
 
+def step_specs(cfg, mesh):
+    """The parameters' specs where the train step of ``cfg`` on ``mesh``
+    is tensor-parallel (``models.tp.tensor_parallel``), else None."""
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import param_specs
+    from repro_torch.models.tp import tensor_parallel
+    if not tensor_parallel(cfg, mesh):
+        return None
+    return param_specs(cfg, transformer.init(cfg, device="meta"), mesh)
+
+
+def whole_np(t, specs, mesh) -> dict:
+    """{path: float32 numpy array} of ``t``'s leaves whole: where
+    ``specs`` (``step_specs``) split a leaf, its parts gathered over the
+    mesh."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.train.step import placed_params
+    out = {}
+    for p, v in tree.flatten(t):
+        v = v.detach()
+        if specs is not None:
+            v = _full(placed_params({"x": v}, {"x": specs[p]}, mesh)["x"])
+        out[p] = v.to(torch.float32).numpy()
+    return out
+
+
 def _flat_np(prefix: str, t) -> dict:
     from repro_torch.core import tree
     return {f"{prefix}/{p}": _full(v).numpy() for p, v in tree.flatten(t)}
@@ -347,10 +375,8 @@ def train_rank(args) -> None:
     def train(m):
         plan = api.dedicate_params(shapes, mesh=m)
         opt = api.Muon(plan, m, config=mcfg, device="cpu")
-        state = init_state(cfg, opt, seed=0, device="cpu", mesh=m,
-                           tensor_parallel=False)
-        step = make_train_step(cfg, opt, m, device="cpu",
-                               tensor_parallel=False)
+        state = init_state(cfg, opt, seed=0, device="cpu", mesh=m)
+        step = make_train_step(cfg, opt, m, device="cpu")
         losses = []
         for i in range(3):
             state = step(state, batch_for_step(dcfg, i, device="cpu",
@@ -359,8 +385,9 @@ def train_rank(args) -> None:
         return plan, state, losses
 
     plan, state, losses = train(mesh)
-    arrays = {f"params/{p}": v.detach().numpy()
-              for p, v in tree.flatten(state.params)}
+    # whole parameters: on (2, 2) the step is tensor-parallel
+    arrays = {f"params/{p}": v for p, v in
+              whole_np(state.params, step_specs(cfg, mesh), mesh).items()}
     arrays.update({f"mom/{k}": v.numpy()
                    for k, v in state.opt_state.momentum.items()})
     info = {"losses": losses, "step": state.step, "rank": args.rank,
@@ -583,11 +610,9 @@ def pipeline_rank(args) -> None:
         opt = api.Muon(tplan, mesh, config=MuonConfig(
             learning_rate=0.02, momentum=0.95, pipeline="bucketed"),
             device="cpu")
-        state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
-                           tensor_parallel=False)
+        state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
         step = make_train_step(cfg, opt, mesh, accum_steps=2,
-                               prestage=prestage, device="cpu",
-                               tensor_parallel=False)
+                               prestage=prestage, device="cpu")
         losses[str(prestage)] = []
         for i in range(2):
             before = {p: v.detach().clone()
@@ -613,13 +638,10 @@ def pipeline_rank(args) -> None:
     # 5
     opt = api.Muon(tplan, mesh, config=MuonConfig(variant="adamw"),
                    device="cpu")
-    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
-                       tensor_parallel=False)
-    step = make_train_step(cfg, opt, mesh, device="cpu",
-                           tensor_parallel=False)
-    ref = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
-                     tensor_parallel=False)
-    loss_fn = make_loss_fn(cfg)
+    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    step = make_train_step(cfg, opt, mesh, device="cpu")
+    ref = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    loss_fn = make_loss_fn(cfg, mesh)
     data = mesh.get_group(0)
     ref_adamw = ref.opt_state.adamw
     for i in range(3):
@@ -674,19 +696,19 @@ def _resilient_loop(mesh, ckpt_dir=None, *, faults=None, steps=CKPT_STEPS,
         run=ResilientConfig(steps=steps, ckpt_every=steps, **run),
         mesh=mesh, ckpt_dir=None if ckpt_dir is None else str(ckpt_dir),
         faults=None if faults is None else FaultPlan.parse(faults),
-        resume=resume, device="cpu", tensor_parallel=False)
+        resume=resume, device="cpu")
 
 
 def _owner_arrays(loop) -> dict:
     """This rank's owner rows of the momentum and NorMuon's ``v``, and the
-    parameters."""
-    from repro_torch.core import tree
+    parameters whole (on a 'model' axis of more than one rank the step is
+    tensor-parallel)."""
     st = loop.state.opt_state
     out = {f"mom/{k}": v.numpy() for k, v in st.momentum.items()}
     out.update({f"v/{k}": v.numpy()
                 for k, v in st.variant_state["v"].items()})
-    out.update({f"params/{p}": v.detach().numpy()
-                for p, v in tree.flatten(loop.state.params)})
+    out.update({f"params/{p}": v for p, v in
+                whole_np(loop.state.params, loop.specs, loop.mesh).items()})
     return out
 
 
@@ -1210,22 +1232,13 @@ def _tp_ckpt_loop(mesh, ckpt_dir, *, resume: bool = False):
 
 def _tp_ckpt_arrays(loop) -> dict:
     """The loop's parameters and AdamW moments, whole."""
-    import torch
-
-    from repro_torch.core import tree
     st = loop.state
     out = {"step": np.asarray(st.step),
            "loss_ema": np.asarray(float(st.loss_ema))}
-    specs = loop.specs
     for prefix, t in (("params", st.params), ("mu", st.opt_state.adamw.mu),
                       ("nu", st.opt_state.adamw.nu)):
-        for p, v in tree.flatten(t):
-            v = v.detach()
-            if specs is not None:
-                from repro_torch.train.step import placed_params
-                v = _full(placed_params({"x": v}, {"x": specs[p]},
-                                        loop.mesh)["x"])
-            out[f"{prefix}/{p}"] = v.to(torch.float32).numpy()
+        out.update({f"{prefix}/{p}": v for p, v in
+                    whole_np(t, loop.specs, loop.mesh).items()})
     return out
 
 
@@ -1290,7 +1303,8 @@ def tp_rank(args) -> None:
             keep = chip_smoke.TP_QUANTITIES
             gate = chip_smoke.tp_gate(torch, {k: got[k] for k in keep},
                                       {k: ref[k] for k in keep},
-                                      {k: spread[k] for k in keep})
+                                      {k: spread[k] for k in keep},
+                                      set(opt.plan.leaves))
             row.update({"gate": gate, "single_ema": ref["ema"],
                         "single_placements": ref["placements"]})
     if extras and tuple(args.mesh) == (1, 2):
@@ -1306,11 +1320,41 @@ def tp_rank(args) -> None:
 def tp_restore_rank(args) -> None:
     """Resume the ``tp`` mode's checkpoint (DIR's parent/ckpt) on this
     mesh and, on rank 0, in one process: whole parameters and AdamW
-    moments saved (``restored/``, ``single/``)."""
+    moments saved (``restored/``, ``single/``).  The bytes of every array
+    the mesh's restore made on this rank's host (``assembled``), beside
+    the bytes of each leaf this rank holds after it and of the whole
+    leaf."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import tree
+
     mesh = _setup(args)
     ckpt = Path(args.out).parent / "ckpt"
-    loop = _tp_ckpt_loop(mesh, ckpt, resume=True)
+    made = {}
+    assemble = manager._assemble
+
+    def counted(d, meta, *region):
+        arr = assemble(d, meta, *region)
+        made[meta["file"]] = [int(arr.nbytes),
+                              int(np.prod(meta["shape"])) * arr.itemsize]
+        return arr
+    manager._assemble = counted
+    try:
+        loop = _tp_ckpt_loop(mesh, ckpt, resume=True)
+    finally:
+        manager._assemble = assemble
     loop.pipe.close()
+    held = {}
+    for prefix, t in (("train/params", loop.state.params),
+                      ("train/opt_state/adamw/mu",
+                       loop.state.opt_state.adamw.mu),
+                      ("train/opt_state/adamw/nu",
+                       loop.state.opt_state.adamw.nu)):
+        for p, v in tree.flatten(t):
+            path = f"{prefix}/{p}"
+            held[path] = {"split": loop.specs is not None and any(
+                e is not None for e in loop.specs[p]),
+                "bytes": v.numel() * v.element_size(),
+                "assembled_whole": made[manager._leaf_file(path)]}
     arrays = {f"restored/{k}": v for k, v in _tp_ckpt_arrays(loop).items()}
     if args.rank == 0:
         one = _tp_ckpt_loop(None, ckpt, resume=True)
@@ -1318,8 +1362,10 @@ def tp_restore_rank(args) -> None:
         arrays.update({f"single/{k}": v
                        for k, v in _tp_ckpt_arrays(one).items()})
     np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
-    (Path(args.out) / f"rank{args.rank}.json").write_text(
-        json.dumps({"rank": args.rank}))
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps({
+        "rank": args.rank, "held": held,
+        "assembled_bytes": sum(a for a, _ in made.values()),
+        "whole_bytes": sum(w for _, w in made.values())}))
 
 
 def jax_tp_reference(args) -> None:
