@@ -242,6 +242,24 @@ Phases, each printing one JSON line and asserting what it checks:
            predicted peak for the same runs, two ``tp_predict``
            subprocesses started with the script).
 
+  tp_moe   DeepSeek-V3's expert-parallel step (the MoE family under a
+           mesh whose 'model' axis has more than one rank: experts, router
+           and MLA split by ``param_specs``, the dispatch ranking tokens
+           over the data axes), one NCCL rank a card.  (a) the moe phase's
+           cut (2 layers, 16 experts, bf16, capacity factor 1.25, batch 4
+           x 1024, 3 Muon steps, ``donate``), each step's drops printed:
+           on one card on (1, 1), bitwise the moe phase's run (its
+           loss_ema and a digest of every parameter's bits); on four on
+           (1, 4) and (2, 2), each held to one card's run of the whole
+           batch by ``tp_gate``.  (b) four cards only: all 256 routed
+           experts (64 a card) on (1, 4), as many layers as the dry run's
+           walk (``tp_moe_predict``, eight host subprocesses started with
+           the script) predicts within 80 GB a card for Muon and AdamW;
+           the three kernels at its owner shapes on card 0 (as ``tp``'s);
+           16 Muon and 16 AdamW steps with ``donate``, the loss falling
+           (``loss_falls``), launches from the plan, step / optimizer ms,
+           peaks within ``PEAK_GATE`` of the prediction.
+
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
 and families phases' Muon runs), the nvidia-smi line (the first card's;
@@ -298,7 +316,7 @@ LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
-          "serve_families", "serve_paged", "mesh", "tp", "tp_qwen")
+          "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -873,7 +891,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               steps: int = TRAIN_STEPS, keep_state: bool = False,
               cfg=None, dcfg=None, donate: bool = False,
               inputs=None, tensor_parallel: bool = False,
-              init_hook=None) -> dict:
+              init_hook=None, before_step=None,
+              digest: bool = False) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on; or
     the model ``cfg`` on the data ``dcfg``, each batch joined by
     ``inputs(step)``'s tensors (patches or frames) when given, the
@@ -900,7 +919,10 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     ``mesh``'s 'model' axis (``grad_specs`` from ``param_specs``, even on
     a model axis of one rank); the captures are then whole tensors
     (gathered over the mesh, on the host).  ``init_hook(params)`` runs on
-    the initial parameters (in place) before the first step.
+    the initial parameters (in place) before the first step;
+    ``before_step(state, batch)`` before each step, outside its clock and
+    its launch count.  ``digest``: ``param_digest`` of the last
+    parameters (this rank's parts).
     With ``trace`` (a file path) the steps run under ``torch.profiler``
     (host and device), the Chrome trace is written there and a per-step
     summary returned.  With ``keep_state`` the last ``TrainState``, the
@@ -988,6 +1010,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
         batch = batch_for_step(dcfg, i, device="cuda", mesh=mesh)
         if inputs is not None:
             batch.update(inputs(i))
+        if before_step is not None:
+            before_step(state, batch)
         torch.cuda.synchronize()
         before = allocator_counts(torch)
         gc_clock.reset()
@@ -1048,10 +1072,32 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "first_updates": first, "first_grads": first_grads,
             "final_params": final_params(state.params) if capture else {},
+            "digest": param_digest(torch, state.params) if digest else None,
             "plan": plan, "cfg": cfg, "data": dcfg,
             "state": state if keep_state else None,
             "step": step if keep_state else None,
             "opt": opt if keep_state else None}
+
+
+def param_digest(torch, params) -> dict:
+    """{path: (numel, a position-weighted int64 sum of the bits)} of each
+    leaf: equal digests say two runs' parameters are equal bit for bit
+    (up to a hash collision) without keeping a copy.  Chunked, so the
+    temporaries stay small beside a model that fills the card."""
+    from repro_torch.core import tree
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    with torch.no_grad():
+        for p, v in tree.flatten(params):
+            bits = v.detach().contiguous().view(ints[v.element_size()])
+            bits = bits.reshape(-1)
+            total = 0
+            for i in range(0, bits.numel(), 1 << 26):
+                part = bits[i:i + (1 << 26)].long()
+                w = torch.arange(i, i + part.numel(), device=part.device)
+                total += int((part * (w % 65521 + 1)).sum())
+            out[p] = (bits.numel(), total)
+    return out
 
 
 def phase_train(torch, variant: str) -> dict:
@@ -2605,6 +2651,7 @@ def start_tp_predictions() -> list:
             [sys.executable, "-W", "ignore", "-c", code],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
         cells.append({"cell": opt, "proc": proc, "log": log,
+                      "path": outdir / f"{opt}.json",
                       "t0": time.perf_counter()})
     return cells
 
@@ -2624,7 +2671,8 @@ def tp_predict(opt: str, out: str) -> None:
 
 
 def tp_predictions(cells: list) -> dict:
-    """{"owner" / "adamw": predicted peak GB} of ``start_tp_predictions``."""
+    """{cell: predicted peak GB} of ``start_tp_predictions`` ("owner" /
+    "adamw") or ``start_tp_moe_predictions``."""
     out = {}
     for c in cells:
         left = TP_PREDICT_TIMEOUT_S - (time.perf_counter() - c["t0"])
@@ -2633,14 +2681,16 @@ def tp_predictions(cells: list) -> dict:
         except subprocess.TimeoutExpired:
             raise AssertionError(f"tp prediction {c['cell']} still running "
                                  f"after {TP_PREDICT_TIMEOUT_S} s") from None
-        path = ROOT / "build" / "tp_predict" / f"{c['cell']}.json"
+        path = c["path"]
         if rc != 0 or not path.exists():
             c["log"].flush()
             raise AssertionError(f"tp prediction {c['cell']} exit {rc}: "
                                  f"{Path(c['log'].name).read_text()[-2000:]}")
         d = json.loads(path.read_text())
+        # the walk's own build and walk, not the wait for it
         out[c["cell"]] = {"peak_gb": d["memory_analysis"]["total_bytes"] / 1e9,
-                          "host_seconds": time.perf_counter() - c["t0"]}
+                          "walk_seconds": d["timings_s"]["build"]
+                          + d["timings_s"]["compile"]}
     return out
 
 
@@ -2691,22 +2741,30 @@ def phase_tp_qwen(torch, smi: str, cells: list) -> None:
           "measured_peak_gb_per_card": got,
           "predicted_over_measured": {
               k: predicted[k]["peak_gb"] / max(got[k]) for k in predicted},
-          "prediction_host_seconds": {k: v["host_seconds"] for k, v in
+          "prediction_walk_seconds": {k: v["walk_seconds"] for k, v in
                                       predicted.items()},
           "world": world, "seconds": seconds, "nvidia_smi": smi})
 
 
 def tp_kernels(torch) -> None:
-    """The three kernels at the (B, m, n) of one owner's rows of each
-    Gram group of qwen2.5-14b on ``TP_QWEN_MESH`` (``TP_QWEN_LAYERS``
-    layers: B = ceil(layers / 4)), on this card, held and timed as the
-    families phase's (median of ``FAMILY_REPS``), each with its launches
-    a step on every rank (from the plan)."""
+    """The three kernels at the (B, m, n) of one owner's rows of each Gram
+    group of qwen2.5-14b on ``TP_QWEN_MESH`` (``TP_QWEN_LAYERS``
+    layers: B = ceil(layers / 4)), on this card (``owner_kernels``)."""
     from repro_torch import configs
+    owner_kernels(torch, configs.get(TP_QWEN, n_layers=TP_QWEN_LAYERS),
+                  TP_QWEN_MESH, {"phase": "tp", "arch": TP_QWEN,
+                                 "n_layers": TP_QWEN_LAYERS})
+
+
+def owner_kernels(torch, cfg, mesh_shape, line: dict) -> None:
+    """The three kernels at the (B, m, n) of one owner's rows of each Gram
+    group of ``cfg`` over the cards of ``mesh_shape``, on this card, held
+    and timed as the families phase's (median of ``FAMILY_REPS``), each
+    with its launches a step on every rank (from the plan); each row
+    printed after ``line``."""
     from repro_torch.core import api
     from repro_torch.models import transformer
-    cfg = configs.get(TP_QWEN, n_layers=TP_QWEN_LAYERS)
-    owners = math.prod(TP_QWEN_MESH)
+    owners = math.prod(mesh_shape)
     plan = api.dedicate_params(transformer.init(cfg, device="meta"),
                                num_owners=owners)
     syrk, gram = {}, {}
@@ -2721,10 +2779,11 @@ def tp_kernels(torch) -> None:
     for case in gram_kernel_cases(torch, gen, list(syrk), list(gram)):
         name, shape = case[0], case[1]
         groups = syrk[shape] if name == "gram_syrk" else gram[shape[:2]]
-        emit({"phase": "tp", "arch": TP_QWEN, "n_layers": TP_QWEN_LAYERS,
-              "mesh": list(TP_QWEN_MESH),
+        emit({**line, "mesh": list(mesh_shape),
               "launches_per_step": groups * per_group[counter[name]],
               **check_kernel_case(torch, case, FAMILY_REPS)})
+        del case
+        torch.cuda.empty_cache()
 
 
 def tp_rank(rank: int, world: int, port: int, part: str,
@@ -2934,10 +2993,14 @@ def loss_falls(loss_ema: list, window: int) -> dict:
             "falls": last < first}
 
 
-def tp_vs_single(torch, runs: dict, **kw):
+def tp_vs_single(torch, runs: dict, accum: int | None = None,
+                 drops: bool = False, **kw):
     """Rank 0: each mesh run against one card's on the same batches
     (``tp_gate``; ``kw`` to ``train_run``: the model and data of the
-    runs); the first gate missed, or None."""
+    runs), the batch in as many microbatches as the mesh has data ranks
+    (``accum`` instead where given: 1 for the MoE family, whose dispatch
+    spans the data ranks); the first gate missed, or None.  ``drops``:
+    the one-card run's MoE drops a step printed beside."""
     from repro_torch.core import tree
 
     gen = torch.Generator("cuda").manual_seed(11)
@@ -2945,15 +3008,18 @@ def tp_vs_single(torch, runs: dict, **kw):
     def ulp(params):
         for _, v in tree.flatten(params):
             v.copy_(one_ulp_up(torch, v, gen))
-    refs = {}
-    for data in sorted({shape[0] for shape in runs}):
-        refs[data] = [train_run(torch, "muon", "owner", capture="host",
-                                grads=True, accum_steps=data,
-                                init_hook=hook, **kw) for hook in (None, ulp)]
+    refs, dropped = {}, []
+    for parts in sorted({accum or shape[0] for shape in runs}):
+        refs[parts] = [train_run(
+            torch, "muon", "owner", capture="host", grads=True,
+            accum_steps=parts, init_hook=hook,
+            before_step=drop_counter(torch, kw["cfg"], None, dropped, [])
+            if drops and hook is None and not dropped else None, **kw)
+            for hook in (None, ulp)]
         torch.cuda.empty_cache()
     failure = None
     for shape, run in runs.items():
-        ref, spread = refs[shape[0]]
+        ref, spread = refs[accum or shape[0]]
         gate = tp_gate(torch, tp_quantities(torch, run),
                        tp_quantities(torch, ref),
                        tp_quantities(torch, spread), set(run["plan"].leaves))
@@ -2961,11 +3027,12 @@ def tp_vs_single(torch, runs: dict, **kw):
                        key=lambda kv: -kv[1]["ratio"])[:8]
         emit({"phase": "tp", "check": "tp_vs_single", "arch": run["arch"],
               "n_layers": run["cfg"].n_layers, "mesh": list(shape),
-              "reference": f"one card, accum_steps={shape[0]}",
+              "reference": f"one card, accum_steps={accum or shape[0]}",
               "ratios": gate["ratios"], "factor": gate["factor"],
               "spread_factor": gate["spread_factor"],
               "worst_leaves": dict(worst),
               "loss_ema_tp": run["loss_ema"], "loss_ema_single": ref["loss_ema"],
+              "single_dropped_by_step": dropped or None,
               "single_step_ms": ref["step_ms"],
               "single_optimizer_ms": ref["optimizer_ms"]})
         if gate["factor"] > 1 and failure is None:
@@ -2973,6 +3040,348 @@ def tp_vs_single(torch, runs: dict, **kw):
                        "misses the gate: "
                        f"ratios {gate['ratios']}")
     return failure
+
+
+# ------------------------------------------------------------------ tp_moe
+
+# DeepSeek-V3's expert-parallel step.  (a) the moe phase's cut
+# (``moe_config``: 2 layers, 16 experts) on each mesh of ``TP_MOE_MESHES``,
+# held to one card by ``tp_gate``; (b) all 256 routed experts on
+# ``TP_MOE_MESH`` (64 a card) at the depth the dry run's walk
+# (``tp_moe_predict``) puts within ``HBM_BYTES`` a card for both
+# optimizers: the first of ``TP_MOE_CUTS`` (layers, experts) that fits,
+# else the first of ``TP_MOE_FALLBACKS`` (the experts cut in multiples of
+# 4), walked only then
+TP_MOE_MESHES = [(1, 4), (2, 2)]
+TP_MOE_MESH = (1, 4)
+TP_MOE_CUTS = [(2, 256), (1, 256)]
+TP_MOE_FALLBACKS = [(1, 224), (1, 192)]
+TP_MOE_STEPS = 16
+TP_MOE_WINDOW = 4
+
+
+def tp_moe_config(layers: int, experts: int):
+    """DeepSeek-V3 at its published widths, ``layers`` layers and
+    ``experts`` routed experts (bf16, remat, capacity factor 1.25)."""
+    from repro_torch import configs
+    base = configs.get("deepseek-v3-671b")
+    return configs.get("deepseek-v3-671b", n_layers=layers,
+                       moe=dataclasses.replace(base.moe, n_experts=experts))
+
+
+def start_tp_moe_predictions(cuts=TP_MOE_CUTS) -> list:
+    """The host's predicted peak of each (b) candidate of ``cuts`` for
+    Muon and AdamW (``tp_moe_predict``), one subprocess each, started at
+    once; JSONs and logs under the ignored ``build/tp_moe_predict``."""
+    outdir = ROOT / "build" / "tp_moe_predict"
+    outdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cells = []
+    for layers, experts in cuts:
+        for opt in ("owner", "adamw"):
+            name = f"{opt}_{layers}x{experts}"
+            log = open(outdir / f"{name}.log", "w")
+            code = (f"import chip_smoke; chip_smoke.tp_moe_predict({opt!r}, "
+                    f"{layers}, {experts}, "
+                    f"{str(outdir / f'{name}.json')!r})")
+            proc = subprocess.Popen(
+                [sys.executable, "-W", "ignore", "-c", code],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+            cells.append({"cell": name, "proc": proc, "log": log,
+                          "path": outdir / f"{name}.json",
+                          "t0": time.perf_counter()})
+    return cells
+
+
+def tp_moe_predict(opt: str, layers: int, experts: int, out: str) -> None:
+    """The dry run's walk (``launch.dryrun.walk_cell``) of one (b) run:
+    ``tp_moe_config(layers, experts)``, batch ``MOE_BATCH`` x ``MOE_SEQ``
+    in one microbatch on a fake world of ``TP_MOE_MESH``, with
+    ``train_run``'s optimizer settings for ``opt`` ("owner": Muon,
+    "adamw"); its JSON to ``out``."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.launch.dryrun import walk_cell
+    muon = MuonConfig(variant="muon" if opt == "owner" else "adamw",
+                      mode="owner", pipeline="fused",
+                      autotune_prewarm=False,
+                      ns=GramNSConfig(use_kernels=True))
+    shape = ShapeSpec("tp_moe", MOE_SEQ, MOE_BATCH, "train")
+    result = walk_cell(tp_moe_config(layers, experts), "deepseek-v3-671b",
+                       shape, TP_MOE_MESH, opt, muon=muon, accum=1)
+    Path(out).write_text(json.dumps(result, default=str))
+
+
+def tp_moe_cut(predicted: dict) -> tuple:
+    """The first (layers, experts) of ``TP_MOE_CUTS`` whose predicted
+    peaks (Muon and AdamW) are both within ``HBM_BYTES``, else of
+    ``TP_MOE_FALLBACKS``, walked now and added to ``predicted``."""
+    from repro_torch.launch.mesh import HBM_BYTES
+
+    def fits(cut):
+        return max(predicted[f"{o}_{cut[0]}x{cut[1]}"]["peak_gb"]
+                   for o in ("owner", "adamw")) * 1e9 <= HBM_BYTES
+    for cut in TP_MOE_CUTS:
+        if fits(cut):
+            return cut
+    cells = start_tp_moe_predictions(TP_MOE_FALLBACKS)
+    try:
+        predicted.update(tp_predictions(cells))
+    finally:
+        stop_dryrun_cells(cells)
+    for cut in TP_MOE_FALLBACKS:
+        if fits(cut):
+            return cut
+    raise AssertionError(f"no cut of {TP_MOE_CUTS + TP_MOE_FALLBACKS} is "
+                         f"predicted within {HBM_BYTES / 1e9} GB a card: "
+                         f"{predicted}")
+
+
+def drop_counter(torch, cfg, mesh, rows: list, slots: list):
+    """A ``train_run`` ``before_step`` hook: each step's MoE assignments
+    beyond capacity, summed over the layers, on this rank's tokens (under
+    the global rule on a mesh), from a forward without gradients on the
+    step's parameters and batch; appended to ``rows``, and the slots of
+    each layer's expert buffers on this rank to ``slots``."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.train.step import make_loss_fn
+    loss_fn = make_loss_fn(cfg, mesh)
+
+    def hook(state, batch):
+        with torch.no_grad(), moe_lib.recording() as rec:
+            loss_fn(state.params, batch)
+        rows.append(int(sum(int(r["dropped"]) for r in rec)))
+        slots.append([r["slots"] for r in rec])
+    return hook
+
+
+def phase_tp_moe(torch, smi: str, cells: list, moe_run) -> None:
+    """Every visible card, one NCCL rank each (spawned, as the tp phase's):
+    DeepSeek-V3 through the expert-parallel step (``tp_moe_checks``).  On
+    one card (1, 1), bitwise the moe phase's run (``moe_run``: its
+    loss_ema and ``param_digest``; run here where that phase did not).
+    On four, (a) then, after the predictions of ``cells``
+    (``start_tp_moe_predictions``) pick the (b) cut and its kernels run on
+    this card, (b); its peaks beside the predictions, within
+    ``PEAK_GATE``."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    world = torch.cuda.device_count()
+    out = ROOT / "build" / "tp_phase"
+    out.mkdir(parents=True, exist_ok=True)
+    measured = out / "moe.json"
+    measured.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(tp_moe_rank, args=(world, free_port(), "a", None,
+                                          moe_run, ""),
+                       nprocs=world, start_method="spawn", join=True)
+    if world != math.prod(TP_MOE_MESH):
+        emit({"phase": "tp_moe", "check": "done", "world": world,
+              "skipped": f"(b) needs {math.prod(TP_MOE_MESH)} cards",
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        return
+    predicted = tp_predictions(cells)
+    layers, experts = tp_moe_cut(predicted)
+    emit({"phase": "tp_moe", "check": "cut", "n_layers": layers,
+          "n_experts": experts, "cuts": TP_MOE_CUTS,
+          "fallbacks": TP_MOE_FALLBACKS,
+          "predicted_peak_gb": {k: v["peak_gb"] for k, v in
+                                predicted.items()},
+          "prediction_walk_seconds": {k: v["walk_seconds"] for k, v in
+                                      predicted.items()}})
+    # the kernels at its owner shapes: the experts' groups (64·layers,
+    # 2048, 7168) at 256 experts
+    owner_kernels(torch, tp_moe_config(layers, experts), TP_MOE_MESH,
+                  {"phase": "tp_moe", "arch": "deepseek-v3-671b",
+                   "n_layers": layers, "n_experts": experts})
+    torch.cuda.empty_cache()
+    mp.start_processes(tp_moe_rank, args=(world, free_port(), "b",
+                                          (layers, experts), None,
+                                          str(measured)),
+                       nprocs=world, start_method="spawn", join=True)
+    got = json.loads(measured.read_text())
+    ratio = {o: predicted[f"{o}_{layers}x{experts}"]["peak_gb"] / max(got[o])
+             for o in got}
+    emit({"phase": "tp_moe", "check": "peak_vs_dryrun",
+          "arch": "deepseek-v3-671b", "mesh": list(TP_MOE_MESH),
+          "n_layers": layers, "n_experts": experts,
+          "measured_peak_gb_per_card": got,
+          "predicted_over_measured": ratio, "gate": PEAK_GATE,
+          "world": world, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    missed = {o: r for o, r in ratio.items() if abs(r - 1) > PEAK_GATE}
+    if missed:
+        raise AssertionError(f"(b) peaks off the dry run's by more than "
+                             f"{PEAK_GATE}: {missed}")
+
+
+def tp_moe_rank(rank: int, world: int, port: int, part: str, cut,
+                moe_run, measured: str) -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import strict_fp32
+    from repro_torch.launch.mesh import init_process_group
+
+    strict_fp32()
+    init_process_group("cuda", rank=rank, world_size=world,
+                       init_method=f"tcp://localhost:{port}",
+                       timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    if part == "a":
+        tp_moe_checks(torch, dist, rank, world, moe_run)
+    else:
+        tp_moe_published(torch, dist, rank, world, *cut, Path(measured))
+    dist.destroy_process_group()
+
+
+def _gathered(dist, world: int, obj) -> list:
+    out = [None] * world
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def tp_moe_checks(torch, dist, rank: int, world: int, moe_run) -> None:
+    """(a) on one rank: ``moe_config()`` (the moe phase's DeepSeek-V3, batch
+    ``MOE_BATCH`` x ``MOE_SEQ``, ``TRAIN_STEPS`` Muon steps, ``donate``)
+    through the expert-parallel step, launches from the plan, the drops
+    of each step (the global rule) printed.  One card: on (1, 1), bitwise
+    the moe phase's run.  Four: on each mesh of ``TP_MOE_MESHES``, held
+    to one card's run of the whole batch (one dispatch, as the reference's)
+    by ``tp_gate``."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_lib
+
+    cfg = moe_config()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                      global_batch=MOE_BATCH)
+    lead = rank == 0
+    shapes = [(1, 1)] if world == 1 else TP_MOE_MESHES
+    assignments = cfg.n_layers * MOE_BATCH * MOE_SEQ * cfg.moe.top_k
+    tokens = MOE_BATCH * MOE_SEQ
+    cap = moe_lib.capacity(cfg.moe, tokens)
+    runs, failure = {}, None
+    for shape in shapes:
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        drops, slots = [], []
+        run = train_run(torch, "muon", "owner", mesh, cfg=cfg, dcfg=dcfg,
+                        donate=True, capture="host" if world > 1 else False,
+                        grads=world > 1, tensor_parallel=True,
+                        digest=world == 1,
+                        before_step=drop_counter(torch, cfg, mesh, drops,
+                                                 slots))
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb")}
+        per_rank = _gathered(dist, world, {**timing, "dropped": drops,
+                                           "slots": slots})
+        if lead:
+            # model ranks repeat their data rank's count
+            glob = [sum(r["dropped"][i] for j, r in enumerate(per_rank)
+                        if j % shape[1] == 0) for i in range(len(drops))]
+            emit({"phase": "tp_moe", "arch": run["arch"], "mesh": list(shape),
+                  "n_layers": cfg.n_layers, "n_experts": cfg.moe.n_experts,
+                  "loss_ema": run["loss_ema"],
+                  "dropped_by_step": glob, "assignments_per_step": assignments,
+                  "capacity": cfg.moe.capacity_factor,
+                  # a buffer's slots a layer: each rank's (``per_rank``)
+                  # against C of the global batch and min(C, T) of a rank
+                  "capacity_slots": cap,
+                  "rank_rows_bound": min(cap, tokens // shape[0]),
+                  "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                                        run["launches"].items()},
+                  "per_rank": per_rank})
+            runs[shape] = run
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    if lead and world == 1:
+        tp = runs[(1, 1)]
+        if moe_run is None:
+            single = train_run(torch, "muon", cfg=cfg, dcfg=dcfg,
+                               donate=True, digest=True)
+            moe_run = {k: single[k] for k in ("loss_ema", "digest")}
+            del single
+        same = tp["digest"] == moe_run["digest"] and \
+            tp["loss_ema"] == moe_run["loss_ema"]
+        emit({"phase": "tp_moe", "check": "world1_vs_moe_phase",
+              "bitwise_params": tp["digest"] == moe_run["digest"],
+              "loss_ema": tp["loss_ema"],
+              "moe_phase_loss_ema": moe_run["loss_ema"]})
+        if not same:
+            failure = ("the expert-parallel step on one card is not the moe "
+                       "phase's run bitwise")
+    elif lead:
+        failure = tp_vs_single(torch, runs, accum=1, drops=True, cfg=cfg,
+                               dcfg=dcfg, donate=True)
+    runs.clear()
+    failures = _gathered(dist, world, failure)
+    if failures[0] is not None:
+        raise AssertionError(failures[0])
+
+
+def tp_moe_published(torch, dist, rank: int, world: int, layers: int,
+                     experts: int, measured: Path) -> None:
+    """(b) on one rank of four: ``tp_moe_config(layers, experts)`` on
+    ``TP_MOE_MESH``, batch ``MOE_BATCH`` x ``MOE_SEQ``, ``TP_MOE_STEPS``
+    Muon and as many AdamW steps with ``donate``: the loss falling
+    (``loss_falls``), launches from the plan, step / optimizer ms and peak
+    GB per card (the peaks written to ``measured`` for the parent)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    lead = rank == 0
+    mesh = make_mesh(TP_MOE_MESH, ("data", "model"), "cuda")
+    cfg = tp_moe_config(layers, experts)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                      global_batch=MOE_BATCH)
+    peaks, rows, missed = {}, {}, []
+    for variant in ("muon", "adamw"):
+        run = train_run(torch, variant, "owner", mesh, cfg=cfg, dcfg=dcfg,
+                        donate=True, tensor_parallel=True,
+                        steps=TP_MOE_STEPS)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        per_rank = _gathered(dist, world, timing)
+        falls = loss_falls(run["loss_ema"], TP_MOE_WINDOW)
+        rows[variant] = {"loss_ema": run["loss_ema"], **falls,
+                         "per_rank": per_rank}
+        peaks["owner" if variant == "muon" else "adamw"] = [
+            r["peak_mem_gb"] for r in per_rank]
+        if lead:
+            emit({"phase": "tp_moe", "arch": cfg.name, "variant": variant,
+                  "mesh": list(TP_MOE_MESH), "n_layers": layers,
+                  "n_experts": experts, **rows[variant]})
+        if not falls["falls"]:
+            missed.append(f"{cfg.name} {variant}: the mean loss of the last "
+                          f"{TP_MOE_WINDOW} steps is not below the first "
+                          f"{TP_MOE_WINDOW}'s: {falls}")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    if missed:
+        raise AssertionError("; ".join(missed))
+    if lead:
+        steady = {v: [{k: sum(r[k][1:]) / len(r[k][1:])
+                       for k in ("step_ms", "optimizer_ms")}
+                      for r in rows[v]["per_rank"]] for v in rows}
+        emit({"phase": "tp_moe", "arch": cfg.name,
+              "mesh": list(TP_MOE_MESH), "n_layers": layers,
+              "n_experts": experts,
+              "cut": {"n_layers": [layers, 61], "n_experts": [experts, 256],
+                      "note": "[cut, published]; every width as published"},
+              "batch": [MOE_BATCH, MOE_SEQ], "params": cfg.param_count(),
+              "loss_ema": {v: r["loss_ema"] for v, r in rows.items()},
+              "steady_mean_ms_per_rank": steady,
+              "owner_over_adamw_per_rank": [
+                  {k: m[k] / a[k] for k in m}
+                  for m, a in zip(steady["muon"], steady["adamw"])]})
+        measured.write_text(json.dumps(peaks))
 
 
 # -------------------------------------------------------------------- main
@@ -3266,7 +3675,8 @@ def phase_moe(torch, smi: str) -> dict:
     launches asserted per step from the plan) and ``MOE_ADAMW_STEPS``
     AdamW steps, batch ``MOE_BATCH`` x ``MOE_SEQ``, remat on, seed 0, the
     optimizer releasing each spent state (``donate``).  Returns the Muon
-    run's launches."""
+    run's launches, and its loss_ema and ``param_digest`` (for the tp_moe
+    phase's one-card check)."""
     from repro_torch.core import api
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import transformer
@@ -3316,7 +3726,7 @@ def phase_moe(torch, smi: str) -> dict:
     for variant, steps in (("muon", TRAIN_STEPS), ("adamw", MOE_ADAMW_STEPS)):
         torch.cuda.empty_cache()
         run = train_run(torch, variant, cfg=cfg, dcfg=dcfg, steps=steps,
-                        donate=True)
+                        donate=True, digest=variant == "muon")
         tokens = MOE_BATCH * MOE_SEQ
         lines[variant] = {
             "phase": "moe", "variant": variant, "arch": run["arch"],
@@ -3329,11 +3739,12 @@ def phase_moe(torch, smi: str) -> dict:
         emit(lines[variant])
         if variant == "muon":
             launches = run["launches"]
+            muon = {k: run[k] for k in ("loss_ema", "digest")}
         del run
     torch.cuda.empty_cache()
     emit({"phase": "moe", "seconds": time.perf_counter() - t_phase,
           "nvidia_smi": smi})
-    return launches
+    return launches, muon
 
 
 # ----------------------------------------------------------------- families
@@ -4567,12 +4978,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    # the dry run's production cells and the tp phase's predictions are
+    # the dry run's production cells and the tp phases' predictions are
     # host work (a fake world of fake tensors): started first, they run
     # beside the card phases
     cells = start_dryrun_cells() if "dryrun" in phases else []
-    tp_cells = start_tp_predictions() if "tp_qwen" in phases and \
-        torch.cuda.device_count() == math.prod(TP_QWEN_MESH) else []
+    four = torch.cuda.device_count() == math.prod(TP_QWEN_MESH)
+    tp_cells = (start_tp_predictions() if "tp_qwen" in phases and four
+                else []) + (start_tp_moe_predictions()
+                            if "tp_moe" in phases and four else [])
     try:
         return run_phases(torch, args, phases, cells, tp_cells)
     finally:
@@ -4584,7 +4997,7 @@ def run_phases(torch, args, phases: list, cells: list,
     """The device line, each phase of ``phases`` in ``PHASES`` order, the
     kernels summary and the closing lines; ``cells`` are the running
     ``start_dryrun_cells`` processes, ``tp_cells`` the
-    ``start_tp_predictions`` ones."""
+    ``start_tp_predictions`` / ``start_tp_moe_predictions`` ones."""
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import build
 
@@ -4631,11 +5044,11 @@ def run_phases(torch, args, phases: list, cells: list,
     if "resilience" in phases:
         torch.cuda.empty_cache()
         phase_resilience(torch, smi[0])
-    moe_launches = None
+    moe_launches = moe_run = None
     if "moe" in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        moe_launches = phase_moe(torch, smi[0])
+        moe_launches, moe_run = phase_moe(torch, smi[0])
         torch.cuda.empty_cache()
     family_launches = None
     if "families" in phases:
@@ -4675,7 +5088,13 @@ def run_phases(torch, args, phases: list, cells: list,
     if "tp_qwen" in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        phase_tp_qwen(torch, smi[0], tp_cells)
+        phase_tp_qwen(torch, smi[0],
+                      [c for c in tp_cells if c["cell"] in ("owner", "adamw")])
+    if "tp_moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp_moe(torch, smi[0],
+                     [c for c in tp_cells if "_" in c["cell"]], moe_run)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

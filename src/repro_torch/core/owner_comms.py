@@ -611,7 +611,11 @@ class OwnerLayout:
             return out
 
         def rank(c):
-            return int(mesh.mesh[tuple(c)])
+            # the rank map is a real tensor; the dry run walks this under
+            # FakeTensorMode, so read it outside the active modes
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                return int(mesh.mesh[tuple(c)])
         return (rank(coord(index(me, order_a), order_b)),
                 rank(coord(index(me, order_b), order_a)))
 

@@ -26,8 +26,10 @@ batch is split over the mesh's data axes (``models.sharding.dp_axes``), a
 batch smaller than the data-parallel size run whole on each card.  The
 dense family's train cells walk the tensor-parallel step of
 ``train/step.py``: parameters split by ``param_specs`` over the 'model'
-axis (16 cards), the forward's collectives on it.  ZeRO-3 is not ported,
-so nemotron-4-340b's cells run without it, and their ``detail`` says so.
+axis (16 cards), the forward's collectives on it; so do the MoE
+family's, its experts split over that axis (expert parallelism).  ZeRO-3
+is not ported, so nemotron-4-340b's, deepseek-v3-671b's and
+kimi-k2-1t-a32b's cells run without it, and their ``detail`` says so.
 Every other cell keeps the parameters replicated on every card (the
 tensor-parallel forward of the other families and of serving is ROADMAP
 item 6): a model of more than ~10 B parameters does not fit a card in
@@ -144,17 +146,20 @@ def rank_inputs(cfg, shape, mesh) -> dict:
     return out
 
 
-def build_train_cell(cfg, arch_id, shape, mesh, mode):
+def build_train_cell(cfg, arch_id, shape, mesh, mode, muon=None,
+                     accum=None):
     """(fn, example_args, plan) of one training cell, built under the
     caller's ``FakeTensorMode``: the state from ``init`` directly (not
     ``init_state``, whose cross-rank checksum reads a collective's
     result), cut to this rank's parts where the step is tensor-parallel,
-    the step with the buffers of the spent state released (``donate``)."""
+    the step with the buffers of the spent state released (``donate``).
+    ``muon`` / ``accum`` replace the arch's optimizer settings
+    (``opt_config``) and microbatches (``accum_steps``)."""
     from repro_torch.train.step import make_train_step, placed_params
     m = model_fns(cfg)
     params = m.init(cfg, 0, device="cpu")
     plan = api.dedicate_params(params, mesh=mesh, strategy="greedy")
-    opt = api.Muon(plan, mesh, config=opt_config(arch_id, mode),
+    opt = api.Muon(plan, mesh, config=muon or opt_config(arch_id, mode),
                    device="cpu")
     if tensor_parallel(cfg, mesh):
         specs = param_specs(cfg, params, mesh)
@@ -171,7 +176,8 @@ def build_train_cell(cfg, arch_id, shape, mesh, mode):
                        torch.zeros((), dtype=torch.float32))
     inputs = rank_inputs(cfg, shape, mesh)
     # the arch's microbatches, as many as this rank's rows allow
-    accum = math.gcd(accum_steps(arch_id), inputs["tokens"].shape[0])
+    accum = accum or math.gcd(accum_steps(arch_id),
+                              inputs["tokens"].shape[0])
     step = make_train_step(cfg, opt, mesh, accum_steps=accum, donate=True,
                            device="cpu")
     return step, (state, inputs), plan
@@ -235,12 +241,14 @@ def _fake_mesh(mesh_kind):
                             mesh_dim_names=("data", "model"))
 
 
-def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str) -> dict:
+def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
+              muon=None, accum=None) -> dict:
     """Build and walk one cell on the fake world; the result's fields
     (``ok`` and after), or an exception.  ``shape``: a name of ``SHAPES``
     or a ``ShapeSpec``; ``mesh_kind``: "single", "multi" or a (data,
     model) shape (``_fake_mesh``), as ``chip_smoke.py`` predicts a run on
-    the cards it has."""
+    the cards it has (``muon`` / ``accum``: that run's optimizer settings
+    and microbatches, ``build_train_cell``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     sp = _spec(shape)
     world = MESH_WORLD.get(mesh_kind) or math.prod(mesh_kind)
@@ -253,7 +261,7 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str) -> dict:
             plan = None
             if sp.kind == "train":
                 fn, args, plan = build_train_cell(cfg, arch_id, sp, mesh,
-                                                  mode)
+                                                  mode, muon, accum)
             else:
                 fn, args = build_serve_cell(cfg, arch_id, sp, mesh)
             t_build = time.time() - t0
@@ -275,10 +283,10 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str) -> dict:
     nsr = nsk = 0.0
     if plan is not None and mode == "owner":
         nsr, nsk = ns_flops_for_plan(plan, 5, ndev)
+    ns_dtype = (muon or opt_config(arch_id, mode)).ns.compute_dtype
     r = roofline.analyze(walker.costs, num_devices=ndev,
                          model_flops=model_flops, ns_flops_raw=nsr,
-                         ns_flops_kernel=nsk,
-                         ns_dtype=opt_config(arch_id, mode).ns.compute_dtype)
+                         ns_flops_kernel=nsk, ns_dtype=ns_dtype)
     rows = local_rows(sp.global_batch, mesh)
     batch = (f"{rows} of {sp.global_batch} rows a card (the batch over "
              f"{dp_axes(mesh)}"
@@ -309,12 +317,15 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str) -> dict:
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str, mode: str,
-             outdir: str, force: bool = False, reduced: bool = False) -> dict:
+             outdir: str, force: bool = False, reduced: bool = False,
+             layers: int | None = None) -> dict:
     """One cell's JSON (read back if written and not ``force``); a failure
     is recorded with its traceback (``src/repro/launch/dryrun.py:199``).
     ``reduced``: the arch's reduced config (the CPU tests' widths) at the
-    cell's shapes."""
-    tag = f"{arch_id}__{shape_name}__{mode}"
+    cell's shapes; ``layers``: the config cut to that many layers, its
+    widths kept (a JSON of its own)."""
+    tag = f"{arch_id}__{shape_name}__{mode}" + \
+        (f"__{layers}layers" if layers else "")
     mesh_dir = os.path.join(outdir, mesh_kind)
     os.makedirs(mesh_dir, exist_ok=True)
     out_path = os.path.join(mesh_dir, tag + ".json")
@@ -325,7 +336,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, mode: str,
     sp = SHAPES[shape_name]
     serve_dtypes = (dict(param_dtype="bfloat16", compute_dtype="bfloat16")
                     if sp.kind != "train" else {})
-    cfg = configs.get(arch_id, reduced=reduced, **serve_dtypes)
+    cfg = configs.get(arch_id, reduced=reduced, **serve_dtypes,
+                      **({"n_layers": layers} if layers else {}))
     result = {"arch": arch_id, "shape": shape_name, "mesh": mesh_kind,
               "opt": mode, "kind": sp.kind}
 
@@ -363,6 +375,9 @@ def main(argv=None):
     ap.add_argument("--outdir", default=RESULT_DIR)
     ap.add_argument("--reduced", action="store_true",
                     help="the archs' reduced configs (CPU-test widths)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this many layers (its widths "
+                         "kept): a full-width cell's cost a layer")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(configs.ARCH_IDS)
@@ -379,7 +394,7 @@ def main(argv=None):
     for a, s, mk in cells:
         t0 = time.time()
         r = run_cell(a, s, mk, args.opt, args.outdir, force=args.force,
-                     reduced=args.reduced)
+                     reduced=args.reduced, layers=args.layers)
         dt = time.time() - t0
         if r.get("skipped"):
             n_skip += 1

@@ -17,8 +17,9 @@ owner loss / preemption.  ``--faults`` injects a scripted adversity drill
 ("data", "model") mesh, ``remesh()``'s largest model axis up to
 ``--prefer-model`` (16, the reference's default: (1, 4) on four cards;
 ``--prefer-model 2`` gives (2, 2)), tensor-parallel over 'model' and
-data-parallel over 'data'.  The families whose tensor-parallel forward is
-not ported (all but dense, ROADMAP item 6) keep (world, 1); the ``[mesh]``
+data-parallel over 'data' (the MoE family's experts split over 'model').
+The families whose tensor-parallel forward is not ported (all but dense
+and MoE, ROADMAP item 6) keep (world, 1); the ``[mesh]``
 line says which mesh ran and why.  ``--faults`` kill / readd raise there
 (ROADMAP item 8); ``--resume`` restores a checkpoint written at any world
 size and mesh shape.

@@ -13,14 +13,15 @@ Conventions kept from the reference so both packages compute the same thing:
     reference donates them to its jitted functions; the port writes them
     in place and returns them as well.
 
-``attention``, ``mlp``, ``embed`` and ``unembed`` take ``tp``, a
+``attention``, ``mla_attention``, ``mlp``, ``embed`` and ``unembed`` take
+``tp``, a
 ``models.tp.ModelParallel`` (default None, the one-card code path): their
 leaves are then this rank's parts as ``models.sharding.param_specs``
 splits them over the 'model' axis, and they issue the collectives GSPMD
 inserts in the reference (``models/tp.py``).  The caller passes ``tp`` to
 ``mlp``, ``embed`` and ``unembed`` only where the specs split them (their
 width divides the axis); ``attention`` reads each projection's split off
-its config.
+its config, as ``mla_attention`` does.
 """
 
 from __future__ import annotations
@@ -562,7 +563,7 @@ def mla_init(gen, cfg: MLAConfig, *, lead: tuple = (), dtype=torch.float32,
 
 def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  pos=None, rope_cs=None, block_table=None):
+                  pos=None, rope_cs=None, block_table=None, tp=None):
     """Multi-head Latent Attention: q through the rank-``q_lora_rank``
     bottleneck, k and v expanded from the normalised latent ``c_kv`` plus
     one rope key shared by every head.  The v head dim may differ from the
@@ -572,7 +573,15 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
     are then expanded from the whole cache, in its dtype.  With
     ``block_table`` both leaves are (P, bs, ...) pools read through the
     per-row tables, as ``attention``'s.  Returns the output, or
-    (output, cache) when a cache is given."""
+    (output, cache) when a cache is given.
+
+    tp: a ``models.tp.ModelParallel``: the training path with the
+    projections split over the model axis (``_mla_tp``)."""
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("tensor-parallel MLA is the training path: no "
+                             "cache")
+        return _mla_tp(p, cfg, x, rope_cs, tp)
     if block_table is not None and cache is None:
         raise ValueError("block_table needs the paged cache")
     B, S, _ = x.shape
@@ -611,6 +620,79 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                 kpos=torch.arange(T, device=x.device), causal=True)
     out = linear(p["o_proj"], out.reshape(B, S, H * vd))
     return out if cache is None else (out, cache)
+
+
+def _mla_tp(p: Params, cfg: MLAConfig, x: torch.Tensor, rope_cs, tp):
+    """MLA of the replicated (B, S, d) ``x`` with the projections split by
+    ``param_specs`` over the model axis (each whole where its width does
+    not divide the axis): ``q_a_proj`` / ``kv_a_proj`` column-parallel,
+    gathered whole before their norms (replicated parameters, so applied
+    where every rank computes alike) and the latent / rope split (kv_a's
+    columns may split across that boundary); ``q_b_proj`` / ``kv_b_proj``
+    column-parallel, ``o_proj`` row-parallel, reduced once.  As
+    ``_attention_tp``: head-parallel where ``n_heads`` divides the axis
+    (each rank's q_b / kv_b columns are its heads; the rope key, shared by
+    every head, is whole on every rank); sequence-sharded otherwise, q to
+    whole heads of this rank's S/tp query rows, k and v to whole heads of
+    every row, so a split that falls mid-head is undone before the
+    reshape, and the output back to o's feature split."""
+    B, S, _ = x.shape
+    H, n = cfg.n_heads, tp.size
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    x_in = tp_lib.copy_to_model(x, tp)
+    qb_split, kvb_split = tp.divides(H * (nd + rd)), tp.divides(H * (nd + vd))
+    o_split = tp.divides(H * vd)
+
+    def down(name, width):
+        """The whole down-projection, alike on every rank."""
+        if not tp.divides(width):
+            return linear(p[name], x)
+        return tp_lib.gather_from_model(linear(p[name], x_in), tp, -1)
+
+    def own(t, split):
+        """``t`` (alike everywhere) into a split projection's input."""
+        return tp_lib.copy_to_model(t, tp) if split else t
+    q_a = rmsnorm(p["q_a_norm"], down("q_a_proj", cfg.q_lora_rank))
+    q = linear(p["q_b_proj"], own(q_a, qb_split))
+    kv_a = down("kv_a_proj", r + rd)
+    c_kv = rmsnorm(p["kv_a_norm"], kv_a[..., :r])
+    kv = linear(p["kv_b_proj"], own(c_kv, kvb_split))
+    # the rope key, read by each rank's own heads or rows
+    k_rope = tp_lib.copy_to_model(kv_a[..., r:].reshape(B, S, 1, rd), tp)
+    cos_q, sin_q, cos_k, sin_k = rope_cs
+    k_rope = apply_rope(k_rope, cos_k, sin_k)
+    scale = 1.0 / math.sqrt(nd + rd)
+    if tp.divides(H):   # every head-dim projection splits with the heads
+        h = H // n
+        q = q.reshape(B, S, h, nd + rd)
+        kv = kv.reshape(B, S, h, nd + vd)
+        qpos = torch.arange(S, device=x.device)
+        q_cs = cos_q, sin_q
+    else:
+        if S % n:
+            raise ValueError(f"sequence-sharded MLA splits {S} positions "
+                             f"over {n} ranks")
+        h, rows = H, S // n
+        r0 = tp.rank * rows
+        q = tp_lib.features_to_seq(q, tp) if qb_split else \
+            tp_lib.split_to_model(q, tp, 1)
+        q = q.reshape(B, rows, H, nd + rd)
+        kv = (_whole(kv, True, tp) if kvb_split else
+              tp_lib.copy_to_model(kv, tp)).reshape(B, S, H, nd + vd)
+        qpos = torch.arange(r0, r0 + rows, device=x.device)
+        q_cs = cos_q[r0:r0 + rows], sin_q[r0:r0 + rows]
+    q = torch.cat([q[..., :nd], apply_rope(q[..., nd:], *q_cs)], dim=-1)
+    k = torch.cat([kv[..., :nd], k_rope.expand(B, S, h, rd)], dim=-1)
+    out = _sdpa(q, k, kv[..., nd:], scale=scale, qpos=qpos,
+                kpos=torch.arange(S, device=x.device), causal=True)
+    out = out.reshape(B, q.shape[1], h * vd)
+    if not tp.divides(H):
+        out = tp_lib.seq_to_features(out, tp) if o_split else \
+            tp_lib.gather_from_model(out, tp, 1)
+    if o_split:
+        return tp_lib.reduce_from_model(linear(p["o_proj"], out), tp)
+    return linear(p["o_proj"], out)
 
 
 # --------------------------------------------------------------------- MLPs

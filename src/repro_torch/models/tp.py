@@ -35,11 +35,18 @@ On a model axis of one rank every operator is the identity, so the
 tensor-parallel code path of one card computes bitwise what the plain one
 does.  Every collective is a ``torch.distributed`` call on the axis's
 group: NCCL on the card, gloo on the CPU.
+
+``DataParallel`` is the mesh's data axes seen from one rank, for the one
+computation of the forward that reads across them: the MoE dispatch,
+which ranks and drops tokens over the global batch as the reference's
+``jit`` of it does (``models/moe.py``).  Its collective carries integers
+and no gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -69,8 +76,9 @@ def model_extent(mesh) -> int:
 
 def ported(cfg) -> bool:
     """Whether ``cfg``'s family has the tensor-parallel forward: the dense
-    decoders (the other families' is ROADMAP item 6)."""
-    return cfg.family == "dense" and not cfg.encdec
+    decoders and the MoE family (experts split over the axis: expert
+    parallelism); the other families' is ROADMAP item 6."""
+    return cfg.family in ("dense", "moe") and not cfg.encdec
 
 
 def tensor_parallel(cfg, mesh) -> bool:
@@ -91,6 +99,53 @@ def model_parallel(mesh) -> Optional[ModelParallel]:
     i = mesh.mesh_dim_names.index("model")
     return ModelParallel(mesh.get_group(i), mesh.size(i),
                          mesh.get_local_rank(i))
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """The mesh's data axes seen from one rank: their process groups,
+    extents and this rank's coordinates, in mesh order (the first major,
+    as ``models.sharding.local_batch`` orders the batch's blocks)."""
+    groups: tuple
+    sizes: tuple
+    ranks: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def rank(self) -> int:
+        """This rank's block of the global batch (row-major)."""
+        r = 0
+        for n, i in zip(self.sizes, self.ranks):
+            r = r * n + i
+        return r
+
+
+def data_parallel(mesh) -> Optional[DataParallel]:
+    """The ``DataParallel`` of ``mesh``'s data axes
+    (``models.sharding.dp_axes``), or None where they hold one rank."""
+    from repro_torch.models.sharding import dp_axes
+    if mesh is None:
+        return None
+    idx = [mesh.mesh_dim_names.index(a) for a in dp_axes(mesh)]
+    if math.prod(mesh.size(i) for i in idx) == 1:
+        return None
+    return DataParallel(tuple(mesh.get_group(i) for i in idx),
+                        tuple(mesh.size(i) for i in idx),
+                        tuple(mesh.get_local_rank(i) for i in idx))
+
+
+def gather_over_data(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
+    """(dp.size, *x.shape): every data rank's ``x``, in the order of their
+    blocks of the global batch (no gradient)."""
+    out = x.detach()[None]
+    for group, n in reversed(list(zip(dp.groups, dp.sizes))):
+        whole = out.new_empty((n * out.shape[0],) + tuple(out.shape[1:]))
+        dist.all_gather_into_tensor(whole, out.contiguous(), group=group)
+        out = whole
+    return out
 
 
 # ------------------------------------------------------------ collectives

@@ -230,16 +230,17 @@ def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
                  global_layer: bool = False, *, cache=None, ssm_state=None,
-                 pos=None, block_table=None, tp=None):
+                 pos=None, block_table=None, tp=None, dp=None):
     """Residual block; ``global_layer`` drops the sliding window (hymba's
     ``global_layers``, the reference's per-layer window flag).  With this
     layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``
     (through ``block_table`` for a paged cache), returns
     (x, cache, new_ssm_state); x alone otherwise.  With ``tp`` (the dense
-    family's training path) the block's leaves are this rank's parts and
-    ``x`` is replicated over the model axis: the attention and the MLP each
-    reduce their row-parallel partial sums once, before the residual
-    add."""
+    and MoE families' training path) the block's leaves are this rank's
+    parts and ``x`` is replicated over the model axis: the attention (GQA
+    or MLA) and the MLP or MoE each reduce their row-parallel partial sums
+    once, before the residual add.  ``dp``: the data axes the MoE dispatch
+    ranks its tokens over (``moe.moe``)."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     kw = {} if cache is None else dict(cache=cache, pos=pos,
                                        block_table=block_table)
@@ -268,7 +269,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
     x = x + attn_out
     h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
     if cfg.moe is not None:
-        x = x + moe_lib.moe(p["moe"], cfg.moe, h)
+        x = x + moe_lib.moe(p["moe"], cfg.moe, h, tp=tp, dp=dp)
     else:
         x = x + layers.mlp(p["mlp"], h, cfg.act, tp=_split(tp, cfg.d_ff))
     return x if cache is None else (x, cache, ssm_state)
@@ -337,24 +338,30 @@ def apply_layer(body, x: torch.Tensor, *args, remat: bool) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+            frames: Optional[torch.Tensor] = None, tp=None,
+            dp=None) -> torch.Tensor:
     """Training forward: (B, S) tokens -> (B, S, vocab) fp32 logits.  With
     a frontend, the projected ``patches`` (or ``frames``) (B, P, F) are
     prepended to the token embeddings, and the logits cover the S token
     positions only (the reference cuts its full-sequence logits to them;
     norm and head act per position, so the port cuts before them).
 
-    ``tp`` (a ``models.tp.ModelParallel``; dense family only): the
-    tensor-parallel forward (``src/repro/models/transformer.py:310-335``
-    under GSPMD).  ``params`` are this rank's parts as
+    ``tp`` (a ``models.tp.ModelParallel``; the dense and MoE families):
+    the tensor-parallel forward (``src/repro/models/transformer.py:310-335``
+    under GSPMD; the MoE experts split over the axis).  ``params`` are this rank's parts as
     ``models.sharding.param_specs`` places them, the activations between
     blocks replicated over the model axis, and the logits this rank's
     (B, S, V/tp) vocab columns where the vocab divides the axis (whole
     otherwise).  Under ``remat`` the recompute issues each block's
-    collectives again, in the same order (non-reentrant checkpointing)."""
+    collectives again, in the same order (non-reentrant checkpointing).
+
+    ``dp`` (a ``models.tp.DataParallel``): ``tokens`` are this rank's rows
+    of a batch split over the data axes; the MoE dispatch ranks them over
+    the global batch, as the reference's ``jit`` of the whole batch does.
+    """
     _check_decoder(cfg)
     _check_tp(cfg, tp)
-    if cfg.family != "dense":
+    if not tp_lib.ported(cfg):
         tp = None
     vocab_tp = _split(tp, cfg.vocab)
     x = _embed(cfg, params, tokens, patches if patches is not None
@@ -368,8 +375,8 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
         for l, bp in enumerate(unbound_layers(params["blocks"])):
             body = functools.partial(
                 _block_apply, cfg, bp, rope_cs=rope_cs,
-                global_layer=hybrid and l in cfg.global_layers,
-                **({} if tp is None else {"tp": tp}))
+                global_layer=hybrid and l in cfg.global_layers, tp=tp,
+                dp=dp)
             x = apply_layer(body, x, remat=cfg.remat)
     x = layers.rmsnorm(params["final_norm"], x[:, n_prefix:], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])

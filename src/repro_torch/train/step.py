@@ -14,15 +14,21 @@ its own rows of the global batch
 (``data.pipeline.batch_for_step(..., mesh=mesh)``), and its gradients go to
 the optimizer as ``Partial("avg")`` ``DTensor``s over those axes, so the
 owner update reduces each gradient straight to its owner.  The published
-deltas are added on every rank.  For the dense family on a mesh whose
-'model' axis has more than one rank (``models.tp.tensor_parallel``, the
-one rule), or where ``grad_specs`` is given, the step is also
-tensor-parallel over that axis (``models/tp.py``): each
+deltas are added on every rank.  For the dense and MoE families on a mesh
+whose 'model' axis has more than one rank (``models.tp.tensor_parallel``,
+the one rule), or where ``grad_specs`` is given, the step is also
+tensor-parallel over that axis (``models/tp.py``; the MoE experts split
+over it: expert parallelism): each
 parameter is this rank's part as ``models.sharding.param_specs`` places it
 (``init_state``), the forward works from those parts, the loss is the
 vocab-parallel cross entropy where the vocab is split, and each gradient
 reaches the optimizer with the spec's ``Shard`` on the model axis and
-``Partial("avg")`` over the data axes.  Otherwise the parameters are
+``Partial("avg")`` over the data axes.  The MoE dispatch ranks each
+microbatch's tokens over the data axes (``models.moe.moe``'s ``dp``), as
+the reference's over its global microbatch; at ``accum_steps > 1`` on
+more than one data rank, microbatch i is therefore each rank's block of
+the global batch's i-th block, as the reference's is that block
+(``microbatch_rows``).  Otherwise the parameters are
 replicated (the same seed on every rank, checked once by ``init_state``)
 and the model axis only spreads the owners.
 ZeRO-3 (``param_specs(..., zero3=True)``) is not ported (ROADMAP item 6).
@@ -108,26 +114,31 @@ def _model_parallel(cfg, mesh):
 
 def make_loss_fn(cfg, mesh=None) -> Callable:
     """``loss_fn(params, batch)``: the mean cross entropy of the forward's
-    logits.  Where the step on ``mesh`` is tensor-parallel
-    (``models.tp.tensor_parallel``) the forward runs on this rank's
-    parameter parts (``_loss_fn``)."""
+    logits, ``batch`` this rank's rows on ``mesh``.  Where the step on
+    ``mesh`` is tensor-parallel (``models.tp.tensor_parallel``) the
+    forward runs on this rank's parameter parts (``_loss_fn``)."""
     return _loss_fn(cfg, _model_parallel(cfg, mesh)
-                    if tp_lib.tensor_parallel(cfg, mesh) else None)
+                    if tp_lib.tensor_parallel(cfg, mesh) else None,
+                    tp_lib.data_parallel(mesh))
 
 
-def _loss_fn(cfg, mp) -> Callable:
+def _loss_fn(cfg, mp, dp=None) -> Callable:
     """``make_loss_fn``'s function under the model axis ``mp`` (None: the
     whole model): the logits are this rank's vocab columns where the vocab
     divides the axis (the loss then ``vocab_parallel_xent``), whole on
     every rank otherwise (the reference then falls back to
     sequence-sharded or replicated logits,
-    ``src/repro/train/step.py:62-77``: the same values)."""
+    ``src/repro/train/step.py:62-77``: the same values).  ``dp``: the data
+    axes the batch is split over, which the MoE dispatch ranks its tokens
+    across."""
     m = model_fns(cfg)
 
     def loss_fn(params, batch):
         kwargs = {k: batch[k] for k in ("patches", "frames") if k in batch}
         if mp is not None:
             kwargs["tp"] = mp
+        if dp is not None and cfg.moe is not None:
+            kwargs["dp"] = dp
         logits = m.forward(cfg, params, batch["tokens"], **kwargs)
         if mp is not None and mp.size > 1 and mp.divides(cfg.vocab):
             return vocab_parallel_xent(logits, batch["labels"], mp)
@@ -163,6 +174,18 @@ def _tp_specs(cfg, mesh, grad_specs) -> dict:
                 f"{p} is split over a data axis ({spec}): ZeRO-3 is not "
                 "ported (ROADMAP item 6)")
     return grad_specs
+
+
+def microbatch_rows(x: torch.Tensor, dp, accum: int) -> torch.Tensor:
+    """This rank's rows of each of the global batch's ``accum``
+    microbatches, in microbatch order: ``x`` (this rank's block of the
+    global batch, over the data axes ``dp``) gathered into the global
+    batch, cut into ``accum`` blocks (the reference's microbatches,
+    ``src/repro/train/step.py:125``), and this rank's part of each block
+    taken as ``models.sharding.local_batch`` takes its block."""
+    whole = tp_lib.gather_over_data(x, dp)
+    rows = whole.reshape((accum, dp.size, -1) + tuple(x.shape[1:]))
+    return rows[:, dp.rank].reshape(x.shape)
 
 
 def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
@@ -206,8 +229,12 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                 and not opt.config.compress_grads)
     tensor_parallel = mesh is not None and (
         grad_specs is not None or tp_lib.tensor_parallel(cfg, mesh))
+    data = tp_lib.data_parallel(mesh)
     loss_fn = _loss_fn(cfg, _model_parallel(cfg, mesh)
-                       if tensor_parallel else None)
+                       if tensor_parallel else None, data)
+    # the MoE dispatch spans the data ranks, so they take their rows of
+    # the same global microbatch
+    regroup = data is not None and cfg.moe is not None and accum_steps > 1
     specs = shapes = None
     if mesh is not None:
         if opt.mesh is not mesh:
@@ -232,6 +259,9 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
         return loss
 
     def split(batch):
+        if regroup:
+            batch = {k: microbatch_rows(v, data, accum_steps)
+                     for k, v in batch.items()}
         return {k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))
                 for k, v in batch.items()}
 
@@ -388,7 +418,7 @@ def init_parts(cfg, seed: int, device, specs: dict, mesh):
     m = model_fns(cfg)
     shapes = m.init(cfg, device="meta")
     drawn = [(p, tuple(v.shape)) for p, v in _in_draw_order(shapes)
-             if p.rsplit("/", 1)[-1] in ("w", "embedding")]
+             if p.rsplit("/", 1)[-1] in ("w", "embedding", "router_w")]
     queue = iter(drawn)
 
     def keep(whole):

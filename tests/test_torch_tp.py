@@ -240,9 +240,9 @@ def test_tp_gate_admits_adamw_sign_flips_and_catches_faults():
 
 
 def test_one_rule_decides_tensor_parallelism():
-    """``models.tp.tensor_parallel``: the dense decoders on a model axis
-    of more than one rank; every other family, a model axis of one rank
-    and no mesh keep the parameters replicated."""
+    """``models.tp.tensor_parallel``: the dense decoders and the MoE
+    family on a model axis of more than one rank; every other family, a
+    model axis of one rank and no mesh keep the parameters replicated."""
     class Mesh:
         mesh_dim_names = ("data", "model")
 
@@ -255,10 +255,11 @@ def test_one_rule_decides_tensor_parallelism():
              if configs.get(a, reduced=True).family == "dense"]
     assert set(dense) == {"smollm-360m", "stablelm-1.6b", "qwen2.5-14b",
                           "nemotron-4-340b"}
+    split = set(dense) | {"deepseek-v3-671b", "kimi-k2-1t-a32b"}
     for arch in configs.ARCH_IDS:
         cfg = configs.get(arch, reduced=True)
-        assert tp_lib.tensor_parallel(cfg, Mesh((16, 16))) == (arch in dense)
-        assert tp_lib.tensor_parallel(cfg, Mesh((2, 2))) == (arch in dense)
+        assert tp_lib.tensor_parallel(cfg, Mesh((16, 16))) == (arch in split)
+        assert tp_lib.tensor_parallel(cfg, Mesh((2, 2))) == (arch in split)
         assert not tp_lib.tensor_parallel(cfg, Mesh((4, 1)))
         assert not tp_lib.tensor_parallel(cfg, None)
 
@@ -342,7 +343,7 @@ def test_no_context_bitwise(name):
 
 
 def test_other_families_and_zero3_raise():
-    cfg = configs.get("deepseek-v3-671b", reduced=True)
+    cfg = configs.get("hymba-1.5b", reduced=True)
     params = transformer.init(cfg, 0, "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -20,7 +20,7 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
     python tests/torch_dist_check.py tp --rank R --world W \\
         --port P --mesh 1,4 --out DIR [--configs qwen256,smollm3h]
     python tests/torch_dist_check.py tp_restore --rank R --world W \\
-        --port P --mesh 2,1 --out DIR/restore
+        --port P --mesh 2,1 --out DIR/restore [--ckpt dsv3]
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_dist_check.py jax_tp --mesh 1,4 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -44,10 +44,12 @@ of the reduced Kimi-K2 with its expert leaves sharded on E over "model"
 (expert parallelism), replicated, and data-parallel; ``jax`` runs
 the reference's own multi-device owner update on an Auto-axis mesh, and
 ``jax_moe`` its update of ``moe``'s parameters and gradients; ``tp``
-runs the tensor-parallel train step of the dense family (``TP_CONFIGS``)
-against its one-process run, and ``models/tp.py``'s Functions, and saves
-a checkpoint that ``tp_restore`` resumes on another mesh; ``jax_tp`` runs
-the reference's sharded train step on the same inputs.  Each
+runs the tensor-parallel train step of the dense and MoE families
+(``TP_CONFIGS``; the MoE experts split over "model") against its
+one-process run, and ``models/tp.py``'s Functions, and saves a checkpoint
+that ``tp_restore`` resumes on another mesh (``--ckpt NAME``: that config's,
+on the ``tp`` world's mesh); ``jax_tp`` runs the reference's sharded train
+step on the same inputs.  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
@@ -103,13 +105,39 @@ def dist_grads(seed: int = 1) -> dict:
             "embed_table": n((128, 64))}
 
 
+# a rank whose store could not bind its port (another process took it
+# between ``free_port`` and the bind): the world is started again
+PORT_TAKEN = "EADDRINUSE"
+LAUNCH_ATTEMPTS = 3
+
+
 def launch(mode: str, world: int, mesh: tuple, out: Path,
            timeout: float = 240.0, extra: tuple = ()) -> None:
     """Run ``mode`` on ``world`` gloo ranks (one process each, logs in
     ``out``, ``extra`` appended to each command line); raise with the logs
-    if one fails or the deadline passes, and leave no process behind."""
-    from repro_torch.launch.mesh import free_port
+    if one fails or the deadline passes, and leave no process behind.  A
+    world whose port was taken before its store bound it is started again
+    on another port (up to ``LAUNCH_ATTEMPTS`` times)."""
     out.mkdir(parents=True, exist_ok=True)
+    deadline = time.monotonic() + timeout
+    for attempt in range(LAUNCH_ATTEMPTS):
+        rcs = _launch_once(mode, world, mesh, out, deadline, extra)
+        if all(rc == 0 for rc in rcs):
+            return
+        logs = [(out / f"rank{r}.log").read_text() for r in range(world)]
+        if attempt + 1 < LAUNCH_ATTEMPTS and \
+                any(PORT_TAKEN in t for t in logs):
+            continue
+        text = "\n".join(f"--- rank {r} (exit {rc})\n" + t[-4000:]
+                         for r, (rc, t) in enumerate(zip(rcs, logs)))
+        raise AssertionError(f"{mode} world {mesh} failed:\n{text}")
+
+
+def _launch_once(mode, world, mesh, out, deadline, extra) -> list:
+    """One start of ``launch``'s world; its ranks' exit codes.  The first
+    rank to fail ends the others (they would wait on it until their
+    process group's timeout)."""
+    from repro_torch.launch.mesh import free_port
     port = free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs, logs = [], []
@@ -120,12 +148,13 @@ def launch(mode: str, world: int, mesh: tuple, out: Path,
              str(world), "--port", str(port), "--mesh",
              ",".join(map(str, mesh)), "--out", str(out), *extra],
             env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if all(rc is not None for rc in rcs) or \
+                    any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -133,12 +162,7 @@ def launch(mode: str, world: int, mesh: tuple, out: Path,
                 p.wait(timeout=30)
         for f in logs:
             f.close()
-    rcs = [p.returncode for p in procs]
-    if any(rc != 0 for rc in rcs):
-        text = "\n".join(f"--- rank {r} (exit {rc})\n"
-                         + (out / f"rank{r}.log").read_text()[-4000:]
-                         for r, rc in enumerate(rcs))
-        raise AssertionError(f"{mode} world {mesh} failed:\n{text}")
+    return [p.returncode for p in procs]
 
 
 def run_jax(mesh: tuple, out: Path, timeout: float = 240.0,
@@ -1005,18 +1029,42 @@ TP_CONFIGS = {
     "qwen257": ("qwen2.5-14b", {}),
     "guarded": ("smollm-360m", dict(d_model=20, n_heads=3, n_kv_heads=1,
                                     head_dim=6, d_ff=30)),
+    # the MoE family, expert-parallel: reduced DeepSeek-V3 (MLA, 4 heads,
+    # 4 experts, top-2, 1 shared) and Kimi-K2 (GQA 4 / 2); ``dsv3g`` with
+    # 3 heads and 6 experts (model 4: q_b / kv_b / o split mid-head, so
+    # the sequence-sharded MLA, and the experts whole); ``dsv3drop`` at
+    # capacity factor 0.5, where the dispatch drops assignments
+    "dsv3": ("deepseek-v3-671b", {}),
+    "kimi": ("kimi-k2-1t-a32b", {}),
+    "dsv3g": ("deepseek-v3-671b", dict(n_heads=3, n_kv_heads=3,
+                                       mla=dict(n_heads=3),
+                                       moe=dict(n_experts=6))),
+    "dsv3drop": ("deepseek-v3-671b", dict(moe=dict(capacity_factor=0.5))),
+    # ``dsv3drop`` in two microbatches (``TP_ACCUM``), each dispatched
+    # over the data ranks' rows of the global batch's block; ``dsv3e16``
+    # with 16 experts, so several a rank in the owner layouts at model 4
+    "dsv3acc": ("deepseek-v3-671b", dict(moe=dict(capacity_factor=0.5))),
+    "dsv3e16": ("deepseek-v3-671b", dict(moe=dict(n_experts=16))),
 }
+# microbatches a step of the configs named (1 for the others)
+TP_ACCUM = {"dsv3acc": 2}
 TP_STEPS, TP_BATCH, TP_SEQ = 3, 4, 16
 TP_LR, TP_MOMENTUM = 0.02, 0.95
 TP_CKPT = "qwen256"
 
 
 def tp_config(name: str, jax: bool = False):
+    """``name``'s reduced config in the port or (``jax``) the reference; a
+    dict override replaces fields of the nested MLA / MoE config."""
+    import dataclasses
     arch, kw = TP_CONFIGS[name]
     if jax:
         from repro import configs
     else:
         from repro_torch import configs
+    base = configs.get(arch, reduced=True)
+    kw = {k: dataclasses.replace(getattr(base, k), **v)
+          if isinstance(v, dict) else v for k, v in kw.items()}
     return configs.get(arch, reduced=True, **kw)
 
 
@@ -1099,7 +1147,8 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
     state = TrainState(0, params, opt.init(
         params if mesh is None else placed_params(params, specs, mesh)),
         torch.zeros(()))
-    step = make_train_step(cfg, opt, mesh, device="cpu", grad_specs=specs)
+    step = make_train_step(cfg, opt, mesh, device="cpu", grad_specs=specs,
+                           accum_steps=TP_ACCUM.get(name, 1))
     first = {}
     update = opt.update
 
@@ -1217,12 +1266,13 @@ def _tp_functions(mesh) -> dict:
     return out
 
 
-def _tp_ckpt_loop(mesh, ckpt_dir, *, resume: bool = False):
-    """The resilient loop on ``TP_CKPT`` (Muon with AdamW leaves split:
-    biases and the embedding), 2 steps, a checkpoint at the end."""
+def _tp_ckpt_loop(mesh, ckpt_dir, *, resume: bool = False,
+                  name: str = TP_CKPT):
+    """The resilient loop on ``name`` (``TP_CKPT``: Muon with AdamW leaves
+    split, biases and the embedding), 2 steps, a checkpoint at the end."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
-    cfg = tp_config(TP_CKPT)
+    cfg = tp_config(name)
     return ResilientLoop(
         cfg, DataConfig(vocab=cfg.vocab, seq_len=TP_SEQ,
                         global_batch=TP_BATCH),
@@ -1257,7 +1307,8 @@ def tp_rank(args) -> None:
     3. At (1, 2): the resilient loop on ``TP_CKPT`` with a checkpoint into
        DIR/ckpt, its whole parameters and AdamW moments saved.
     ``--train-only``: 2 alone, without the one-process runs and the
-    ``init_state`` check."""
+    ``init_state`` check.  ``--ckpt NAME``: 3 on this mesh with that
+    config, and not 1."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -1270,7 +1321,7 @@ def tp_rank(args) -> None:
     mesh = _setup(args)
     info, arrays = {"rank": args.rank, "configs": {}}, {}
     extras = not args.train_only
-    if extras and tuple(args.mesh) == (1, 2):
+    if extras and tuple(args.mesh) == (1, 2) and not args.ckpt:
         info["functions"] = _tp_functions(mesh)
     for name in args.configs.split(","):
         cfg = tp_config(name)
@@ -1307,8 +1358,9 @@ def tp_rank(args) -> None:
                                       set(opt.plan.leaves))
             row.update({"gate": gate, "single_ema": ref["ema"],
                         "single_placements": ref["placements"]})
-    if extras and tuple(args.mesh) == (1, 2):
-        loop = _tp_ckpt_loop(mesh, Path(args.out) / "ckpt")
+    if args.ckpt or (extras and tuple(args.mesh) == (1, 2)):
+        loop = _tp_ckpt_loop(mesh, Path(args.out) / "ckpt",
+                             name=args.ckpt or TP_CKPT)
         loop.run()
         loop.mgr.wait()
         arrays.update({f"ckpt/{k}": v
@@ -1318,8 +1370,8 @@ def tp_rank(args) -> None:
 
 
 def tp_restore_rank(args) -> None:
-    """Resume the ``tp`` mode's checkpoint (DIR's parent/ckpt) on this
-    mesh and, on rank 0, in one process: whole parameters and AdamW
+    """Resume the ``tp`` mode's checkpoint (DIR's parent/ckpt; of
+    ``--ckpt``'s config) on this mesh and, on rank 0, in one process: whole parameters and AdamW
     moments saved (``restored/``, ``single/``).  The bytes of every array
     the mesh's restore made on this rank's host (``assembled``), beside
     the bytes of each leaf this rank holds after it and of the whole
@@ -1338,8 +1390,9 @@ def tp_restore_rank(args) -> None:
                               int(np.prod(meta["shape"])) * arr.itemsize]
         return arr
     manager._assemble = counted
+    name = args.ckpt or TP_CKPT
     try:
-        loop = _tp_ckpt_loop(mesh, ckpt, resume=True)
+        loop = _tp_ckpt_loop(mesh, ckpt, resume=True, name=name)
     finally:
         manager._assemble = assemble
     loop.pipe.close()
@@ -1357,7 +1410,7 @@ def tp_restore_rank(args) -> None:
                 "assembled_whole": made[manager._leaf_file(path)]}
     arrays = {f"restored/{k}": v for k, v in _tp_ckpt_arrays(loop).items()}
     if args.rank == 0:
-        one = _tp_ckpt_loop(None, ckpt, resume=True)
+        one = _tp_ckpt_loop(None, ckpt, resume=True, name=name)
         one.pipe.close()
         arrays.update({f"single/{k}": v
                        for k, v in _tp_ckpt_arrays(one).items()})
@@ -1404,7 +1457,8 @@ def jax_tp_reference(args) -> None:
         state = TrainState(jnp.zeros((), jnp.int32), params,
                            jax.jit(opt.init)(params),
                            jnp.zeros((), jnp.float32))
-        step = make_train_step(cfg, opt, mesh, grad_specs=specs)
+        step = make_train_step(cfg, opt, mesh, grad_specs=specs,
+                               accum_steps=TP_ACCUM.get(name, 1))
         ema = []
         for i in range(TP_STEPS):
             batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(
@@ -1427,6 +1481,9 @@ def main() -> None:
                                      "jax_tp"))
     ap.add_argument("--configs", default=",".join(TP_CONFIGS),
                     help="tp / jax_tp: comma-separated TP_CONFIGS names")
+    ap.add_argument("--ckpt", default="",
+                    help="tp / tp_restore: the TP_CONFIGS name to "
+                         "checkpoint (tp: on this mesh) and restore")
     ap.add_argument("--train-only", action="store_true",
                     help="tp: the training runs alone (no one-process "
                          "references, Functions or checkpoint)")
