@@ -39,6 +39,12 @@ Phases, each printing one JSON line and asserting what it checks:
            7 syrk / 35 gram_poly / 84 symmul launches per step.
   adamw    the same training with the elementwise AdamW baseline (no Gram
            kernels launched): the yardstick of the optimizer's overhead.
+  dropin   the same two trainings through the front door,
+           ``MuonOptimizer`` (``core/optim.py``), in a plain PyTorch loop
+           (``loss.backward(); opt.step(); opt.zero_grad()``): every step's
+           loss EMA and the last parameters bitwise the train / adamw
+           phase's run, 7 / 84 / 35 launches a step for Muon (none for
+           AdamW), step and optimizer ms printed beside the train phase's.
   dryrun   the dry run held against the card on the train phase's
            configuration: one step of it walked on the host under
            ``FakeTensorMode`` by the op walker (``launch/op_walker.py``;
@@ -168,7 +174,10 @@ Phases, each printing one JSON line and asserting what it checks:
            last state is saved by every rank with the checkpoint manager
            (owner rows in row blocks) and restored by rank 0 in one
            process onto a plan of ``cards`` owners: its logical momentum
-           rows bitwise those of an all-gather taken in the run.
+           rows bitwise those of an all-gather taken in the run.  The
+           front door (``MuonOptimizer``, ``grads="partial"``: each rank's
+           own backward, no DDP) trains the same steps: every rank's loss
+           EMA and parameters bitwise the fused owner run's.
 
   serve    the contiguous serving tier (``repro_torch.serve``) on
            full-width smollm-360m, fp32 parameters from seed 0, bf16
@@ -314,7 +323,8 @@ KERNELS = {
 # smollm-360m's launches a step (``plan_launches`` of its 7 groups)
 LAUNCHES_PER_STEP = {"syrk": 7, "gram_poly": 35, "symmul": 84}
 TRAIN_STEPS = 3
-PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dryrun",
+PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dropin",
+          "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
           "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe")
 # the stateful variants and their knobs in the variants phase
@@ -1103,8 +1113,9 @@ def param_digest(torch, params) -> dict:
 def phase_train(torch, variant: str) -> dict:
     """Train full-width smollm-360m with ``variant`` ('muon': the main path,
     kernel launches counted; 'adamw': the elementwise baseline, which must
-    launch none).  Returns the run."""
-    run = train_run(torch, variant)
+    launch none).  Returns the run (with the last parameters'
+    ``param_digest``)."""
+    run = train_run(torch, variant, digest=True)
     launches = run["launches"]
     emit({"phase": "train", "variant": variant, "arch": run["arch"],
           "params": run["params"], "seq_len": run["seq_len"],
@@ -1117,6 +1128,117 @@ def phase_train(torch, variant: str) -> dict:
           "launches_per_step": {k: v // TRAIN_STEPS
                                 for k, v in launches.items()}})
     return run
+
+
+def dropin_run(torch, variant: str, mesh=None, *,
+               steps: int = TRAIN_STEPS) -> dict:
+    """``train_run``'s training (full-width smollm-360m, seed 0, batch
+    8 x 512, kernels on, ``variant`` in owner mode, fused) through the
+    front door, ``core.optim.MuonOptimizer``, in the loop a PyTorch user
+    writes: the loss of ``make_loss_fn``, ``loss.backward()``,
+    ``opt.step()``, ``opt.zero_grad()``.  Under ``mesh`` (data axes only)
+    each rank runs its rows; its own gradients go to the optimizer
+    (``grads="partial"``).  The launch counters
+    are set to 0 before each step and read after it.  Returns the loss EMA
+    as the train step keeps it (the loss averaged over the data ranks),
+    step and optimizer times (synchronised host clock around the whole
+    iteration and around ``Muon.update``), launches per step, the last
+    parameters' ``param_digest`` and, under ``mesh``, the parameters
+    themselves (on the host)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model_fns
+    from repro_torch.models.sharding import dp_axes
+    from repro_torch.train.step import make_loss_fn
+
+    cfg = configs.get("smollm-360m")
+    params = tree.tree_map(lambda v: v.requires_grad_(True),
+                           model_fns(cfg).init(cfg, 0, "cuda"))
+    opt = api.MuonOptimizer(params, mesh, config=MuonConfig(
+        variant=variant, mode="owner", pipeline="fused",
+        ns=GramNSConfig(use_kernels=True)), device="cuda")
+    loss_fn = make_loss_fn(cfg, mesh)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
+    dp = [] if mesh is None else [
+        i for i, a in enumerate(mesh.mesh_dim_names) if a in dp_axes(mesh)]
+    opt_ms = []
+    update = opt.muon.update
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    opt.muon.update = timed
+    ema, loss_ema, step_ms, launches = None, [], [], []
+    for i in range(steps):
+        batch = batch_for_step(dcfg, i, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = loss_fn(params, batch)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(LAUNCHES))
+        loss = loss.detach()
+        for d in dp:
+            dist.all_reduce(loss, group=mesh.get_group(d))
+            loss /= mesh.size(d)
+        ema = loss if i == 0 else 0.98 * ema + 0.02 * loss
+        loss_ema.append(float(ema))
+    del opt.muon.update
+    per_step = plan_launches(opt.plan)
+    for i, got in enumerate(launches):
+        want = expected_launches(variant, "owner", i, {}, per_step)
+        if got != want:
+            raise AssertionError(f"dropin {variant} step {i}: kernel "
+                                 f"launches {got}, expected {want}")
+    return {"loss_ema": loss_ema, "step_ms": step_ms, "optimizer_ms": opt_ms,
+            "launches_by_step": launches,
+            "digest": param_digest(torch, params),
+            "final_params": {} if mesh is None else {
+                p: v.detach().to("cpu") for p, v in tree.flatten(params)}}
+
+
+def phase_dropin(torch, smi: str, train_runs: dict) -> None:
+    """The front door (``MuonOptimizer``) in a plain PyTorch loop, for
+    ``muon`` and the ``adamw`` baseline: the step losses and the last
+    parameters bitwise the train phase's run of the same variant
+    (``train_runs[variant]``; trained here when that phase did not run),
+    and ``LAUNCHES_PER_STEP`` (none for AdamW) from the front door's
+    steps.  Prints both runs' step and optimizer times."""
+    for variant in ("muon", "adamw"):
+        ref = train_runs.get(variant)
+        if ref is None:
+            ref = train_run(torch, variant, digest=True)
+            torch.cuda.empty_cache()
+        run = dropin_run(torch, variant)
+        torch.cuda.empty_cache()
+        losses = run["loss_ema"] == ref["loss_ema"]
+        params = run["digest"] == ref["digest"]
+        emit({"phase": "dropin", "variant": variant, "nvidia_smi": smi,
+              "steps": TRAIN_STEPS, "loss_ema": run["loss_ema"],
+              "train_loss_ema": ref["loss_ema"], "losses_bitwise": losses,
+              "params_bitwise": params,
+              "launches_by_step": run["launches_by_step"],
+              "step_ms": run["step_ms"], "optimizer_ms": run["optimizer_ms"],
+              "train_step_ms": ref["step_ms"],
+              "train_optimizer_ms": ref["optimizer_ms"]})
+        if not (losses and params):
+            raise AssertionError(
+                f"dropin {variant}: the front door is not the train step "
+                f"bitwise (losses {losses}, parameters {params})")
 
 
 # ------------------------------------------------------------------ dryrun
@@ -2062,6 +2184,8 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses,
        every rank), timed on every rank; ``pipeline_pairs``: on every rank
        bucketed equals fused and prestaged equals its run without overlap
        bitwise, and prestaged is within rounding of unstaged.
+       The front door (``mesh_dropin``): every rank's loss EMA and
+       parameters bitwise the owner run's.
     4. On rank 0 alone, the same Muon training on one card, of the whole
        batch and of the same batch in ``world`` microbatches, the step
        gate, and the prestaged run's step-1 Muon updates against the
@@ -2169,6 +2293,7 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses,
                                         run["launches"].items()},
                   "per_rank": per_rank})
         torch.cuda.empty_cache()
+    mesh_dropin(torch, dist, runs["owner"], mesh, rank, world)
     matrices = set(api.dedicate_params(shapes).leaves)
     pairs = pipeline_pairs(torch, dist, runs, rank, world, matrices)
 
@@ -2196,6 +2321,34 @@ def mesh_checks(torch, dist, rank: int, world: int, train_losses,
     dist.all_gather_object(failures, failure)
     if failures[0] is not None:
         raise AssertionError(failures[0])
+
+
+def mesh_dropin(torch, dist, owner: dict, mesh, rank: int,
+                world: int) -> None:
+    """The front door on the mesh (``dropin_run``, ``grads="partial"``)
+    over the owner run's steps: this rank's loss EMA and last parameters
+    bitwise the owner run's (``owner``), on every rank."""
+    run = dropin_run(torch, "muon", mesh, steps=MESH_STEPS)
+    torch.cuda.empty_cache()
+    mine = {"losses_bitwise": run["loss_ema"] == owner["loss_ema"],
+            "params_bitwise": all(
+                torch.equal(v, owner["final_params"][p])
+                for p, v in run["final_params"].items()),
+            "step_ms": run["step_ms"], "optimizer_ms": run["optimizer_ms"]}
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, mine)
+    if rank == 0:
+        emit({"phase": "mesh", "check": "dropin", "world": world,
+              "mesh": [world, 1], "grads": "partial",
+              "loss_ema": run["loss_ema"], "owner_loss_ema":
+              owner["loss_ema"], "owner_step_ms": owner["step_ms"],
+              "owner_optimizer_ms": owner["optimizer_ms"],
+              "per_rank": per_rank})
+    bad = [r for r, m in enumerate(per_rank)
+           if not (m["losses_bitwise"] and m["params_bitwise"])]
+    if bad:
+        raise AssertionError(f"mesh dropin: ranks {bad} differ from the "
+                             f"mesh step: {per_rank}")
 
 
 def mesh_checkpoint(torch, dist, state, plan, mesh, rank: int, world: int,
@@ -5024,15 +5177,24 @@ def run_phases(torch, args, phases: list, cells: list,
     if "gram_ns" in phases:
         phase_gram_ns(torch)
     train_losses = fused = None
+    train_runs = {}              # the dropin phase's references
+    keep = ("loss_ema", "digest", "step_ms", "optimizer_ms")
     if "train" in phases:
         run = phase_train(torch, "muon")
         launches, train_losses = run["launches"], run["loss_ema"]
         fused = {k: run[k] for k in ("step_ms", "optimizer_ms",
                                      "peak_mem_gb")}
+        train_runs["muon"] = {k: run[k] for k in keep}
         del run
     if "adamw" in phases:
         torch.cuda.empty_cache()
-        phase_train(torch, "adamw")
+        run = phase_train(torch, "adamw")
+        train_runs["adamw"] = {k: run[k] for k in keep}
+        del run
+    if "dropin" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dropin(torch, smi[0], train_runs)
     if "dryrun" in phases:
         gc.collect()
         torch.cuda.empty_cache()

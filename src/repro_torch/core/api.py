@@ -39,6 +39,11 @@ one phase; ``"bucketed"`` stages, computes and publishes one Gram bucket at
 a time with asynchronous collectives (``core/pipeline.py``), bit for bit
 the same updates.  ``update_staged`` takes gradients already staged to the
 owners (the train step's accumulation-overlapped mode).
+
+``MuonOptimizer`` (``core/optim.py``) is the same optimizer as a
+``torch.optim.Optimizer``, the protocol's counterpart in PyTorch's idiom:
+``loss.backward(); opt.step(); opt.zero_grad()`` in one process or over
+data axes.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from repro_torch.launch.mesh import axis_sizes
 __all__ = ["dedicate_params", "Muon", "MuonConfig", "GramNSConfig",
            "DedicationPlan", "default_muon_predicate", "VariantSpec",
            "VARIANTS", "register_variant", "get_variant",
-           "reshard_owner_state"]
+           "reshard_owner_state", "MuonOptimizer"]
 
 
 VARIANTS: Dict[str, VariantSpec] = {}
@@ -264,3 +269,7 @@ def reshard_owner_state(state: MuonState, old_plan: DedicationPlan,
         return new_layout.local_block(full).clone()   # free the others' rows
 
     return map_owner_buffers(state, repack)
+
+
+# the torch.optim front door over ``Muon`` (imported last: it builds on it)
+from repro_torch.core.optim import MuonOptimizer  # noqa: E402

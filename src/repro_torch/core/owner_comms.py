@@ -46,7 +46,14 @@ the leaf is flattened, so its shard is a contiguous block of the stack
 block a rank then holds after the other owner axes have cut it is the
 owner block of another rank unless the sharding axes lead the owner
 order; one exchange of whole owner blocks (``_issue_permute``, one send
-and one receive per rank) puts each block on its owner.  This module
+and one receive per rank) puts each block on its owner.  Where the
+group's stack needs padding or a permutation over the owners (its count
+not a multiple of theirs, or ``pack_index`` not contiguous), the shards
+are not whole owner blocks: each rank's rows are padded with zero rows to
+the other owner axes' extent, cut by them, and sent row by row to the
+owners the plan gives them (``_route``, ``_issue_exchange``: point-to-point
+sends, one a peer); the pad positions stay zero, as the reference's
+padded stack's.  The publish runs the same exchange back.  This module
 knows nothing about optimization:
 ``core/muon.py`` composes an :class:`OwnerLayout` with an orthogonalizer
 and an update rule.
@@ -55,7 +62,7 @@ and an update rule.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -133,6 +140,25 @@ def _index(idx: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
+def _stack(plan: DedicationPlan, key, leaf_values, perms) -> torch.Tensor:
+    """Group ``key``'s leaves as one (rows, m, n) stack, leaf by leaf."""
+    parts = [_leaf_to_matrices(leaf_values[p], plan.leaves[p], perms.get(p))
+             for p in plan.groups[key].leaf_paths]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _unstack(plan: DedicationPlan, key, flat, perms, counts
+             ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``_stack``: ``counts`` rows of ``flat`` a leaf."""
+    out: Dict[str, torch.Tensor] = {}
+    start = 0
+    for p, n in zip(plan.groups[key].leaf_paths, counts):
+        out[p] = _matrices_to_leaf(flat[start:start + n], plan.leaves[p],
+                                   perms.get(p))
+        start += n
+    return out
+
+
 def pack_group(plan: DedicationPlan, key,
                leaf_values: Dict[str, torch.Tensor],
                perms: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
@@ -142,10 +168,7 @@ def pack_group(plan: DedicationPlan, key,
     as stored).  On one process; ``OwnerLayout.pack`` moves the result
     across ranks."""
     g = plan.groups[key]
-    perms = perms or {}
-    parts = [_leaf_to_matrices(leaf_values[p], plan.leaves[p], perms.get(p))
-             for p in g.leaf_paths]
-    flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    flat = _stack(plan, key, leaf_values, perms or {})
     pad_shape = tuple(flat.shape[1:])
     n_pad = g.packed_size - g.count
     if np.array_equal(g.pack_index[:g.count], np.arange(g.count)):
@@ -168,14 +191,8 @@ def unpack_group(plan: DedicationPlan, key, packed: torch.Tensor,
         flat = packed[:g.count]            # contiguous layout: pure slice
     else:
         flat = packed.index_select(0, _index(g.unpack_index, packed.device))
-    out: Dict[str, torch.Tensor] = {}
-    start = 0
-    for p in g.leaf_paths:
-        info = plan.leaves[p]
-        out[p] = _matrices_to_leaf(flat[start:start + info.count], info,
-                                   perms.get(p))
-        start += info.count
-    return out
+    return _unstack(plan, key, flat, perms,
+                    [plan.leaves[p].count for p in g.leaf_paths])
 
 
 def repack_rows(old_g, new_g, buf: torch.Tensor) -> torch.Tensor:
@@ -359,6 +376,56 @@ def _issue_permute(x: torch.Tensor, to: int, frm: int):
     works = dist.batch_isend_irecv([dist.P2POp(dist.isend, inp, to),
                                     dist.P2POp(dist.irecv, out, frm)])
     return _Works(works), lambda: out, (inp, out)
+
+
+class _Route(NamedTuple):
+    """``OwnerLayout._route``: a padded group's exchange between training
+    chunks and owner blocks.  ``sends``: (peer, chunk rows), ``recvs``:
+    (peer, owner slots), both in the order the rows travel."""
+    chunk: int          # rows of a training chunk, after the padding
+    chunks: int         # chunks a shard is cut into
+    cap: int            # rows of an owner block
+    shares: list        # rows of each leaf in a training shard
+    sends: list
+    recvs: list
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    n_pad = rows - x.shape[0]
+    if n_pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((n_pad,) + tuple(x.shape[1:]))], 0)
+
+
+def _issue_exchange(x: torch.Tensor, sends, recvs, rows: int):
+    """Send ``x``'s rows ``idx`` to each ``(peer, idx)`` of ``sends`` and
+    write the rows each ``(peer, idx)`` of ``recvs`` sends into rows
+    ``idx`` of a zero tensor of ``rows`` rows (one send and one receive a
+    peer; a rank's rows to itself are copied)."""
+    me = dist.get_rank()
+    out = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    ops, landed = [], []
+    for peer, idx in sends:
+        part = x.index_select(0, _index(idx, x.device))
+        if peer == me:
+            out.index_copy_(0, _index(dict(recvs)[me], x.device), part)
+        else:
+            ops.append(dist.P2POp(dist.isend, part, peer))
+    for peer, idx in recvs:
+        if peer != me:
+            buf = x.new_empty((len(idx),) + tuple(x.shape[1:]))
+            ops.append(dist.P2POp(dist.irecv, buf, peer))
+            landed.append((_index(idx, x.device), buf))
+
+    def finish():
+        for idx, buf in landed:
+            out.index_copy_(0, idx, buf)
+        return out
+    if not ops:
+        return None, finish, ()
+    held = tuple(op.tensor for op in ops)
+    return _Works(dist.batch_isend_irecv(ops)), finish, held
 
 
 class Pending:
@@ -560,26 +627,105 @@ class OwnerLayout:
     def _row_dims(self, key, cur) -> list:
         """The mesh dims that split the stack's rows in the training layout
         (a sharded expert dim), in mesh order, the order ``DTensor`` splits
-        a dim over several.  They must be owner dims, and the stack must
-        need no padding: each training shard is then a whole number of
-        owner blocks."""
+        a dim over several.  They must be owner dims."""
         dims = [i for i, p in enumerate(cur) if p.is_shard() and p.dim == 0]
-        if not dims:
-            return dims
-        g = self.plan.groups[key]
         names = self.mesh.mesh_dim_names
         if any(i not in self.owner_dims for i in dims):
             raise ValueError(
                 f"group {key!r}: its leading dim is sharded over "
                 f"{[names[i] for i in dims]}, not all owner axes "
                 f"{[names[i] for i in self.owner_dims]}")
-        if g.packed_size != g.count or not np.array_equal(
-                g.pack_index, np.arange(g.count)):
-            raise ValueError(
-                f"group {key!r}: a sharded leading dim needs the contiguous "
-                f"layout without padding ({g.count} matrices, "
-                f"{self.plan.num_owners} owners)")
         return dims
+
+    def _blocks_align(self, key) -> bool:
+        """Whether each training shard of group ``key``'s rows is a whole
+        number of owner blocks: the stack needs no padding and no
+        permutation (``_block_peers`` then places the blocks)."""
+        g = self.plan.groups[key]
+        return g.packed_size == g.count and np.array_equal(
+            g.pack_index, np.arange(g.count))
+
+    def _coord_rank(self, coord) -> int:
+        # the rank map is a real tensor; the dry run walks this under
+        # FakeTensorMode, so read it outside the active modes
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            return int(self.mesh.mesh[tuple(coord)])
+
+    def _route(self, key, row_dims) -> "_Route":
+        """The exchange that moves group ``key``'s rows between the
+        training shards and the padded owner layout where the shards are
+        not whole owner blocks (``_blocks_align``).
+
+        Before it, the owner dims that do not split the rows (``n_dims``)
+        have cut this rank's training rows, padded to a multiple of their
+        extent with zero rows, into chunks of ``k`` (``_issue_to_rows``:
+        the reduce-scatter of a ``Partial`` gradient); chunk ``c`` (row-major
+        over ``n_dims``) of training shard ``b`` (row-major over
+        ``row_dims``) is this rank's.  Logical row ``l`` of the group (the
+        leaves' rows, leaf by leaf, the sharded leading dim major) sits in
+        shard ``l // share`` of its leaf; the plan puts it at packed position
+        ``pos[l]``, on owner ``pos[l] // cap``.  Each rank sends every owner
+        the rows of its chunk that owner holds, in chunk order, and takes
+        from every holder the rows of its owner block, in the holder's
+        chunk order; the pad positions (``pack_index`` -1) stay zero."""
+        mesh, g = self.mesh, self.plan.groups[key]
+        n_dims = [i for i in self.owner_dims if i not in row_dims]
+        me = [mesh.get_local_rank(i) for i in range(mesh.ndim)]
+
+        def index(dims, coord):
+            out = 0
+            for i in dims:
+                out = out * mesh.size(i) + coord[i]
+            return out
+
+        def rank(parts):
+            """Global rank of (dims, index) parts, the rest of ``me``."""
+            coord = list(me)
+            for dims, idx in parts:
+                for i in reversed(dims):
+                    coord[i] = idx % mesh.size(i)
+                    idx //= mesh.size(i)
+            return self._coord_rank(coord)
+        shards = math.prod(mesh.size(i) for i in row_dims)
+        chunks = math.prod(mesh.size(i) for i in n_dims)
+        counts = np.array([self.plan.leaves[p].count for p in g.leaf_paths])
+        shares = counts // shards
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        local_offsets = np.concatenate([[0], np.cumsum(shares)[:-1]])
+        rows = int(shares.sum())
+        k = -(-rows // chunks)
+        cap = g.packed_size // self.shards
+        pos = np.empty(g.count, dtype=np.int64)
+        real = g.pack_index >= 0
+        pos[g.pack_index[real]] = np.nonzero(real)[0]
+
+        # this rank's chunk: local rows j, their logical rows, their owners
+        b, c = index(row_dims, me), index(n_dims, me)
+        j = np.arange(c * k, min((c + 1) * k, rows))
+        leaf = np.searchsorted(local_offsets, j, side="right") - 1
+        logical = offsets[leaf] + b * shares[leaf] + j - local_offsets[leaf]
+        owner = pos[logical] // cap
+        sends = [(rank([(self.owner_dims, int(o))]),
+                  j[owner == o] - c * k) for o in np.unique(owner)]
+
+        # this rank's owner block: its real slots and their holders
+        o = self.owner_index()
+        slots = np.nonzero(g.pack_index[o * cap:(o + 1) * cap] >= 0)[0]
+        logical = g.pack_index[o * cap + slots]
+        leaf = np.searchsorted(offsets, logical, side="right") - 1
+        t = logical - offsets[leaf]
+        hb, hj = t // shares[leaf], local_offsets[leaf] + t % shares[leaf]
+        holder = np.array([rank([(row_dims, int(x)), (n_dims, int(y))])
+                           for x, y in zip(hb, hj // k)], dtype=np.int64)
+        recvs = []
+        for h in np.unique(holder):
+            mine = holder == h
+            recvs.append((int(h), slots[mine][np.argsort(hj[mine],
+                                                         kind="stable")]))
+        return _Route(chunk=k, chunks=chunks, cap=cap,
+                      shares=[int(x) for x in shares], sends=sends,
+                      recvs=recvs)
 
     def _block_peers(self, row_dims) -> Optional[tuple]:
         """(to, from) global ranks of the exchange that puts owner blocks
@@ -610,14 +756,8 @@ class OwnerLayout:
                 idx //= mesh.size(i)
             return out
 
-        def rank(c):
-            # the rank map is a real tensor; the dry run walks this under
-            # FakeTensorMode, so read it outside the active modes
-            from torch.utils._python_dispatch import _disable_current_modes
-            with _disable_current_modes():
-                return int(mesh.mesh[tuple(c)])
-        return (rank(coord(index(me, order_a), order_b)),
-                rank(coord(index(me, order_b), order_a)))
+        return (self._coord_rank(coord(index(me, order_a), order_b)),
+                self._coord_rank(coord(index(me, order_b), order_a)))
 
     def pack_async(self, key, leaf_values: Dict[str, torch.Tensor],
                    placements: Optional[Dict[str, Placements]] = None
@@ -630,17 +770,29 @@ class OwnerLayout:
         once).  The moves run one mesh dim after another (``Pending``); a
         stack whose rows are split by a sharded expert dim keeps that split
         (those dims move nothing), is cut by the other owner dims, then
-        exchanges whole owner blocks (``_block_peers``)."""
-        packed = pack_group(self.plan, key, leaf_values,
-                            self._perms(key, placements))
+        exchanges whole owner blocks (``_block_peers``); where those shards
+        are not whole owner blocks (``_blocks_align``), its rows are padded
+        to the other owner dims' extent before they cut it, then each owner
+        block is gathered from the chunks that hold its rows
+        (``_route``)."""
+        perms = self._perms(key, placements)
         if self.mesh is None:
-            return Pending(packed)
+            return Pending(pack_group(self.plan, key, leaf_values, perms))
         cur, mesh = self._stacked(key, placements), self.mesh
         row_dims = self._row_dims(key, cur)
+        route = None
+        if row_dims and not self._blocks_align(key):
+            route = self._route(key, row_dims)
+            packed = _pad_rows(_stack(self.plan, key, leaf_values, perms),
+                               route.chunk * route.chunks)
+        else:
+            packed = pack_group(self.plan, key, leaf_values, perms)
         moves = [lambda v, i=i: _issue_to_rows(v, cur[i], i, mesh)
                  for i in self.owner_dims if i not in row_dims]
-        peers = self._block_peers(row_dims) if row_dims else None
-        if peers is not None:
+        if route is not None:
+            moves.append(lambda v: _issue_exchange(v, route.sends,
+                                                   route.recvs, route.cap))
+        elif row_dims and (peers := self._block_peers(row_dims)):
             moves.append(lambda v: _issue_permute(v, *peers))
         moves += [lambda v, i=i: _issue_replicate(v, cur[i], i, mesh)
                   for i in self.other_dims]
@@ -669,13 +821,20 @@ class OwnerLayout:
         moves = [lambda v, i=i: (None, lambda: shard_dim(v, target[i], i,
                                                          mesh), ())
                  for i in self.other_dims]
-        peers = self._block_peers(row_dims) if row_dims else None
-        if peers is not None:
+        then = leaves
+        if row_dims and not self._blocks_align(key):
+            route = self._route(key, row_dims)
+            moves.append(lambda v: _issue_exchange(v, route.recvs,
+                                                   route.sends, route.chunk))
+
+            def then(rows):
+                return _unstack(self.plan, key, rows, perms, route.shares)
+        elif row_dims and (peers := self._block_peers(row_dims)):
             to, frm = peers
             moves.append(lambda v: _issue_permute(v, frm, to))
         moves += [lambda v, i=i: _issue_from_rows(v, target[i], i, mesh)
                   for i in reversed(self.owner_dims) if i not in row_dims]
-        return Pending(packed, moves, then=leaves)
+        return Pending(packed, moves, then=then)
 
     def unpack(self, key, packed: torch.Tensor,
                placements: Optional[Dict[str, Placements]] = None

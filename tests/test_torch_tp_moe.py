@@ -13,8 +13,9 @@ whole) and ``dsv3drop`` (capacity factor 0.5: the dispatch drops
 assignments, and on (2, 2) must drop them over the global batch as the
 reference's ``jit`` of the whole batch does), ``dsv3acc`` (``dsv3drop``
 in two microbatches: each the global batch's block, dispatched over the
-data ranks) and ``dsv3e16`` (16 experts: eight a rank at model 2, in the
-owner layouts' blocks).  After 3 Muon steps from
+data ranks), ``dsv3e16`` (16 experts: eight a rank at model 2, in the
+owner layouts' blocks) and ``dsv3e2`` (3 layers of 2 experts: at (2, 2)
+6 expert matrices a leaf over 4 owners, the padded owner layout).  After 3 Muon steps from
 the same numpy parameters on the same batches: loss_ema and every
 parameter within 1e-4 of the reference; each world within
 ``chip_smoke.tp_gate`` of one process (10x what one ulp on half the
@@ -43,7 +44,7 @@ from repro_torch.models import tp as tp_lib
 from repro_torch.models import transformer
 
 PAIRS = {(1, 2): ("dsv3", "kimi", "dsv3e16"),
-         (2, 2): ("dsv3", "kimi", "dsv3drop", "dsv3acc"),
+         (2, 2): ("dsv3", "kimi", "dsv3drop", "dsv3acc", "dsv3e2"),
          (1, 4): ("dsv3", "kimi", "dsv3g")}
 CASES = [(m, c) for m, cs in PAIRS.items() for c in cs]
 ATOL = 1e-4
@@ -146,6 +147,44 @@ def test_expert_grads_shard_on_model(runs, mesh, name):
     attn = ("q_b_proj", "kv_b_proj", "o_proj") if name != "kimi" else \
         ("q_proj", "k_proj", "o_proj")
     assert all(f"blocks/attn/{a}/w" in split for a in attn)
+
+
+def test_padded_expert_layout(runs):
+    """``dsv3e2`` on (2, 2): each expert leaf's 6 matrices (3 layers of 2
+    experts, split over 'model') over 4 owners, so the owner layout pads
+    the E-split stack (``OwnerLayout._route``); the other configs' expert
+    stacks are whole owner blocks on every mesh.  After 3 steps every
+    momentum row at a pad position is zero on every rank, and
+    ``reshard_owner_state`` to a permuted layout and back is bitwise."""
+    for mesh, names in PAIRS.items():
+        for info in runs[mesh][0]["json"]:
+            for name in names:
+                row = info["configs"][name]
+                assert row["pad_rows_zero"], (mesh, name, info["rank"])
+                if name != "dsv3e2":
+                    assert row["padded"] == [], (mesh, name)
+                    continue
+                assert row["padded"] == [
+                    f"blocks.moe.experts.{w}_proj.w"
+                    for w in ("down", "gate", "up")]
+                assert row["reshard_roundtrip"], info["rank"]
+
+
+def test_padded_layout_is_the_one_process_pack(tmp_path):
+    """``torch_dist_check.py owner_pad`` on gloo (2, 2): expert-split
+    stacks of 6, 2, 8 and 14 matrices over 4 owners, in the contiguous
+    layout and in a permuted one (``pack_index`` not the identity): each
+    rank's owner rows bitwise its block of the one-process pack of the
+    averaged gradients, and the publish bitwise its part of them."""
+    dc.launch("owner_pad", 4, (2, 2), tmp_path, DEADLINE_S)
+    infos = dc.load(tmp_path, 4)["json"]
+    groups = infos[0]["groups"]
+    assert any(r["padded"] for r in groups.values())
+    assert any(r["permuted"] and not r["padded"] for r in groups.values())
+    for info in infos:
+        for name, row in info["groups"].items():
+            assert row["pack_bitwise"] and row["publish_bitwise"], (
+                info["rank"], name)
 
 
 def test_drop_case_is_global(runs):

@@ -21,6 +21,10 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 1,4 --out DIR [--configs qwen256,smollm3h]
     python tests/torch_dist_check.py tp_restore --rank R --world W \\
         --port P --mesh 2,1 --out DIR/restore [--ckpt dsv3]
+    python tests/torch_dist_check.py optim --rank R --world W \\
+        --port P --mesh 2,1 --out DIR
+    python tests/torch_dist_check.py owner_pad --rank R --world W \\
+        --port P --mesh 2,2 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_dist_check.py jax_tp --mesh 1,4 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -49,7 +53,9 @@ runs the tensor-parallel train step of the dense and MoE families
 one-process run, and ``models/tp.py``'s Functions, and saves a checkpoint
 that ``tp_restore`` resumes on another mesh (``--ckpt NAME``: that config's,
 on the ``tp`` world's mesh); ``jax_tp`` runs the reference's sharded train
-step on the same inputs.  Each
+step on the same inputs; ``optim`` runs ``MuonOptimizer`` on a
+data-only mesh against the data-parallel train step; ``owner_pad``
+moves expert-split stacks that pad or permute over the owners.  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
@@ -1045,6 +1051,9 @@ TP_CONFIGS = {
     # with 16 experts, so several a rank in the owner layouts at model 4
     "dsv3acc": ("deepseek-v3-671b", dict(moe=dict(capacity_factor=0.5))),
     "dsv3e16": ("deepseek-v3-671b", dict(moe=dict(n_experts=16))),
+    # 3 layers of 2 experts: at (2, 2) each expert leaf's 6 matrices over
+    # 4 owners, so the owner layout pads the E-split stack (``_route``)
+    "dsv3e2": ("deepseek-v3-671b", dict(n_layers=3, moe=dict(n_experts=2))),
 }
 # microbatches a step of the configs named (1 for the others)
 TP_ACCUM = {"dsv3acc": 2}
@@ -1188,7 +1197,8 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
             "adamw_local_shapes": adamw_local == {
                 p: local[p] for p in adamw_local},
             "specs": None if specs is None else
-            {p: list(s) for p, s in specs.items()}}
+            {p: list(s) for p, s in specs.items()},
+            "opt_state": state.opt_state, "plan": plan}
 
 
 def ulp_params(params_np: dict, rng=None) -> dict:
@@ -1334,6 +1344,9 @@ def tp_rank(args) -> None:
             arrays.update({f"{name}/params/{p}": v.numpy()
                            for p, v in got["params"].items()})
         info["configs"][name] = row
+        if mesh is not None:
+            row.update(padded_owner_checks(cfg, got["plan"],
+                                           got["opt_state"], mesh))
         if not extras:
             continue
         # init_state's parts against the one-process init's slices
@@ -1367,6 +1380,52 @@ def tp_rank(args) -> None:
                        for k, v in _tp_ckpt_arrays(loop).items()})
     np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
     (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def padded_owner_checks(cfg, plan, state, mesh) -> dict:
+    """The owner layout's padded E-split groups after training: which
+    groups pad (``padded``); whether every momentum row at a pad position
+    of this rank's owner block is zero (``pad_rows_zero``); and whether
+    ``reshard_owner_state`` to the plan's permuted layout
+    (``physical_layout="assignment"``) and back is bitwise the state
+    (``reshard_roundtrip``), the permuted state's logical rows bitwise
+    the state's."""
+    import torch
+
+    from repro_torch.core import api
+    from repro_torch.core.owner_comms import OwnerLayout, group_key_str
+    from repro_torch.models import transformer
+    layout = OwnerLayout(plan, mesh)
+    cap_of = {group_key_str(k): g.packed_size // layout.shards
+              for k, g in plan.groups.items()}
+    padded = sorted(group_key_str(k) for k, g in plan.groups.items()
+                    if "/experts/" in k and g.packed_size != g.count)
+    o = layout.owner_index()
+    zero = True
+    for k, g in plan.groups.items():
+        cap = cap_of[group_key_str(k)]
+        pad = torch.from_numpy(g.pack_index[o * cap:(o + 1) * cap] < 0)
+        zero &= bool((state.momentum[group_key_str(k)][pad] == 0).all())
+    roundtrip = None
+    if padded:
+        other = api.dedicate_params(transformer.init(cfg, device="meta"),
+                                    mesh=mesh, strategy="greedy",
+                                    physical_layout="assignment")
+        moved = api.reshard_owner_state(state, plan, other, mesh)
+        back = api.reshard_owner_state(moved, other, plan, mesh)
+        new_layout = OwnerLayout(other, mesh)
+        same = []          # every rank gathers every group (collectives)
+        for k in plan.groups:
+            s = group_key_str(k)
+            rows = layout.gather_rows(state.momentum[s])[
+                torch.from_numpy(plan.groups[k].unpack_index)]
+            moved_rows = new_layout.gather_rows(moved.momentum[s])[
+                torch.from_numpy(other.groups[k].unpack_index)]
+            same.append(torch.equal(back.momentum[s], state.momentum[s])
+                        and torch.equal(rows, moved_rows))
+        roundtrip = all(same)
+    return {"padded": padded, "pad_rows_zero": zero,
+            "reshard_roundtrip": roundtrip}
 
 
 def tp_restore_rank(args) -> None:
@@ -1419,6 +1478,155 @@ def tp_restore_rank(args) -> None:
         "rank": args.rank, "held": held,
         "assembled_bytes": sum(a for a, _ in made.values()),
         "whole_bytes": sum(w for _, w in made.values())}))
+
+
+# expert-split leaves (L, E, m, n), E split over "model": 6, 2, 8 and 14
+# matrices over the 4 owners of a (2, 2) mesh (padded, or whole blocks)
+PAD_LEAVES = {"a": (3, 2, 8, 12), "b": (1, 2, 12, 8), "c": (2, 4, 8, 8),
+              "g": (7, 2, 16, 16)}
+
+
+def owner_pad_rank(args) -> None:
+    """``OwnerLayout.pack`` / ``unpack`` of ``PAD_LEAVES``' gradients
+    (``Partial("avg")`` over "data", E split over "model"), under a
+    contiguous plan and one whose ``pack_index`` permutes the stack
+    (``physical_layout="assignment"``): this rank's owner rows bitwise
+    its block of the one-process ``pack_group`` of the averaged
+    gradients, and the publish bitwise its part of them."""
+    import torch
+    from torch.distributed.tensor import Partial, Shard
+
+    from repro_torch.core import api
+    from repro_torch.core.owner_comms import (OwnerLayout, _lead_perm,
+                                              group_key_str, pack_group)
+    mesh = _setup(args)
+    rng = np.random.default_rng(5)
+    parts = {p: [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for _ in range(mesh.size(0))] for p, s in PAD_LEAVES.items()}
+    d, m = mesh.get_local_rank(0), mesh.get_local_rank(1)
+    out = {}
+    for physical in ("contiguous", "assignment"):
+        plan = api.dedicate_params(
+            {p: torch.empty(s, device="meta") for p, s in PAD_LEAVES.items()},
+            mesh=mesh, strategy="greedy", physical_layout=physical)
+        layout = OwnerLayout(plan, mesh)
+        for key, g in plan.groups.items():
+            pl = {p: (Partial("avg"), Shard(1)) for p in g.leaf_paths}
+            mine = {p: parts[p][d].chunk(mesh.size(1), dim=1)[m].contiguous()
+                    for p in g.leaf_paths}
+            avg = {p: sum(parts[p]) / len(parts[p]) for p in g.leaf_paths}
+            rows = layout.pack(key, mine, pl)
+            want = layout.local_block(pack_group(
+                plan, key, avg,
+                {p: _lead_perm(plan.leaves[p], pl[p]) for p in g.leaf_paths}))
+            back = layout.unpack(key, rows, pl)
+            out[f"{physical}/{group_key_str(key)}"] = {
+                "padded": g.packed_size != g.count,
+                "permuted": not np.array_equal(g.pack_index[:g.count],
+                                               np.arange(g.count)),
+                "pack_bitwise": torch.equal(rows, want),
+                "publish_bitwise": all(
+                    torch.equal(back[p], avg[p].chunk(mesh.size(1),
+                                                      dim=1)[m])
+                    for p in g.leaf_paths)}
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(
+        {"rank": args.rank, "groups": out}))
+    np.savez(Path(args.out) / f"rank{args.rank}.npz")
+
+
+def optim_rank(args) -> None:
+    """``MuonOptimizer`` on a data-only mesh against the data-parallel
+    ``make_train_step`` of the reduced smollm-360m, ``TP_STEPS`` steps
+    from seed 0 on this rank's rows: with ``grads="partial"`` (each
+    rank's own backward) bitwise; with ``grads="replicated"`` under
+    ``DistributedDataParallel`` (its averaged gradients), the largest
+    difference a leaf relative to the leaf's largest magnitude."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+
+    from repro_torch import configs
+    from repro_torch.core import api, tree
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.models import transformer
+    from repro_torch.train.step import (init_state, make_loss_fn,
+                                        make_train_step)
+
+    mesh = _setup(args)
+    cfg = configs.get("smollm-360m", reduced=True)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    mcfg = tp_muon_config()
+    shapes = transformer.init(cfg, device="meta")
+
+    def batch(i):
+        return batch_for_step(dcfg, i, device="cpu", mesh=mesh)
+    opt = api.Muon(api.dedicate_params(shapes, mesh=mesh), mesh,
+                   config=mcfg, device="cpu")
+    state = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
+    step = make_train_step(cfg, opt, mesh, device="cpu")
+    want = []
+    for i in range(TP_STEPS):
+        state = step(state, batch(i))
+        want.append(state.loss_ema)
+
+    loss_fn = make_loss_fn(cfg, mesh)
+
+    def ema_of(losses):
+        ema = None
+        for loss in losses:
+            for d in range(mesh.ndim):
+                torch.distributed.all_reduce(loss, group=mesh.get_group(d))
+                loss /= mesh.size(d)
+            ema = loss if ema is None else 0.98 * ema + 0.02 * loss
+        return ema
+
+    params = tree.tree_map(lambda v: v.requires_grad_(True),
+                           transformer.init(cfg, 0, "cpu"))
+    front = api.MuonOptimizer(params, mesh, config=mcfg, device="cpu")
+    losses = []
+    for i in range(TP_STEPS):
+        loss = loss_fn(params, batch(i))
+        loss.backward()
+        front.step()
+        front.zero_grad()
+        losses.append(loss.detach())
+    partial = torch.equal(ema_of(losses), want[-1]) and all(
+        torch.equal(a, b.detach()) for (_, a), (_, b) in
+        zip(tree.flatten(params), tree.flatten(state.params)))
+
+    class Tree(torch.nn.Module):
+        """The parameter tree as a module whose forward is the loss."""
+
+        def __init__(self, t):
+            super().__init__()
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    self.add_module(k, Tree(v))
+                else:
+                    self.register_parameter(k, torch.nn.Parameter(v))
+
+        def forward(self, b):
+            return loss_fn(tree.from_named(self.named_parameters()), b)
+    model = Tree(transformer.init(cfg, 0, "cpu"))
+    ddp = DistributedDataParallel(model)
+    opt = api.MuonOptimizer(model, mesh, config=mcfg, device="cpu",
+                            grads="replicated")
+    losses = []
+    for i in range(TP_STEPS):
+        loss = ddp(batch(i))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.detach())
+    got = dict(tree.flatten(tree.from_named(model.named_parameters())))
+    rel = max(float((got[p].detach() - v.detach()).abs().max()
+                    / v.detach().abs().max())
+              for p, v in tree.flatten(state.params))
+    ema_rel = abs(float(ema_of(losses) / want[-1]) - 1)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps({
+        "rank": args.rank, "partial_bitwise": partial,
+        "ddp_max_rel": rel, "ddp_ema_rel": ema_rel,
+        "ema": [float(x) for x in want]}))
+    np.savez(Path(args.out) / f"rank{args.rank}.npz")
 
 
 def jax_tp_reference(args) -> None:
@@ -1478,7 +1686,7 @@ def main() -> None:
     ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
                                      "checkpoint", "restore", "moe", "jax",
                                      "jax_moe", "tp", "tp_restore",
-                                     "jax_tp"))
+                                     "jax_tp", "optim", "owner_pad"))
     ap.add_argument("--configs", default=",".join(TP_CONFIGS),
                     help="tp / jax_tp: comma-separated TP_CONFIGS names")
     ap.add_argument("--ckpt", default="",
@@ -1506,7 +1714,8 @@ def main() -> None:
          "variants": variants_rank, "pipeline": pipeline_rank,
          "checkpoint": checkpoint_rank, "restore": restore_rank,
          "moe": moe_rank, "tp": tp_rank,
-         "tp_restore": tp_restore_rank}[args.mode](args)
+         "tp_restore": tp_restore_rank, "optim": optim_rank,
+         "owner_pad": owner_pad_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
