@@ -10,7 +10,9 @@ Phases, each printing one JSON line and asserting what it checks:
            kernel in ``src/repro_torch/kernels/csrc`` (one nvcc per source,
            all in parallel, into the ignored ``build/repro_torch/``).
   kernels  each Hopper kernel against its plain PyTorch version on the card
-           at the slice's shapes, plus bf16 (2e-2), unaligned (the fp32
+           at the slice's shapes, plus bf16 (``BF16_GATE``: 2^-7 of the
+           largest entry off the diagonal and on it apart, against the
+           plain version's fp32 product), unaligned (the fp32
            pad path: syrk (2, 101, 211), symmul m = 198) and
            block-invariance cases, on inputs whose products are O(1) so the
            tolerance is small against every term of each product
@@ -119,11 +121,12 @@ Phases, each printing one JSON line and asserting what it checks:
            peak memory.
   families the hybrid, xLSTM, encoder-decoder and VLM families at their
            published widths, fp32, seed 0 (``FAMILY_RUNS``): hymba-1.5b
-           (32 layers, batch 2 x 2048, so the 1024 window binds on its
-           29 windowed layers and the chunked attention runs),
+           (16 of 32 layers, global layers 0 and 15, batch 2 x 2048, so
+           the 1024 window binds on its 14 windowed layers and the
+           chunked attention runs),
            xlstm-350m (24 layers, 8 x 512), seamless-m4t-large-v2
            (24 + 24 layers, frames 2 x 4096 x 1024, decoder 2 x 512) and
-           llava-next-mistral-7b (8 of 32 layers, the cut stated in its
+           llava-next-mistral-7b (4 of 32 layers, the cut stated in its
            config line; patches 2 x 2880 x 1024 + 2 x 512 tokens).  The
            three kernels at every Gram group shape of the four plans
            (m = 100 ... 4096, n up to 14336), held like the moe phase's,
@@ -199,7 +202,7 @@ Phases, each printing one JSON line and asserting what it checks:
            slots, 6 requests of 4-16 new tokens (``SERVE_FAMILY_RUNS``):
            DeepSeek-V3 (the moe phase's cut), hymba-1.5b (prompts 1280,
            past its 1024 window), xlstm-350m, seamless-m4t-large-v2
-           (512-frame prompts) and llava-next-mistral-7b (8 layers, 2880
+           (512-frame prompts) and llava-next-mistral-7b (4 layers, 2880
            patches a request); each served twice with logits recorded
            (bitwise equal), every request replayed at its served shape
            (bitwise; not DeepSeek-V3, whose rows share expert capacity),
@@ -269,6 +272,32 @@ Phases, each printing one JSON line and asserting what it checks:
            (``loss_falls``), launches from the plan, step / optimizer ms,
            peaks within ``PEAK_GATE`` of the prediction.
 
+  zero3    ZeRO-3 (``init_state(..., zero3=True)``, ``grad_specs`` =
+           ``param_specs(..., zero3=True)``: the block weights also split
+           over 'data', gathered a layer at a time), one NCCL rank a
+           card.  One card: full-width smollm-360m 3 steps on (1, 1),
+           7 / 84 / 35 launches a step, loss_ema and ``param_digest``
+           bitwise the train phase's run.  Four cards: (a) smollm-360m on
+           (2, 2) and (4, 1) and the moe phase's DeepSeek-V3 cut on (2, 2)
+           (drops printed), each held to one card by ``tp_gate``; (b)
+           nemotron-4-340b at its published widths on (2, 2) under the
+           reference's >= 340 B policy (bf16 parameters, momentum, packs
+           and Gram NS, ``owner_chunk=8``, gradients accumulated in bf16
+           over 2 microbatches of 4 x seq), as deep as the dry run's walk
+           (``zero3_predict``, eight host subprocesses started with the
+           script) puts within 80 GB a card, the sequence cut before the
+           width (the vocabulary, halved: at 256000 the two-way split
+           embedding and head alone take 66 GB a card, ``NEMO_CUTS``);
+           first the three kernels at its owner shapes in bf16 on
+           card 0 (against the plain versions by ``BF16_GATE``, timed);
+           3 steps,
+           finite losses, launches from the plan, the peak within
+           ``PEAK_GATE`` of the walk's, beside the walk's peak of the same
+           cut without ZeRO-3; step 1 held to a (1, 4) run of the same cut
+           without ZeRO-3 by ``tp_gate`` (on a grid of every leaf's
+           entries, the first and last 256 and 256 spread over each dim,
+           each from the rank that holds it).
+
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
 and families phases' Muon runs), the nvidia-smi line (the first card's;
@@ -308,6 +337,13 @@ SCALED_GATE = 1e-5     # fp32 products against each other: 1e-5 · max|want|
 # past ~16k (2.2e-5 at n = 24576, 2.7e-5 at 32768: PERF.md §6); one
 # TF32 pass stays >= 10x outside this one at every shape
 EXACT_GATE = 5e-6
+# bf16 products (fp32 accumulation, one rounding of the output) against the
+# plain version's fp32 product of the same bf16 operands, before its cast:
+# max err <= 2^-7 · max|want| over the off-diagonal entries, and over the
+# diagonal apart, each at its own scale (twice bf16's unit roundoff).  A
+# Gram matrix's diagonal is O(1) and its other entries O(1/sqrt(n)), so a
+# gate at the diagonal's scale would pass a kernel that left tiles out
+BF16_GATE = 2.0 ** -7
 
 KERNELS = {
     "gram_syrk": dict(source="src/repro_torch/kernels/csrc/gram_syrk.cu",
@@ -326,7 +362,8 @@ TRAIN_STEPS = 3
 PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dropin",
           "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
-          "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe")
+          "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe",
+          "zero3")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -466,6 +503,43 @@ def check_sensitive(tag: str, term, want, rtol: float, atol: float) -> None:
                              f"10x the allowance {allowance:.3e}")
 
 
+def check_parts(tag: str, got, want, term, scaled: float) -> dict:
+    """``BF16_GATE``'s comparison: max|got − want| <= ``scaled`` ·
+    max|want| over the off-diagonal entries and over the diagonal, each
+    part at its own scale; and the off-diagonal part of ``term`` (what the
+    kernel's product adds there) is at least 10 times its allowance, so a
+    kernel that drops it, or maps a tile wrongly, fails.  Returns the
+    errors and allowances."""
+    import torch
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+
+    def largest(t) -> tuple[float, float]:
+        """max|t| (off the diagonal, on it)."""
+        t = t.float().abs()
+        diag = t.diagonal(dim1=-2, dim2=-1)
+        on = float(diag.max())
+        diag.zero_()
+        return float(t.max()), on
+    err_off, err_diag = largest(got.float() - want.float())
+    want_off, want_diag = largest(want)
+    term_off = largest(term)[0]
+    row = {"max_err_offdiag": err_off, "allowance_offdiag": scaled * want_off,
+           "max_err_diag": err_diag, "allowance_diag": scaled * want_diag}
+    if term_off < 10 * row["allowance_offdiag"]:
+        raise AssertionError(f"{tag}: off-diagonal product term "
+                             f"{term_off:.3e} is within 10x the allowance "
+                             f"{row['allowance_offdiag']:.3e}")
+    for part in ("offdiag", "diag"):
+        if row[f"max_err_{part}"] > row[f"allowance_{part}"]:
+            raise AssertionError(
+                f"{tag}: max abs err {row[f'max_err_{part}']:.3e} "
+                f"{'off' if part == 'offdiag' else 'on'} the diagonal "
+                f"exceeds {scaled} · max|want| there = "
+                f"{row[f'allowance_{part}']:.3e}")
+    return row
+
+
 def check_close(tag: str, got, want, rtol: float, atol: float) -> float:
     import torch
     err = max_abs_err(got, want)
@@ -559,9 +633,10 @@ def kernel_cases(torch, gen):
     product term, one-TF32-pass fn or None, exact fn or None) at the
     slice's shapes, plus bf16 and unaligned cases.  The product term is
     what the kernel's product adds to the output: all of it for syrk and
-    symmul, c·G² for gram_poly.  ``tol`` is rtol/atol against the plain
-    version (bf16), or ``scaled`` against the exact product for the fp32
-    tensor-core products."""
+    symmul, c·G² for gram_poly.  ``tol`` is ``parts`` (``BF16_GATE``)
+    against the plain version's fp32 product (the exact fn of bf16), or
+    ``scaled`` against the exact product for the fp32 tensor-core
+    products."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
@@ -570,7 +645,7 @@ def kernel_cases(torch, gen):
     coeffs = get_coefficients("polar_express", 5)[0]   # largest: 8.3/-23.6/17.3
 
     tc32 = dict(scaled=EXACT_GATE)
-    bf16 = dict(rtol=2e-2, atol=2e-2)
+    bf16 = dict(parts=BF16_GATE)
     cases = []
     # muon's shapes, then Dion2's r×n factors (r = 240, 80)
     for shape, dtype, tol in [((32, 960, 960), torch.float32, tc32),
@@ -592,7 +667,8 @@ def kernel_cases(torch, gen):
                       lambda x=x: syrk_plain(x),
                       (lambda x=x: syrk_tf32_emulated(x, passes=1))
                       if tc else None,
-                      (lambda x=x: exact_syrk(x)) if tc else None))
+                      (lambda x=x: exact_syrk(x)) if tc else
+                      (lambda x=x: syrk_plain(x, out_dtype=torch.float32))))
     for (b, m), dtype, tol in [((32, 960), torch.float32, tc32),
                                ((32, 320), torch.float32, tc32),
                                ((32, 240), torch.float32, tc32),
@@ -609,7 +685,9 @@ def kernel_cases(torch, gen):
                       lambda p=p, g=g: symmul_plain(p, g),
                       (lambda p=p, g=g: symmul_tf32_emulated(p, g, passes=1))
                       if tc else None,
-                      (lambda p=p, g=g: exact_symmul(p, g)) if tc else None))
+                      (lambda p=p, g=g: exact_symmul(p, g)) if tc else
+                      (lambda p=p, g=g: symmul_plain(
+                          p, g, out_dtype=torch.float32))))
         cases.append(("symmul_gram_poly", (b, m, m), dtype, tol,
                       lambda g=g: ops.gram_poly(g, *coeffs),
                       lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
@@ -620,8 +698,10 @@ def kernel_cases(torch, gen):
                       (lambda g=g: symmul_tf32_emulated(
                           g, g, epilogue="gram_poly", coeffs=coeffs,
                           passes=1)) if tc else None,
-                      (lambda g=g: exact_gram_poly(g, coeffs))
-                      if tc else None))
+                      (lambda g=g: exact_gram_poly(g, coeffs)) if tc else
+                      (lambda g=g: symmul_plain(
+                          g, g, epilogue="gram_poly", coeffs=coeffs,
+                          out_dtype=torch.float32))))
     return cases
 
 
@@ -629,18 +709,18 @@ def check_kernel_case(torch, case, reps: int = 10) -> dict:
     """Hold one ``kernel_cases`` case to the gate its ``tol`` names: the
     fp32 tensor-core products against the exact (float64) product, where
     one TF32 pass must miss the gate by >= 10x, and the plain fp32
-    version's own distance is printed beside; the others against the plain
-    version.  Times the kernel, the plain version and the library product
+    version's own distance is printed beside; bf16 against the plain
+    version's fp32 product, by parts (``check_parts``).  Times the kernel, the plain version and the library product
     (median of ``reps``), beside the bounds.  Returns the row."""
     from repro_torch.device import dtype_name
     from repro_torch.kernels import autotune, ref
     name, shape, dtype, tol, kern, plain, lib, term, one_pass, exact = case
     got = kern()
     torch.cuda.synchronize()
-    want = ref.mirror_lower(plain())
     tag = f"{name}{list(shape)} {dtype}"
     row = {}
     if "scaled" in tol:
+        want = ref.mirror_lower(plain())
         truth = exact()
         allowance = scaled_allowance(truth, tol["scaled"])
         check_sensitive(tag, term(), truth, 0.0, allowance)
@@ -652,8 +732,9 @@ def check_kernel_case(torch, case, reps: int = 10) -> dict:
         want = truth
         del truth
     else:
-        check_sensitive(tag, term(), want, **tol)
-        err = check_close(tag, got, want, **tol)
+        want = ref.mirror_lower(exact())
+        row = check_parts(tag, got, want, term(), tol["parts"])
+        err = max(row["max_err_offdiag"], row["max_err_diag"])
     dt = dtype_name(dtype)
     b_ms, b_by, ffma_ms = bound(name, shape, dt, got.element_size())
     blocks = autotune.lookup(KERNELS[name]["counter"], shape[1], shape[2],
@@ -893,6 +974,71 @@ def capture_grads(grads, mesh) -> dict:
     return out
 
 
+def sample_grid(n: int, k: int) -> list:
+    """The indices of a dim of ``n`` entries that a sampled capture keeps:
+    all of them where ``n`` <= 3k; else the first k, the last k and k
+    spread evenly from the first to the last."""
+    if n <= 3 * k:
+        return list(range(n))
+    spread = {round(i * (n - 1) / (k - 1)) for i in range(k)}
+    return sorted(set(range(k)) | spread | set(range(n - k, n)))
+
+
+def sampled_part(torch, u, k: int) -> tuple:
+    """(global shape, global indices a dim, values on the host) of the
+    entries of ``sample_grid(n, k)`` (each dim's) that this rank's part of
+    the ``DTensor`` ``u`` holds; a pending mean over a data axis taken on
+    them (the ranks that share the part take the same entries)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    t = u.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        u.shape, u.device_mesh, u.placements)
+    indices = []
+    for d, (n, lo) in enumerate(zip(u.shape, offset)):
+        here = [i for i in sample_grid(n, k) if lo <= i < lo + t.shape[d]]
+        indices.append(here)
+        t = t.index_select(d, torch.tensor([i - lo for i in here],
+                                           device=t.device))
+    if any(q.is_partial() for q in u.placements):
+        t = t.float().contiguous()
+        for i, q in enumerate(u.placements):
+            if q.is_partial():
+                torch.distributed.all_reduce(
+                    t, group=u.device_mesh.get_group(i))
+                t /= u.device_mesh.size(i) if q.reduce_op == "avg" else 1
+    return tuple(u.shape), indices, t.to("cpu")
+
+
+def sampled_whole(torch, dist, world: int, parts: dict,
+                  k: int) -> dict | None:
+    """Rank 0: {path: the leaf on its whole ``sample_grid(n, k)`` grid}
+    from every rank's ``sampled_part`` captures ``parts`` ({path:
+    capture}); every entry of the grid must come from some rank.  None on
+    the other ranks."""
+    every = _gathered(dist, world, parts)
+    if dist.get_rank() != 0:
+        return None
+    out = {}
+    for p, (shape, _, values) in parts.items():
+        grids = [sample_grid(n, k) for n in shape]
+        at = [{g: j for j, g in enumerate(grid)} for grid in grids]
+        whole = torch.zeros([len(g) for g in grids], dtype=values.dtype)
+        seen = torch.zeros(whole.shape, dtype=torch.bool)
+        for caps in every:
+            _, indices, v = caps[p]
+            pos = tuple(torch.tensor([at[d][i] for i in idx]).view(
+                [-1 if e == d else 1 for e in range(len(shape))])
+                for d, idx in enumerate(indices))
+            whole[pos] = v
+            seen[pos] = True
+        if not bool(seen.all()):
+            raise AssertionError(f"{p}: {int((~seen).sum())} sampled "
+                                 f"entries held by no rank")
+        out[p] = whole
+    return out
+
+
 def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               capture: bool | str = False, grads: bool = False,
               knobs: dict | None = None,
@@ -901,6 +1047,8 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
               steps: int = TRAIN_STEPS, keep_state: bool = False,
               cfg=None, dcfg=None, donate: bool = False,
               inputs=None, tensor_parallel: bool = False,
+              zero3: bool = False, accum_dtype=None, ns: dict | None = None,
+              sample: int | None = None,
               init_hook=None, before_step=None,
               digest: bool = False) -> dict:
     """Train full-width smollm-360m (seed 0, batch 8 x 512, kernels on; or
@@ -928,7 +1076,14 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     ``tensor_parallel``: the step of ``train/step.py`` tensor-parallel over
     ``mesh``'s 'model' axis (``grad_specs`` from ``param_specs``, even on
     a model axis of one rank); the captures are then whole tensors
-    (gathered over the mesh, on the host).  ``init_hook(params)`` runs on
+    (gathered over the mesh, on the host), or with ``sample`` each rank's
+    entries of its part on the grid ``sample_grid(n, sample)`` of every
+    dim, as ``sampled_part`` takes them (put together over the ranks by
+    ``sampled_whole``).  ``zero3``: the
+    parameters split by ``param_specs(..., zero3=True)`` (with
+    ``tensor_parallel``; ``init_state(..., zero3=True)``), ``accum_dtype``
+    the microbatches' accumulation dtype (fp32 unless given), ``ns`` more
+    ``GramNSConfig`` fields.  ``init_hook(params)`` runs on
     the initial parameters (in place) before the first step;
     ``before_step(state, batch)`` before each step, outside its clock and
     its launch count.  ``digest``: ``param_digest`` of the last
@@ -952,38 +1107,49 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
     cfg = cfg or configs.get("smollm-360m")
     shapes = model_fns(cfg).init(cfg, device="meta")
     plan = api.dedicate_params(shapes, mesh=mesh)
-    specs = sharding.param_specs(cfg, shapes, mesh) if tensor_parallel \
-        else None
+    specs = sharding.param_specs(cfg, shapes, mesh, zero3=zero3) \
+        if tensor_parallel else None
     per_step = plan_launches(plan)
     knobs = knobs or {}
     opt = api.Muon(plan, mesh, config=MuonConfig(
         variant=variant, mode=mode, pipeline=pipeline,
-        ns=GramNSConfig(use_kernels=True), **knobs), device="cuda")
-    state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+        ns=GramNSConfig(use_kernels=True, **(ns or {})), **knobs),
+        device="cuda")
+    state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh,
+                       zero3=zero3)
     if init_hook is not None:
         with torch.no_grad():
             init_hook(state.params)
     step = make_train_step(cfg, opt, mesh, accum_steps=accum_steps,
                            prestage=prestage, donate=donate, device="cuda",
-                           grad_specs=specs)
+                           grad_specs=specs,
+                           accum_dtype=accum_dtype or torch.float32)
     dcfg = dcfg or DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8)
 
     # time the optimizer transform inside the step (synchronised around it)
     opt_ms, first, first_grads = [], {}, {}
 
     def keep(t):
+        if sample is not None:
+            return t
         return t.to("cpu") if capture == "host" else t.clone()
+
+    whole = specs is not None and sample is None
 
     def part(u):
         if not isinstance(u, DTensor):
             return u
-        return u.full_tensor() if specs is not None else u.to_local()
+        if whole:
+            return u.full_tensor()
+        if sample is not None:
+            return sampled_part(torch, u, sample)
+        return u.to_local()
 
     def timed(update, staged: bool):
         def run(*a, **kw):
             if grads and not staged and not first_grads:
                 if specs is not None:
-                    first_grads.update({p: (keep(g.full_tensor()),)
+                    first_grads.update({p: (keep(part(g)),)
                                         for p, g in tree.flatten(a[0])})
                 elif capture == "host" and mesh is None:
                     # straight to the host: three copies of a model that
@@ -1052,10 +1218,13 @@ def train_run(torch, variant: str, mode: str = "owner", mesh=None, *,
                   "steps": trace_summary(prof, steps)}
 
     def final_params(params):
-        if specs is not None:
+        if sample is not None:
+            return {p: sampled_part(torch, v, sample) for p, v in
+                    tree.flatten(placed_params(params, specs, mesh))}
+        if whole:
             params = placed_params(params, specs, mesh)
-        return {p: (v.full_tensor() if specs is not None else v.detach())
-                .to("cpu") for p, v in tree.flatten(params)}
+        return {p: (v.full_tensor() if whole else v.detach()).to("cpu")
+                for p, v in tree.flatten(params)}
 
     tag = f"{variant}/{mode}/{pipeline}/accum {accum_steps}" + (
         "" if mesh is None else " on the mesh")
@@ -2577,7 +2746,7 @@ TP_QUANTITIES = ("loss", "grads", "updates", "params", "loss_ema")
 
 
 def tp_gate(torch, tp: dict, ref: dict, spread: dict,
-            matrices: set) -> dict:
+            matrices: set, ulp: float = 2.0 ** -23) -> dict:
     """The tensor-parallel training against one card's on the same batch
     and parameters.  ``tp``, ``ref`` and ``spread`` each map every quantity
     of ``TP_QUANTITIES`` (step 1's loss, gradients and updates; the
@@ -2594,7 +2763,8 @@ def tp_gate(torch, tp: dict, ref: dict, spread: dict,
     moves its result by a few ulps of its terms, as one ulp on the
     parameters does.  So each leaf of each quantity passes where
     max|tp − ref| <= ``TP_SPREAD`` · max(max|spread − ref|, one ulp of
-    max|ref|).  An AdamW leaf's step-1 update is −lr · g / (|g| + eps),
+    max|ref|), that ulp ``ulp`` · max|ref| (fp32's unless the quantities
+    are coarser).  An AdamW leaf's step-1 update is −lr · g / (|g| + eps),
     about −lr · sign(g): where |g| is at rounding size a few ulps of the
     gradient move it by up to a sign flip, which no one-ulp run need
     reproduce.  So each of its entries is also allowed what its
@@ -2602,7 +2772,6 @@ def tp_gate(torch, tp: dict, ref: dict, spread: dict,
     max(|u|, |u_ref|), as ``step_gate``'s AdamW rule.  Returns the worst
     ratio (|Δ| over that bound) per quantity, ``factor`` (their largest;
     <= 1 passes) and per-leaf rows."""
-    eps = 2.0 ** -23
     ratios, rows = {}, {}
     for q in TP_QUANTITIES:
         worst = 0.0
@@ -2613,7 +2782,7 @@ def tp_gate(torch, tp: dict, ref: dict, spread: dict,
             d = float(diff.max())
             s = float((spread[q][p].to("cpu", torch.float64)
                        - want).abs().max())
-            bound = TP_SPREAD * max(s, eps * float(want.abs().max()))
+            bound = TP_SPREAD * max(s, ulp * float(want.abs().max()))
             if q == "updates" and p not in matrices:
                 g = ref["grads"][p].to("cpu", torch.float64)
                 dg = (tp["grads"][p].to("cpu", torch.float64) - g).abs()
@@ -2788,25 +2957,35 @@ TP_QWEN_CMP_LAYERS = 4
 TP_PREDICT_TIMEOUT_S = 1000    # from the script's start
 
 
-def start_tp_predictions() -> list:
-    """The host's predicted peak of the qwen runs (Muon, AdamW), each
-    ``tp_predict`` in a subprocess of its own, started at once; JSONs and
-    logs under the ignored ``build/tp_predict``."""
-    outdir = ROOT / "build" / "tp_predict"
+
+
+def start_walks(subdir: str, calls: dict) -> list:
+    """Each of ``calls`` ({cell: (the name of a walk function of this
+    script, its arguments but the last)}) in a subprocess of its own,
+    started at once, the JSON path its last argument; JSONs and logs under
+    the ignored ``build/<subdir>`` (read by ``tp_predictions``)."""
+    outdir = ROOT / "build" / subdir
     outdir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     cells = []
-    for opt in ("owner", "adamw"):
-        log = open(outdir / f"{opt}.log", "w")
-        code = (f"import chip_smoke; chip_smoke.tp_predict({opt!r}, "
-                f"{str(outdir / f'{opt}.json')!r})")
+    for name, (fn, args) in calls.items():
+        path = outdir / f"{name}.json"
+        log = open(outdir / f"{name}.log", "w")
+        code = (f"import chip_smoke; "
+                f"chip_smoke.{fn}(*{args!r}, {str(path)!r})")
         proc = subprocess.Popen(
             [sys.executable, "-W", "ignore", "-c", code],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
-        cells.append({"cell": opt, "proc": proc, "log": log,
-                      "path": outdir / f"{opt}.json",
+        cells.append({"cell": name, "proc": proc, "log": log, "path": path,
                       "t0": time.perf_counter()})
     return cells
+
+
+def start_tp_predictions() -> list:
+    """The host's predicted peak of the qwen runs (Muon, AdamW), each
+    ``tp_predict`` (``start_walks``)."""
+    return start_walks("tp_predict", {opt: ("tp_predict", (opt,))
+                                      for opt in ("owner", "adamw")})
 
 
 def tp_predict(opt: str, out: str) -> None:
@@ -2857,7 +3036,7 @@ def phase_tp(torch, smi: str) -> None:
     tp_kernels(torch)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mp.start_processes(tp_rank, args=(world, free_port(), "smollm", ""),
+    mp.start_processes(nccl_rank, args=(world, free_port(), "tp_checks"),
                        nprocs=world, start_method="spawn", join=True)
     emit({"phase": "tp", "check": "done", "world": world,
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
@@ -2880,8 +3059,8 @@ def phase_tp_qwen(torch, smi: str, cells: list) -> None:
     measured = out / "qwen.json"
     measured.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    mp.start_processes(tp_rank, args=(world, free_port(), "qwen",
-                                      str(measured)),
+    mp.start_processes(nccl_rank, args=(world, free_port(), "tp_qwen_checks",
+                                        measured),
                        nprocs=world, start_method="spawn", join=True)
     seconds = time.perf_counter() - t0
     predicted = tp_predictions(cells)
@@ -2909,12 +3088,13 @@ def tp_kernels(torch) -> None:
                                  "n_layers": TP_QWEN_LAYERS})
 
 
-def owner_kernels(torch, cfg, mesh_shape, line: dict) -> None:
+def owner_kernels(torch, cfg, mesh_shape, line: dict, dtype=None,
+                  reps: int | None = None) -> None:
     """The three kernels at the (B, m, n) of one owner's rows of each Gram
     group of ``cfg`` over the cards of ``mesh_shape``, on this card, held
-    and timed as the families phase's (median of ``FAMILY_REPS``), each
-    with its launches a step on every rank (from the plan); each row
-    printed after ``line``."""
+    and timed as the families phase's (median of ``reps``), each
+    with its launches a step on every rank (from the plan); in ``dtype``
+    (``gram_kernel_cases``); each row printed after ``line``."""
     from repro_torch.core import api
     from repro_torch.models import transformer
     owners = math.prod(mesh_shape)
@@ -2929,21 +3109,26 @@ def owner_kernels(torch, cfg, mesh_shape, line: dict) -> None:
     per_group = {k: v // len(plan.groups) for k, v in per_group.items()}
     counter = {name: meta["counter"] for name, meta in KERNELS.items()}
     gen = torch.Generator("cuda").manual_seed(0)
-    for case in gram_kernel_cases(torch, gen, list(syrk), list(gram)):
+    for case in gram_kernel_cases(torch, gen, list(syrk), list(gram), dtype):
         name, shape = case[0], case[1]
         groups = syrk[shape] if name == "gram_syrk" else gram[shape[:2]]
         emit({**line, "mesh": list(mesh_shape),
               "launches_per_step": groups * per_group[counter[name]],
-              **check_kernel_case(torch, case, FAMILY_REPS)})
+              **check_kernel_case(torch, case, reps or FAMILY_REPS)})
         del case
         torch.cuda.empty_cache()
 
 
-def tp_rank(rank: int, world: int, port: int, part: str,
-            measured: str) -> None:
+
+
+def nccl_rank(rank: int, world: int, port: int, part: str, *args) -> None:
+    """One NCCL rank of a phase spawned one rank a card: ``part`` (the
+    name of a function of this script) called with (torch, dist, rank,
+    world, *args)."""
     sys.path.insert(0, str(ROOT / "src"))
-    # qwen's runs fill the card: grow segments in place rather than keep
-    # freed blocks of each size apart (read when the allocator starts)
+    # the published-width runs fill the card: grow segments in place rather
+    # than keep freed blocks of each size apart (read when the allocator
+    # starts)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     import datetime
@@ -2958,10 +3143,7 @@ def tp_rank(rank: int, world: int, port: int, part: str,
     init_process_group("cuda", rank=rank, world_size=world,
                        init_method=f"tcp://localhost:{port}",
                        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    if part == "smollm":
-        tp_checks(torch, dist, rank, world)
-    else:
-        tp_qwen_checks(torch, dist, rank, world, Path(measured))
+    globals()[part](torch, dist, rank, world, *args)
     dist.destroy_process_group()
 
 
@@ -3222,28 +3404,15 @@ def tp_moe_config(layers: int, experts: int):
                        moe=dataclasses.replace(base.moe, n_experts=experts))
 
 
+
+
 def start_tp_moe_predictions(cuts=TP_MOE_CUTS) -> list:
     """The host's predicted peak of each (b) candidate of ``cuts`` for
-    Muon and AdamW (``tp_moe_predict``), one subprocess each, started at
-    once; JSONs and logs under the ignored ``build/tp_moe_predict``."""
-    outdir = ROOT / "build" / "tp_moe_predict"
-    outdir.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    cells = []
-    for layers, experts in cuts:
-        for opt in ("owner", "adamw"):
-            name = f"{opt}_{layers}x{experts}"
-            log = open(outdir / f"{name}.log", "w")
-            code = (f"import chip_smoke; chip_smoke.tp_moe_predict({opt!r}, "
-                    f"{layers}, {experts}, "
-                    f"{str(outdir / f'{name}.json')!r})")
-            proc = subprocess.Popen(
-                [sys.executable, "-W", "ignore", "-c", code],
-                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
-            cells.append({"cell": name, "proc": proc, "log": log,
-                          "path": outdir / f"{name}.json",
-                          "t0": time.perf_counter()})
-    return cells
+    Muon and AdamW (``tp_moe_predict``, ``start_walks``)."""
+    return start_walks("tp_moe_predict", {
+        f"{opt}_{layers}x{experts}": ("tp_moe_predict",
+                                      (opt, layers, experts))
+        for layers, experts in cuts for opt in ("owner", "adamw")})
 
 
 def tp_moe_predict(opt: str, layers: int, experts: int, out: str) -> None:
@@ -3291,15 +3460,16 @@ def tp_moe_cut(predicted: dict) -> tuple:
                          f"{predicted}")
 
 
-def drop_counter(torch, cfg, mesh, rows: list, slots: list):
+def drop_counter(torch, cfg, mesh, rows: list, slots: list, specs=None):
     """A ``train_run`` ``before_step`` hook: each step's MoE assignments
     beyond capacity, summed over the layers, on this rank's tokens (under
     the global rule on a mesh), from a forward without gradients on the
-    step's parameters and batch; appended to ``rows``, and the slots of
-    each layer's expert buffers on this rank to ``slots``."""
+    step's parameters (placed by ``specs``, default ``param_specs``) and
+    batch; appended to ``rows``, and the slots of each layer's expert
+    buffers on this rank to ``slots``."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.train.step import make_loss_fn
-    loss_fn = make_loss_fn(cfg, mesh)
+    loss_fn = make_loss_fn(cfg, mesh, specs)
 
     def hook(state, batch):
         with torch.no_grad(), moe_lib.recording() as rec:
@@ -3326,8 +3496,8 @@ def phase_tp_moe(torch, smi: str, cells: list, moe_run) -> None:
     measured = out / "moe.json"
     measured.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    mp.start_processes(tp_moe_rank, args=(world, free_port(), "a", None,
-                                          moe_run, ""),
+    mp.start_processes(nccl_rank, args=(world, free_port(), "tp_moe_checks",
+                                        moe_run),
                        nprocs=world, start_method="spawn", join=True)
     if world != math.prod(TP_MOE_MESH):
         emit({"phase": "tp_moe", "check": "done", "world": world,
@@ -3349,9 +3519,9 @@ def phase_tp_moe(torch, smi: str, cells: list, moe_run) -> None:
                   {"phase": "tp_moe", "arch": "deepseek-v3-671b",
                    "n_layers": layers, "n_experts": experts})
     torch.cuda.empty_cache()
-    mp.start_processes(tp_moe_rank, args=(world, free_port(), "b",
-                                          (layers, experts), None,
-                                          str(measured)),
+    mp.start_processes(nccl_rank, args=(world, free_port(),
+                                        "tp_moe_published", layers, experts,
+                                        measured),
                        nprocs=world, start_method="spawn", join=True)
     got = json.loads(measured.read_text())
     ratio = {o: predicted[f"{o}_{layers}x{experts}"]["peak_gb"] / max(got[o])
@@ -3369,28 +3539,6 @@ def phase_tp_moe(torch, smi: str, cells: list, moe_run) -> None:
                              f"{PEAK_GATE}: {missed}")
 
 
-def tp_moe_rank(rank: int, world: int, port: int, part: str, cut,
-                moe_run, measured: str) -> None:
-    sys.path.insert(0, str(ROOT / "src"))
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                          "expandable_segments:True")
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.device import strict_fp32
-    from repro_torch.launch.mesh import init_process_group
-
-    strict_fp32()
-    init_process_group("cuda", rank=rank, world_size=world,
-                       init_method=f"tcp://localhost:{port}",
-                       timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    if part == "a":
-        tp_moe_checks(torch, dist, rank, world, moe_run)
-    else:
-        tp_moe_published(torch, dist, rank, world, *cut, Path(measured))
-    dist.destroy_process_group()
 
 
 def _gathered(dist, world: int, obj) -> list:
@@ -3537,6 +3685,357 @@ def tp_moe_published(torch, dist, rank: int, world: int, layers: int,
         measured.write_text(json.dumps(peaks))
 
 
+# ------------------------------------------------------------------ zero3
+
+# ZeRO-3 (``param_specs(..., zero3=True)``: the block weights also split
+# over 'data', gathered a layer at a time).  One card: smollm-360m on
+# (1, 1), bitwise the train phase's run.  Four cards: (a) smollm-360m on
+# each mesh of ``ZERO3_MESHES`` and the moe phase's DeepSeek-V3 cut on
+# ``ZERO3_MOE_MESH``, each held to one card by ``tp_gate``; (b)
+# nemotron-4-340b (arXiv:2402.16819) at its published widths on
+# ``NEMO_MESH`` under the reference's >= 340 B policy (bf16 parameters,
+# ``NEMO_MUON`` state, ``NEMO_NS`` Gram NS, bf16 accumulation of
+# ``NEMO_ACCUM`` microbatches), at the first (layers, sequence,
+# vocabulary) of ``NEMO_CUTS`` whose walk (``zero3_predict``) fits
+# ``HBM_BYTES``: the depth first, the sequence before the width.  On
+# (2, 2) the vocabulary-parallel embedding and head are split two ways,
+# and their fp32 AdamW moments, bf16 parameters, gradients and updates
+# take 66 GB a card at the published 256000 (the walk: 103 GB at one
+# layer, whatever the sequence: the peak is the optimizer's), so the
+# vocabulary is the one width cut, in halves.  Step 1 is held to a run of
+# the same cut on ``NEMO_CMP_MESH`` (tensor-parallel only) by
+# ``tp_gate``, on a grid of entries of every leaf (``NEMO_SAMPLE``), each
+# from the rank that holds it (whole captures of 10 B parameters would not
+# fit beside the run)
+ZERO3_MESHES = [(2, 2), (4, 1)]
+ZERO3_MOE_MESH = (2, 2)
+NEMO = "nemotron-4-340b"
+NEMO_MESH, NEMO_CMP_MESH = (2, 2), (1, 4)
+NEMO_VOCAB = 256000
+# the first, the least of the published vocabulary's, is the witness that
+# it fits at no depth or sequence
+NEMO_CUTS = [(1, 2048, NEMO_VOCAB), (2, 4096, NEMO_VOCAB // 2),
+             (1, 4096, NEMO_VOCAB // 2), (2, 4096, NEMO_VOCAB // 4)]
+NEMO_BATCH, NEMO_ACCUM, NEMO_STEPS = 4, 2, 3
+NEMO_MUON = dict(momentum_dtype="bfloat16", pack_dtype="bfloat16")
+NEMO_NS = dict(compute_dtype="bfloat16", owner_chunk=8)
+# (b)'s gate takes each dim's first and last NEMO_SAMPLE entries and
+# NEMO_SAMPLE spread over it (``sample_grid``): every rank's part, far
+# offsets included
+NEMO_SAMPLE = 256
+# median of this many timed calls at nemotron's owner shapes (one SYRK of
+# (1, 18432, 73728) in fp32 takes about a second)
+NEMO_KERNEL_REPS = 5
+
+
+def nemo_config(layers: int, vocab: int):
+    """nemotron-4-340b at its published widths, ``layers`` layers and a
+    vocabulary of ``vocab`` (bf16, remat)."""
+    from repro_torch import configs
+    return configs.get(NEMO, n_layers=layers, vocab=vocab)
+
+
+
+
+def start_zero3_predictions() -> list:
+    """The host's predicted peak of each (b) candidate of ``NEMO_CUTS`` on
+    ``NEMO_MESH`` with ZeRO-3 and without (``zero3_predict``,
+    ``start_walks``)."""
+    return start_walks("zero3_predict", {
+        f"{'zero3' if zero3 else 'tp'}_{layers}x{seq}x{vocab}":
+        ("zero3_predict", (layers, seq, vocab, zero3))
+        for layers, seq, vocab in NEMO_CUTS for zero3 in (True, False)})
+
+
+def nemo_muon():
+    """(b)'s ``MuonConfig``: ``train_run``'s, under the >= 340 B policy."""
+    from repro_torch.core.gram_ns import GramNSConfig
+    from repro_torch.core.muon import MuonConfig
+    return MuonConfig(variant="muon", mode="owner", pipeline="fused",
+                      autotune_prewarm=False,
+                      ns=GramNSConfig(use_kernels=True, **NEMO_NS),
+                      **NEMO_MUON)
+
+
+def zero3_predict(layers: int, seq: int, vocab: int, zero3: bool,
+                  out: str) -> None:
+    """The dry run's walk (``launch.dryrun.walk_cell``) of one (b) run:
+    ``nemo_config(layers, vocab)``, batch ``NEMO_BATCH`` x ``seq`` in
+    ``NEMO_ACCUM`` microbatches on a fake world of ``NEMO_MESH``, with
+    ``nemo_muon``'s settings, with ZeRO-3 (and bf16 accumulation) or
+    without; its JSON to ``out``."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import walk_cell
+    shape = ShapeSpec("zero3", seq, NEMO_BATCH, "train")
+    result = walk_cell(nemo_config(layers, vocab), NEMO, shape, NEMO_MESH,
+                       "owner", muon=nemo_muon(), accum=NEMO_ACCUM,
+                       zero3=zero3)
+    Path(out).write_text(json.dumps(result, default=str))
+
+
+def zero3_cut(predicted: dict) -> tuple:
+    """The first (layers, sequence, vocabulary) of ``NEMO_CUTS`` whose
+    predicted peak with ZeRO-3 is within ``HBM_BYTES``."""
+    from repro_torch.launch.mesh import HBM_BYTES
+    for cut in NEMO_CUTS:
+        if predicted["zero3_{}x{}x{}".format(*cut)]["peak_gb"] * 1e9 <= \
+                HBM_BYTES:
+            return cut
+    raise AssertionError(f"no cut of {NEMO_CUTS} is predicted within "
+                         f"{HBM_BYTES / 1e9} GB a card: {predicted}")
+
+
+def phase_zero3(torch, smi: str, cells: list, train_ref) -> None:
+    """Every visible card, one NCCL rank each (spawned, as the tp phase's),
+    through the ZeRO-3 step.  One card: (1, 1) bitwise the train phase's
+    run (``train_ref``: its loss_ema and ``param_digest``; run here where
+    that phase did not).  Four: (a) (``zero3_gates``), then, after the
+    predictions of ``cells`` (``start_zero3_predictions``) pick the (b)
+    cut and its kernels run on this card in bf16, (b)
+    (``zero3_published``); its peaks beside the walk's, within
+    ``PEAK_GATE``, and the walk's peak of the same cut without ZeRO-3."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if world != math.prod(NEMO_MESH):
+        mp.start_processes(nccl_rank, args=(world, free_port(), "zero3_one",
+                                            train_ref),
+                           nprocs=world, start_method="spawn", join=True)
+        emit({"phase": "zero3", "check": "done", "world": world,
+              "skipped": f"(a) and (b) need {math.prod(NEMO_MESH)} cards",
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        return
+    mp.start_processes(nccl_rank, args=(world, free_port(), "zero3_gates"),
+                       nprocs=world, start_method="spawn", join=True)
+    predicted = tp_predictions(cells)
+    layers, seq, vocab = zero3_cut(predicted)
+    tag = f"{layers}x{seq}x{vocab}"
+    emit({"phase": "zero3", "check": "cut", "arch": NEMO,
+          "n_layers": layers, "seq_len": seq, "vocab": vocab,
+          "published": {"n_layers": 96, "vocab": NEMO_VOCAB},
+          "cuts": NEMO_CUTS,
+          "predicted_peak_gb": {k: v["peak_gb"] for k, v in
+                                predicted.items()},
+          "prediction_walk_seconds": {k: v["walk_seconds"] for k, v in
+                                      predicted.items()}})
+    owner_kernels(torch, nemo_config(layers, vocab), NEMO_MESH,
+                  {"phase": "zero3", "arch": NEMO, "n_layers": layers},
+                  dtype=torch.bfloat16, reps=NEMO_KERNEL_REPS)
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "zero3_phase"
+    out.mkdir(parents=True, exist_ok=True)
+    measured = out / "nemo.json"
+    measured.unlink(missing_ok=True)
+    mp.start_processes(nccl_rank, args=(world, free_port(), "zero3_published",
+                                        layers, seq, vocab, measured),
+                       nprocs=world, start_method="spawn", join=True)
+    got = json.loads(measured.read_text())
+    want = predicted[f"zero3_{tag}"]["peak_gb"]
+    ratio = want / max(got)
+    emit({"phase": "zero3", "check": "peak_vs_dryrun", "arch": NEMO,
+          "mesh": list(NEMO_MESH), "n_layers": layers, "seq_len": seq,
+          "vocab": vocab, "measured_peak_gb_per_card": got,
+          "predicted_peak_gb": want,
+          "predicted_over_measured": ratio, "gate": PEAK_GATE,
+          "predicted_peak_gb_without_zero3":
+          predicted[f"tp_{tag}"]["peak_gb"],
+          "world": world, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    if abs(ratio - 1) > PEAK_GATE:
+        raise AssertionError(f"(b) peak off the dry run's by more than "
+                             f"{PEAK_GATE}: {ratio}")
+
+
+
+
+def zero3_one(torch, dist, rank: int, world: int, train_ref) -> None:
+    """One card: full-width smollm-360m (``train_run``'s, 3 steps) through
+    the ZeRO-3 step on (1, 1), launches from the plan every step; its
+    loss_ema and ``param_digest`` bitwise the train phase's run
+    (``train_ref``; run here without it)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    run = train_run(torch, "muon", "owner", mesh, tensor_parallel=True,
+                    zero3=True, digest=True)
+    if train_ref is None:
+        single = train_run(torch, "muon", digest=True)
+        train_ref = {k: single[k] for k in ("loss_ema", "digest")}
+        del single
+    same = run["digest"] == train_ref["digest"] and \
+        run["loss_ema"] == train_ref["loss_ema"]
+    emit({"phase": "zero3", "check": "world1_vs_train_phase",
+          "arch": run["arch"], "bitwise_params":
+          run["digest"] == train_ref["digest"],
+          "loss_ema": run["loss_ema"],
+          "train_loss_ema": train_ref["loss_ema"],
+          "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                                run["launches"].items()},
+          "step_ms": run["step_ms"], "optimizer_ms": run["optimizer_ms"],
+          "peak_mem_gb": run["peak_mem_gb"]})
+    if not same:
+        raise AssertionError("the ZeRO-3 step on one card is not the train "
+                             "phase's run bitwise")
+
+
+def zero3_gates(torch, dist, rank: int, world: int) -> None:
+    """(a) on one rank of four: full-width smollm-360m (``TRAIN_STEPS``
+    steps) on each mesh of ``ZERO3_MESHES``, then the moe phase's
+    DeepSeek-V3 cut (``moe_config``, ``donate``, drops printed) on
+    ``ZERO3_MOE_MESH``, each through the ZeRO-3 step and held to one
+    card's run on the same batches by ``tp_gate`` (``tp_vs_single``:
+    smollm's batch in as many microbatches as the mesh has data ranks,
+    DeepSeek-V3's whole, one dispatch)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_fns
+    from repro_torch.models.sharding import param_specs
+
+    lead = rank == 0
+    failures = []
+
+    def run_on(shape, **kw):
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        extra = kw.pop("drops", None)
+        before = None
+        if extra is not None:
+            cfg = kw["cfg"]
+            specs = param_specs(cfg, model_fns(cfg).init(cfg, device="meta"),
+                                mesh, zero3=True)
+            before = drop_counter(torch, cfg, mesh, *extra, specs=specs)
+        run = train_run(torch, "muon", "owner", mesh, capture="host",
+                        grads=True, tensor_parallel=True, zero3=True,
+                        before_step=before, **kw)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb")}
+        per_rank = _gathered(dist, world, {
+            **timing, "dropped": None if extra is None else extra[0]})
+        if lead:
+            # the global rule drops the last data ranks' assignments;
+            # model ranks repeat their data rank's count
+            emit({"phase": "zero3", "arch": run["arch"], "mesh": list(shape),
+                  "n_layers": run["cfg"].n_layers, "loss_ema": run["loss_ema"],
+                  "dropped_by_step": None if extra is None else [
+                      sum(r["dropped"][i] for j, r in enumerate(per_rank)
+                          if j % shape[1] == 0)
+                      for i in range(len(extra[0]))],
+                  "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                                        run["launches"].items()},
+                  "per_rank": per_rank})
+        return run if lead else None
+
+    runs = {shape: run_on(shape) for shape in ZERO3_MESHES}
+    if lead:
+        failures.append(tp_vs_single(torch, runs))
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_config()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=MOE_SEQ,
+                      global_batch=MOE_BATCH)
+    moe_runs = {ZERO3_MOE_MESH: run_on(ZERO3_MOE_MESH, cfg=cfg, dcfg=dcfg,
+                                       donate=True, drops=([], []))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if lead:
+        failures.append(tp_vs_single(torch, moe_runs, accum=1, drops=True,
+                                     cfg=cfg, dcfg=dcfg, donate=True))
+    moe_runs.clear()
+    failed = _gathered(dist, world, [f for f in failures if f])
+    if failed[0]:
+        raise AssertionError("; ".join(failed[0]))
+
+
+def zero3_published(torch, dist, rank: int, world: int, layers: int,
+                    seq: int, vocab: int, measured: Path) -> None:
+    """(b) on one rank of four: ``nemo_config(layers, vocab)``, batch
+    ``NEMO_BATCH`` x ``seq`` in ``NEMO_ACCUM`` microbatches, ``NEMO_STEPS``
+    Muon steps with ``donate`` under the >= 340 B policy, through the
+    ZeRO-3 step on ``NEMO_MESH`` (finite losses, launches from the plan,
+    step / optimizer ms and peak GB per card, the peaks written to
+    ``measured`` for the parent); then the same on ``NEMO_CMP_MESH``
+    without ZeRO-3, from the same parameters and from them with a random
+    half of their entries one ulp up: step 1 held to it by ``tp_gate``
+    on every leaf's ``sample_grid(n, NEMO_SAMPLE)`` entries, each taken
+    from the rank that holds it (``sampled_part``, ``sampled_whole``)."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    lead = rank == 0
+    cfg = nemo_config(layers, vocab)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=NEMO_BATCH)
+    common = dict(cfg=cfg, dcfg=dcfg, donate=True, tensor_parallel=True,
+                  steps=NEMO_STEPS, accum_steps=NEMO_ACCUM,
+                  accum_dtype=torch.bfloat16, knobs=NEMO_MUON, ns=NEMO_NS,
+                  capture="host", grads=True, sample=NEMO_SAMPLE)
+    gen = torch.Generator("cuda").manual_seed(11)
+
+    def ulp(params):
+        for _, v in tree.flatten(params):
+            v.copy_(one_ulp_up(torch, v, gen))
+    runs, rows = {}, {}
+    for name, shape, zero3, hook in (
+            ("zero3", NEMO_MESH, True, None),
+            ("tp", NEMO_CMP_MESH, False, None),
+            ("tp_ulp", NEMO_CMP_MESH, False, ulp)):
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        run = train_run(torch, "muon", "owner", mesh, zero3=zero3,
+                        init_hook=hook, **common)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        rows[name] = {"loss_ema": run["loss_ema"],
+                      "per_rank": _gathered(dist, world, timing)}
+        whole = {q: sampled_whole(torch, dist, world, caps, NEMO_SAMPLE)
+                 for q, caps in (("grads", {p: g[0] for p, g in
+                                            run["first_grads"].items()}),
+                                 ("updates", run["first_updates"]),
+                                 ("params", run["final_params"]))}
+        if lead:
+            # the sampled entries: how far the bf16 Gram NS's first update
+            # and the parameters after the steps reach
+            emit({"phase": "zero3", "arch": cfg.name, "run": name,
+                  "mesh": list(shape), "n_layers": layers, "seq_len": seq,
+                  "vocab": vocab,
+                  "batch": NEMO_BATCH, "accum_steps": NEMO_ACCUM,
+                  "params": cfg.param_count(),
+                  "max_abs_update_step1": {
+                      p: float(u.float().abs().max())
+                      for p, u in whole["updates"].items()},
+                  "max_abs_param_last": {
+                      p: float(v.float().abs().max())
+                      for p, v in whole["params"].items()},
+                  **rows[name]})
+            runs[name] = {"loss": {"": torch.tensor(run["loss_ema"][0])},
+                          **whole,
+                          "loss_ema": {"": torch.tensor(run["loss_ema"][-1])}}
+            matrices = set(run["plan"].leaves)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    failure = None
+    if lead:
+        measured.write_text(json.dumps(
+            [r["peak_mem_gb"] for r in rows["zero3"]["per_rank"]]))
+        # every quantity but the loss is bf16 (parameters, bf16-accumulated
+        # gradients, updates): one ulp of them is bf16's
+        gate = tp_gate(torch, runs["zero3"], runs["tp"], runs["tp_ulp"],
+                       matrices, ulp=torch.finfo(torch.bfloat16).eps)
+        worst = sorted(gate["per_leaf"].items(),
+                       key=lambda kv: -kv[1]["ratio"])[:8]
+        emit({"phase": "zero3", "check": "zero3_vs_tp", "arch": cfg.name,
+              "n_layers": layers, "seq_len": seq, "mesh": list(NEMO_MESH),
+              "reference": f"{list(NEMO_CMP_MESH)} without ZeRO-3",
+              "sample": NEMO_SAMPLE, "ratios": gate["ratios"],
+              "factor": gate["factor"], "worst_leaves": dict(worst)})
+        if gate["factor"] > 1:
+            failure = (f"ZeRO-3 step of {cfg.name} misses the gate: "
+                       f"ratios {gate['ratios']}")
+    failures = _gathered(dist, world, failure)
+    if failures[0] is not None:
+        raise AssertionError(failures[0])
+
+
 # -------------------------------------------------------------------- main
 
 # --------------------------------------------------------------------- moe
@@ -3580,15 +4079,20 @@ def moe_config():
                                                n_experts=MOE_EXPERTS))
 
 
-def gram_kernel_cases(torch, gen, syrk_shapes, gram_shapes):
+def gram_kernel_cases(torch, gen, syrk_shapes, gram_shapes, dtype=None):
     """``kernel_cases`` tuples at a model's Gram shapes (SYRK at each
     (B, m, n), symmul and gram_poly at each (B, m)), one at a time (their
-    inputs reach several GB), fp32 under the scaled gate."""
+    inputs reach several GB), fp32 under the scaled gate; with ``dtype``
+    bf16, bf16 under ``BF16_GATE`` (``bf16_gram_cases``)."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
     from repro_torch.kernels.symmul import symmul_plain, symmul_tf32_emulated
     coeffs = get_coefficients("polar_express", 5)[0]
+    if dtype == torch.bfloat16:
+        yield from bf16_gram_cases(torch, gen, syrk_shapes, gram_shapes,
+                                   coeffs)
+        return
     tc32 = dict(scaled=EXACT_GATE)
     for shape in syrk_shapes:
         x = syrk_inputs(torch, gen, *shape)
@@ -3616,6 +4120,42 @@ def gram_kernel_cases(torch, gen, syrk_shapes, gram_shapes):
                lambda g=g: symmul_tf32_emulated(
                    g, g, epilogue="gram_poly", coeffs=coeffs, passes=1),
                lambda g=g: exact_gram_poly(g, coeffs))
+        del g, p
+
+
+def bf16_gram_cases(torch, gen, syrk_shapes, gram_shapes, coeffs):
+    """``gram_kernel_cases`` in bf16 (the FFMA mainloop, as the >= 340 B
+    policy's Gram NS runs): each kernel against its plain version's fp32
+    product by parts (``BF16_GATE``), the library product one bf16
+    ``torch.matmul``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_syrk import syrk_plain
+    from repro_torch.kernels.symmul import symmul_plain
+    bf16, f32, tol = torch.bfloat16, torch.float32, dict(parts=BF16_GATE)
+    for shape in syrk_shapes:
+        x = gram_inputs(torch, gen, *shape, bf16, coeffs)[0]
+        yield ("gram_syrk", shape, bf16, tol, lambda x=x: ops.syrk(x),
+               lambda x=x: syrk_plain(x), lambda x=x: torch.matmul(x, x.mT),
+               lambda x=x: syrk_plain(x), None,
+               lambda x=x: syrk_plain(x, out_dtype=f32))
+        del x
+    for b, m in gram_shapes:
+        _, g, p = gram_inputs(torch, gen, b, m, 2 * m, bf16, coeffs)
+        yield ("symmul_plain", (b, m, m), bf16, tol,
+               lambda p=p, g=g: ops.symmul(p, g),
+               lambda p=p, g=g: symmul_plain(p, g),
+               lambda p=p, g=g: torch.matmul(p, g),
+               lambda p=p, g=g: symmul_plain(p, g), None,
+               lambda p=p, g=g: symmul_plain(p, g, out_dtype=f32))
+        yield ("symmul_gram_poly", (b, m, m), bf16, tol,
+               lambda g=g: ops.gram_poly(g, *coeffs),
+               lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
+                                        coeffs=coeffs),
+               lambda g=g: torch.matmul(g, g),
+               lambda g=g: coeffs[2] * symmul_plain(g.float(), g.float()),
+               None,
+               lambda g=g: symmul_plain(g, g, epilogue="gram_poly",
+                                        coeffs=coeffs, out_dtype=f32))
         del g, p
 
 
@@ -3905,12 +4445,15 @@ def phase_moe(torch, smi: str) -> dict:
 # fp32, remat as configured, seed 0, Muon owner / fused / one owner.  Each
 # run's batch and sequence; ``cut``: {field: (cut, published, why)}.
 FAMILY_RUNS = {
-    "hymba-1.5b": dict(batch=2, seq=2048, adamw=True, cut={}),
+    "hymba-1.5b": dict(batch=2, seq=2048, adamw=True, cut={"n_layers": (
+        16, 32, "the one-card script's time: 16 layers keep global layers "
+        "0 and 15 and every group shape but its depth")}),
     "xlstm-350m": dict(batch=8, seq=512, cut={}),
     "seamless-m4t-large-v2": dict(batch=2, seq=512, cut={}),
     "llava-next-mistral-7b": dict(batch=2, seq=512, cut={"n_layers": (
-        8, 32, "fp32 parameters, gradients and momentum of 7.26 B "
-        "parameters are ~87 GB, past the card's 80 GB")}),
+        4, 32, "fp32 parameters, gradients and momentum of 7.26 B "
+        "parameters are ~87 GB, past the card's 80 GB; 4 rather than 8 "
+        "for the one-card script's time")}),
 }
 FAMILY_REPS = 20
 # the fp32 mixers (the SSM's doubling scan and its reverse-scan gradients,
@@ -5138,7 +5681,8 @@ def main() -> int:
     four = torch.cuda.device_count() == math.prod(TP_QWEN_MESH)
     tp_cells = (start_tp_predictions() if "tp_qwen" in phases and four
                 else []) + (start_tp_moe_predictions()
-                            if "tp_moe" in phases and four else [])
+                            if "tp_moe" in phases and four else []) + \
+        (start_zero3_predictions() if "zero3" in phases and four else [])
     try:
         return run_phases(torch, args, phases, cells, tp_cells)
     finally:
@@ -5150,7 +5694,8 @@ def run_phases(torch, args, phases: list, cells: list,
     """The device line, each phase of ``phases`` in ``PHASES`` order, the
     kernels summary and the closing lines; ``cells`` are the running
     ``start_dryrun_cells`` processes, ``tp_cells`` the
-    ``start_tp_predictions`` / ``start_tp_moe_predictions`` ones."""
+    ``start_tp_predictions`` / ``start_tp_moe_predictions`` /
+    ``start_zero3_predictions`` ones."""
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import build
 
@@ -5256,7 +5801,14 @@ def run_phases(torch, args, phases: list, cells: list,
         gc.collect()
         torch.cuda.empty_cache()
         phase_tp_moe(torch, smi[0],
-                     [c for c in tp_cells if "_" in c["cell"]], moe_run)
+                     [c for c in tp_cells if c["cell"].startswith(
+                         ("owner_", "adamw_"))], moe_run)
+    if "zero3" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_zero3(torch, smi[0],
+                    [c for c in tp_cells if c["cell"].startswith(
+                        ("zero3_", "tp_"))], train_runs.get("muon"))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

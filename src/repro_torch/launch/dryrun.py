@@ -27,9 +27,12 @@ batch smaller than the data-parallel size run whole on each card.  The
 dense family's train cells walk the tensor-parallel step of
 ``train/step.py``: parameters split by ``param_specs`` over the 'model'
 axis (16 cards), the forward's collectives on it; so do the MoE
-family's, its experts split over that axis (expert parallelism).  ZeRO-3
-is not ported, so nemotron-4-340b's, deepseek-v3-671b's and
-kimi-k2-1t-a32b's cells run without it, and their ``detail`` says so.
+family's, its experts split over that axis (expert parallelism).
+nemotron-4-340b's, deepseek-v3-671b's and kimi-k2-1t-a32b's cells
+(``BIG_ARCHS``) run the reference's >= 340 B memory policy: ZeRO-3
+(``param_specs(..., zero3=True)``: the block weights also split over
+'data', gathered a layer at a time), bf16 gradient accumulation and bf16
+optimizer state, and their ``detail`` says so.
 Every other cell keeps the parameters replicated on every card (the
 tensor-parallel forward of the other families and of serving is ROADMAP
 item 6): a model of more than ~10 B parameters does not fit a card in
@@ -82,7 +85,8 @@ RESULT_DIR = os.path.abspath(os.path.join(
     "torch_dryrun"))
 
 # Memory policy of the reference (its docs/DESIGN.md §8): the >= 340B
-# configs keep bf16 optimizer state and NS math end to end.
+# configs split their weights over 'data' too (ZeRO-3), accumulate their
+# gradients in bf16 and keep bf16 optimizer state and NS math end to end.
 BIG_ARCHS = {"nemotron-4-340b", "deepseek-v3-671b", "kimi-k2-1t-a32b"}
 MID_ARCHS = {"qwen2.5-14b", "llava-next-mistral-7b"}
 MESH_WORLD = {"single": 256, "multi": 512}
@@ -147,22 +151,26 @@ def rank_inputs(cfg, shape, mesh) -> dict:
 
 
 def build_train_cell(cfg, arch_id, shape, mesh, mode, muon=None,
-                     accum=None):
+                     accum=None, zero3: bool = False):
     """(fn, example_args, plan) of one training cell, built under the
     caller's ``FakeTensorMode``: the state from ``init`` directly (not
     ``init_state``, whose cross-rank checksum reads a collective's
     result), cut to this rank's parts where the step is tensor-parallel,
     the step with the buffers of the spent state released (``donate``).
     ``muon`` / ``accum`` replace the arch's optimizer settings
-    (``opt_config``) and microbatches (``accum_steps``)."""
+    (``opt_config``) and microbatches (``accum_steps``); ``zero3``: the
+    parameters split by ``param_specs(..., zero3=True)`` and the gradients
+    accumulated in bf16 (``walk_cell`` sets it on a production mesh for
+    ``BIG_ARCHS``, the reference's rule)."""
     from repro_torch.train.step import make_train_step, placed_params
     m = model_fns(cfg)
     params = m.init(cfg, 0, device="cpu")
     plan = api.dedicate_params(params, mesh=mesh, strategy="greedy")
     opt = api.Muon(plan, mesh, config=muon or opt_config(arch_id, mode),
                    device="cpu")
-    if tensor_parallel(cfg, mesh):
-        specs = param_specs(cfg, params, mesh)
+    specs = None
+    if zero3 or tensor_parallel(cfg, mesh):
+        specs = param_specs(cfg, params, mesh, zero3=zero3)
         params = tree.rebuild(params, {
             p: local_part(v, specs[p], mesh).clone()
             for p, v in tree.flatten(params)})
@@ -179,7 +187,9 @@ def build_train_cell(cfg, arch_id, shape, mesh, mode, muon=None,
     accum = accum or math.gcd(accum_steps(arch_id),
                               inputs["tokens"].shape[0])
     step = make_train_step(cfg, opt, mesh, accum_steps=accum, donate=True,
-                           device="cpu")
+                           device="cpu", grad_specs=specs,
+                           accum_dtype=torch.bfloat16 if zero3
+                           else torch.float32)
     return step, (state, inputs), plan
 
 
@@ -242,13 +252,16 @@ def _fake_mesh(mesh_kind):
 
 
 def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
-              muon=None, accum=None) -> dict:
+              muon=None, accum=None, zero3: bool | None = None) -> dict:
     """Build and walk one cell on the fake world; the result's fields
     (``ok`` and after), or an exception.  ``shape``: a name of ``SHAPES``
     or a ``ShapeSpec``; ``mesh_kind``: "single", "multi" or a (data,
     model) shape (``_fake_mesh``), as ``chip_smoke.py`` predicts a run on
-    the cards it has (``muon`` / ``accum``: that run's optimizer settings
-    and microbatches, ``build_train_cell``)."""
+    the cards it has (``muon`` / ``accum`` / ``zero3``: that run's
+    optimizer settings, microbatches and ZeRO-3 with bf16 accumulation,
+    ``build_train_cell``).  ``zero3`` None: the arch's memory policy
+    (``BIG_ARCHS``) on a production mesh, none on a (data, model)
+    shape."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     sp = _spec(shape)
     world = MESH_WORLD.get(mesh_kind) or math.prod(mesh_kind)
@@ -259,9 +272,11 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
         with FakeTensorMode():
             t0 = time.time()
             plan = None
+            if zero3 is None:
+                zero3 = mesh_kind in MESH_WORLD and arch_id in BIG_ARCHS
             if sp.kind == "train":
                 fn, args, plan = build_train_cell(cfg, arch_id, sp, mesh,
-                                                  mode, muon, accum)
+                                                  mode, muon, accum, zero3)
             else:
                 fn, args = build_serve_cell(cfg, arch_id, sp, mesh)
             t_build = time.time() - t0
@@ -291,11 +306,18 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
     batch = (f"{rows} of {sp.global_batch} rows a card (the batch over "
              f"{dp_axes(mesh)}"
              f"{'' if rows < sp.global_batch else ', smaller than them: whole'})")
-    if sp.kind == "train" and tensor_parallel(cfg, mesh):
+    if sp.kind == "train" and zero3:
         r.detail["layout"] = (
             f"parameters split by param_specs over 'model' "
-            f"({model_extent(mesh)} cards), without ZeRO-3 (not ported, "
-            f"ROADMAP item 6); {batch}; the tensor-parallel forward")
+            f"({model_extent(mesh)} cards), with ZeRO-3 (the block weights "
+            f"also over 'data', {axis_sizes(mesh)['data']} cards, gathered "
+            f"a layer at a time; bf16 gradient accumulation); {batch}; "
+            "the tensor-parallel forward")
+    elif sp.kind == "train" and tensor_parallel(cfg, mesh):
+        r.detail["layout"] = (
+            f"parameters split by param_specs over 'model' "
+            f"({model_extent(mesh)} cards); {batch}; the tensor-parallel "
+            "forward")
     else:
         r.detail["layout"] = (
             f"parameters replicated on every card; {batch}; no "

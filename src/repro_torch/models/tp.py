@@ -41,6 +41,22 @@ computation of the forward that reads across them: the MoE dispatch,
 which ranks and drops tokens over the global batch as the reference's
 ``jit`` of it does (``models/moe.py``).  Its collective carries integers
 and no gradient.
+
+``ZeroShards`` is ZeRO-3 (``param_specs(..., zero3=True)``, the reference's
+memory policy of the >= 340 B configs): the dim of a block weight that the
+'model' axis leaves whole is split over the 'data' axis, and
+``gather_layer`` makes one layer's weights whole, as each rank's own
+computation uses them:
+
+* ``gather_from_data`` a part along ``dim`` → the whole weight: all-gather
+  over 'data' forward; backward reduce-scatters the gradient back to the
+  part and divides it by the extent, so the part's gradient is the mean
+  over the data ranks' batches (the global batch's mean over 'data', as
+  the ``Partial("avg")`` gradients are averaged later).
+
+The collective spans the 'data' axis alone (the reference's ``zaxis``),
+never 'pod': the tokens of the MoE dispatch go over ``("pod", "data")``,
+the weights over 'data'.
 """
 
 from __future__ import annotations
@@ -135,6 +151,40 @@ def data_parallel(mesh) -> Optional[DataParallel]:
     return DataParallel(tuple(mesh.get_group(i) for i in idx),
                         tuple(mesh.size(i) for i in idx),
                         tuple(mesh.get_local_rank(i) for i in idx))
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroShards:
+    """The 'data' axis seen from one rank, and the block weights ZeRO-3
+    splits over it: ``dims`` {path in one layer's tree: the dim split}."""
+    group: Any
+    size: int
+    rank: int
+    dims: dict
+
+
+def zero_shards(mesh, specs: Optional[dict]) -> Optional[ZeroShards]:
+    """The ``ZeroShards`` of ``specs`` (``param_specs``' {path: spec}) on
+    ``mesh``, or None where no spec names 'data' or the axis holds one
+    rank (the gather is then the identity).  Only the stacked blocks
+    (``blocks/...``, one layer per leading index) may be split over it."""
+    from repro_torch.models.sharding import entry_axes
+    if mesh is None or specs is None or "data" not in mesh.mesh_dim_names:
+        return None
+    dims = {}
+    for p, spec in specs.items():
+        d = [i for i, e in enumerate(spec) if "data" in entry_axes(e)]
+        if not d:
+            continue
+        if not p.startswith("blocks/") or d[0] == 0:
+            raise ValueError(f"{p} {spec}: ZeRO-3 splits a stacked block "
+                             "weight's matrix or expert dims only")
+        dims[p[len("blocks/"):]] = d[0] - 1
+    i = mesh.mesh_dim_names.index("data")
+    if not dims or mesh.size(i) == 1:
+        return None
+    return ZeroShards(mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i),
+                      dims)
 
 
 def gather_over_data(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
@@ -240,6 +290,18 @@ class _GatherFromModel(torch.autograd.Function):
         return g, None, None, None
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, zs, dim):
+        ctx.zs, ctx.dim = zs, dim
+        return _all_gather(x, zs, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.zs, ctx.dim).div_(ctx.zs.size), \
+            None, None
+
+
 class _SplitToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mp, dim):
@@ -290,6 +352,32 @@ def gather_from_model(x: torch.Tensor, mp: ModelParallel, dim: int, *,
     if mp.size == 1:
         return x
     return _GatherFromModel.apply(x, mp, _dim(x, dim), reduce_grad)
+
+
+def gather_from_data(x: torch.Tensor, zs: ZeroShards,
+                     dim: int) -> torch.Tensor:
+    """This rank's part of a weight split along ``dim`` over 'data' → the
+    whole weight (module docstring)."""
+    return x if zs.size == 1 else _GatherFromData.apply(x, zs, _dim(x, dim))
+
+
+def gather_layer(params: dict, zs: Optional[ZeroShards],
+                 prefix: str = "") -> dict:
+    """One layer's parameter tree with every leaf ``zs`` splits over
+    'data' gathered whole (``gather_from_data``); the others as they are.
+    ``zs`` None: ``params`` itself."""
+    if zs is None:
+        return params
+    out = {}
+    for k, v in params.items():
+        path = prefix + k
+        if isinstance(v, dict):
+            out[k] = gather_layer(v, zs, path + "/")
+        elif path in zs.dims:
+            out[k] = gather_from_data(v, zs, zs.dims[path])
+        else:
+            out[k] = v
+    return out
 
 
 def split_to_model(x: torch.Tensor, mp: ModelParallel,

@@ -275,6 +275,13 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
     return x if cache is None else (x, cache, ssm_state)
 
 
+def _gathered_block(zero, cfg: ArchConfig, p: Params, x: torch.Tensor,
+                    *args, **kwargs):
+    """``_block_apply`` on this layer's ZeRO-3 parts gathered whole."""
+    return _block_apply(cfg, tp_lib.gather_layer(p, zero), x, *args,
+                        **kwargs)
+
+
 def _split(tp, width: int):
     """``tp`` where ``param_specs`` splits a leaf of ``width`` over the
     model axis, else None (the leaf is whole on every rank)."""
@@ -339,7 +346,7 @@ def apply_layer(body, x: torch.Tensor, *args, remat: bool) -> torch.Tensor:
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             patches: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, tp=None,
-            dp=None) -> torch.Tensor:
+            dp=None, zero=None) -> torch.Tensor:
     """Training forward: (B, S) tokens -> (B, S, vocab) fp32 logits.  With
     a frontend, the projected ``patches`` (or ``frames``) (B, P, F) are
     prepended to the token embeddings, and the logits cover the S token
@@ -358,6 +365,17 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     ``dp`` (a ``models.tp.DataParallel``): ``tokens`` are this rank's rows
     of a batch split over the data axes; the MoE dispatch ranks them over
     the global batch, as the reference's ``jit`` of the whole batch does.
+
+    ``zero`` (a ``models.tp.ZeroShards``; ZeRO-3, with ``tp``): the block
+    weights it names are also split over 'data'.  Each layer's parts are
+    gathered whole inside the layer's body (``models.tp.gather_layer``),
+    so under ``remat`` the whole weights are dropped after the layer's
+    forward and gathered again in its backward, whose reduce-scatters
+    then return each gradient to its part, layer by layer in the loop's
+    order: at most one layer's weights are whole at a time (FSDP's
+    schedule).  Without ``remat`` (the reduced configs) autograd keeps
+    every layer's whole weights for the backward.  The embedding, the
+    head and the norms are never split over 'data'.
     """
     _check_decoder(cfg)
     _check_tp(cfg, tp)
@@ -372,9 +390,11 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     else:
         rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
         hybrid = cfg.family == "hybrid"
+        block = _block_apply if zero is None else \
+            functools.partial(_gathered_block, zero)
         for l, bp in enumerate(unbound_layers(params["blocks"])):
             body = functools.partial(
-                _block_apply, cfg, bp, rope_cs=rope_cs,
+                block, cfg, bp, rope_cs=rope_cs,
                 global_layer=hybrid and l in cfg.global_layers, tp=tp,
                 dp=dp)
             x = apply_layer(body, x, remat=cfg.remat)

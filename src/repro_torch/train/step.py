@@ -5,8 +5,9 @@ accumulation and the optimizer transform, eagerly.
 backward (autograd of plain tensor code; remat per ``cfg.remat``), then the
 optimizer — owner-centric DMuon, Muon-AG or AdamW per the MuonConfig the
 caller gave ``Muon`` — whose deltas are added to the parameters in place.
-``accum_steps`` splits the batch on its leading axis and accumulates fp32
-gradients over the microbatches.
+``accum_steps`` splits the batch on its leading axis and accumulates the
+gradients over the microbatches in ``accum_dtype`` (fp32 by default; the
+reference's ``accum_dtype``, bf16 under its >= 340 B memory policy).
 
 Under a ``DeviceMesh`` the step is data-parallel over
 ``models.sharding.dp_axes(mesh)``: each rank runs forward and backward on
@@ -31,7 +32,15 @@ the global batch's i-th block, as the reference's is that block
 (``microbatch_rows``).  Otherwise the parameters are
 replicated (the same seed on every rank, checked once by ``init_state``)
 and the model axis only spreads the owners.
-ZeRO-3 (``param_specs(..., zero3=True)``) is not ported (ROADMAP item 6).
+
+ZeRO-3 (``init_state(..., zero3=True)`` and ``grad_specs=param_specs(...,
+zero3=True)``, the reference's policy of the >= 340 B configs): the block
+weights are also split over the 'data' axis on the dim the 'model' axis
+leaves whole (the experts' d_ff).  The forward gathers one layer's parts
+at a time over 'data' (``models.tp.ZeroShards``; under remat again in the
+backward), the backward reduce-scatters each gradient back to its part,
+and the gradient reaches the optimizer ``Shard`` over 'data' (the mean
+over the data ranks' batches) and ``Partial("avg")`` over 'pod'.
 
 Pipelines (``pipeline=`` / ``MuonConfig.pipeline``):
 
@@ -112,17 +121,21 @@ def _model_parallel(cfg, mesh):
     return mp
 
 
-def make_loss_fn(cfg, mesh=None) -> Callable:
+def make_loss_fn(cfg, mesh=None, specs: Optional[dict] = None) -> Callable:
     """``loss_fn(params, batch)``: the mean cross entropy of the forward's
     logits, ``batch`` this rank's rows on ``mesh``.  Where the step on
-    ``mesh`` is tensor-parallel (``models.tp.tensor_parallel``) the
-    forward runs on this rank's parameter parts (``_loss_fn``)."""
-    return _loss_fn(cfg, _model_parallel(cfg, mesh)
-                    if tp_lib.tensor_parallel(cfg, mesh) else None,
-                    tp_lib.data_parallel(mesh))
+    ``mesh`` is tensor-parallel (``models.tp.tensor_parallel``, or
+    ``specs`` given) the forward runs on this rank's parameter parts
+    placed by ``specs`` (default ``param_specs``; ``_loss_fn``)."""
+    if not (mesh is not None and (specs is not None
+                                  or tp_lib.tensor_parallel(cfg, mesh))):
+        return _loss_fn(cfg, None, tp_lib.data_parallel(mesh))
+    return _loss_fn(cfg, _model_parallel(cfg, mesh),
+                    tp_lib.data_parallel(mesh),
+                    tp_lib.zero_shards(mesh, _tp_specs(cfg, mesh, specs)))
 
 
-def _loss_fn(cfg, mp, dp=None) -> Callable:
+def _loss_fn(cfg, mp, dp=None, zero=None) -> Callable:
     """``make_loss_fn``'s function under the model axis ``mp`` (None: the
     whole model): the logits are this rank's vocab columns where the vocab
     divides the axis (the loss then ``vocab_parallel_xent``), whole on
@@ -130,7 +143,7 @@ def _loss_fn(cfg, mp, dp=None) -> Callable:
     sequence-sharded or replicated logits,
     ``src/repro/train/step.py:62-77``: the same values).  ``dp``: the data
     axes the batch is split over, which the MoE dispatch ranks its tokens
-    across."""
+    across; ``zero``: the block weights split over 'data' (ZeRO-3)."""
     m = model_fns(cfg)
 
     def loss_fn(params, batch):
@@ -139,6 +152,8 @@ def _loss_fn(cfg, mp, dp=None) -> Callable:
             kwargs["tp"] = mp
         if dp is not None and cfg.moe is not None:
             kwargs["dp"] = dp
+        if zero is not None:
+            kwargs["zero"] = zero
         logits = m.forward(cfg, params, batch["tokens"], **kwargs)
         if mp is not None and mp.size > 1 and mp.divides(cfg.vocab):
             return vocab_parallel_xent(logits, batch["labels"], mp)
@@ -147,32 +162,36 @@ def _loss_fn(cfg, mp, dp=None) -> Callable:
 
 
 def grad_placements(mesh, specs: Optional[dict] = None, paths=()) -> dict:
-    """{path: the placements its gradient reaches the optimizer with}:
-    ``Partial("avg")`` over the data axes, and on the others the spec's
-    ``Shard`` (``specs``; replicated without them)."""
+    """{path: the placements its gradient reaches the optimizer with}: the
+    spec's ``Shard`` on every axis that splits the leaf (``specs``;
+    replicated without them), ZeRO-3's 'data' included, and
+    ``Partial("avg")`` on the other data axes."""
     dp = dp_axes(mesh)
     rep = (Replicate(),) * mesh.ndim
     out = {}
     for p in paths:
         pl = rep if specs is None else placements(specs[p], mesh)
-        out[p] = tuple(Partial("avg") if a in dp else q
+        out[p] = tuple(Partial("avg") if a in dp and not q.is_shard() else q
                        for a, q in zip(mesh.mesh_dim_names, pl))
     return out
 
 
 def _tp_specs(cfg, mesh, grad_specs) -> dict:
     """The parameters' specs of the tensor-parallel step: ``grad_specs``,
-    or ``param_specs`` of the model on ``mesh``.  A split over a data
-    axis (ZeRO-3) is refused."""
+    or ``param_specs`` of the model on ``mesh``.  A split over a data axis
+    is admitted where ``param_specs(..., zero3=True)`` makes it (ZeRO-3),
+    and refused elsewhere."""
+    shapes = model_fns(cfg).init(cfg, device="meta")
     if grad_specs is None:
-        grad_specs = param_specs(cfg, model_fns(cfg).init(cfg, device="meta"),
-                                 mesh)
+        return param_specs(cfg, shapes, mesh)
+    zero3 = param_specs(cfg, shapes, mesh, zero3=True)
     dp = set(dp_axes(mesh))
     for p, spec in grad_specs.items():
-        if any(a in dp for e in spec for a in entry_axes(e)):
-            raise NotImplementedError(
-                f"{p} is split over a data axis ({spec}): ZeRO-3 is not "
-                "ported (ROADMAP item 6)")
+        for d, e in enumerate(spec):
+            if any(a in dp for a in entry_axes(e)) and e != zero3[p][d]:
+                raise ValueError(
+                    f"{p} is split over a data axis ({spec}) where "
+                    f"param_specs(..., zero3=True) gives {zero3[p]}")
     return grad_specs
 
 
@@ -193,7 +212,8 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                     prestage: Optional[bool] = None,
                     donate: bool = False,
                     device: DeviceLike = None,
-                    grad_specs: Optional[dict] = None):
+                    grad_specs: Optional[dict] = None,
+                    accum_dtype: torch.dtype = torch.float32):
     """Returns ``step(state, batch) -> state`` running on ``device`` (CUDA
     unless given; it must be where ``init_state`` put the parameters).
     With ``mesh`` (the optimizer's), ``batch`` is this rank's rows.
@@ -205,6 +225,13 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
     this rank's parts and each gradient reaches the optimizer placed as
     its spec says.  Given on a model axis of one rank, the step runs the
     tensor-parallel code path, whose collectives are then identities.
+    Specs split over 'data' as ``param_specs(..., zero3=True)`` splits
+    them make the step ZeRO-3 (module docstring; ``state`` from
+    ``init_state(..., zero3=True)``).
+
+    ``accum_dtype`` (the reference's): the dtype the gradients of the
+    ``accum_steps`` microbatches are summed in (and the staged and rest
+    accumulators of the prestaged schedule).
 
     ``pipeline`` overrides ``opt.config.pipeline`` through ``opt.replace``
     (the caller's ``opt`` is untouched).  ``prestage`` forces the
@@ -230,20 +257,20 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
     tensor_parallel = mesh is not None and (
         grad_specs is not None or tp_lib.tensor_parallel(cfg, mesh))
     data = tp_lib.data_parallel(mesh)
+    specs = _tp_specs(cfg, mesh, grad_specs) if tensor_parallel else None
     loss_fn = _loss_fn(cfg, _model_parallel(cfg, mesh)
-                       if tensor_parallel else None, data)
+                       if tensor_parallel else None, data,
+                       tp_lib.zero_shards(mesh, specs))
     # the MoE dispatch spans the data ranks, so they take their rows of
     # the same global microbatch
     regroup = data is not None and cfg.moe is not None and accum_steps > 1
-    specs = shapes = None
+    shapes = None
     if mesh is not None:
         if opt.mesh is not mesh:
             raise ValueError("the optimizer must be built on the step's mesh")
         dp = dp_axes(mesh)
         dp_dims = [i for i, a in enumerate(mesh.mesh_dim_names) if a in dp]
         shapes = dict(tree.flatten(model_fns(cfg).init(cfg, device="meta")))
-        if tensor_parallel:
-            specs = _tp_specs(cfg, mesh, grad_specs)
         grad_pl = grad_placements(mesh, specs, shapes)
     pipe = None
     if prestage:
@@ -271,16 +298,16 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
             return loss.detach(), torch.autograd.grad(loss, leaves)
         micro = split(batch)
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-        grad_acc = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+        grad_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=device)
                     for p in leaves]
         for i in range(accum_steps):
             loss = loss_fn(params, {k: v[i] for k, v in micro.items()})
             grads = torch.autograd.grad(loss, leaves)
             loss_acc += loss.detach()
             for a, g in zip(grad_acc, grads):
-                a += g.float()
+                a += g.to(accum_dtype)
         inv = 1.0 / accum_steps
-        return loss_acc * inv, [g * inv for g in grad_acc]
+        return loss_acc * inv, [g.mul_(inv) for g in grad_acc]
 
     def compute_grads_staged(params, paths, leaves, batch):
         """(loss, staged owner-layout matrix gradients, AdamW gradients):
@@ -293,8 +320,8 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
             {paths[j]: grad_pl[paths[j]] for j in matrix}
         micro = split(batch)
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
-        staged = pipe.zeros_staged(torch.float32)
-        rest_acc = [torch.zeros(leaves[j].shape, dtype=torch.float32,
+        staged = pipe.zeros_staged(accum_dtype)
+        rest_acc = [torch.zeros(leaves[j].shape, dtype=accum_dtype,
                                 device=device) for j in rest]
         inflight = None
         for i in range(accum_steps):
@@ -305,15 +332,15 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                 for k, v in wait_all(inflight).items():
                     staged[k] += v
             inflight = pipe.stage_in_all({paths[j]: grads[j] for j in matrix},
-                                         placements, dtype=torch.float32)
+                                         placements, dtype=accum_dtype)
             for a, j in zip(rest_acc, rest):
-                a += grads[j].float()
+                a += grads[j].to(accum_dtype)
             del grads
         for k, v in wait_all(inflight).items():
             staged[k] += v
         inv = 1.0 / accum_steps
-        return (loss_acc * inv, {k: v * inv for k, v in staged.items()},
-                {paths[j]: a * inv for j, a in zip(rest, rest_acc)})
+        return (loss_acc * inv, {k: v.mul_(inv) for k, v in staged.items()},
+                {paths[j]: a.mul_(inv) for j, a in zip(rest, rest_acc)})
 
     def as_grad(p, g):
         if mesh is None:
@@ -378,8 +405,10 @@ def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
     (``src/repro/train/step.py:226-247``).
 
     Where the step on ``mesh`` is tensor-parallel
-    (``models.tp.tensor_parallel``) the parameters are placed by
-    ``param_specs``: each rank keeps its parts,
+    (``models.tp.tensor_parallel``), or ``zero3`` (the reference's
+    ZeRO-3: ``param_specs(..., zero3=True)``, the block weights split over
+    'data' too; on any mesh of the dense and MoE families), the parameters
+    are placed by ``param_specs``: each rank keeps its parts,
     bitwise the slices of the one-card ``init`` from the same seed,
     drawing one whole leaf at a time on ``device`` (``layers.drawing``:
     the generator's sequence is ``init``'s).  The AdamW moments follow
@@ -387,22 +416,21 @@ def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
     layout (the reference's ``_opt_state_shardings``).  Under any other
     mesh the parameters are replicated: every rank draws them from the
     same seed.
-    A checksum compared across ranks proves either layout.
-    ``zero3`` (the ≥ 340 B policy) is not ported: it raises (ROADMAP
-    item 6)."""
-    if zero3:
-        raise NotImplementedError("ZeRO-3 parameter sharding is not ported "
-                                  "(ROADMAP item 6)")
+    A checksum compared across ranks proves either layout.  Without a
+    mesh ``zero3`` changes nothing, as the reference's."""
     device = resolve_device(device)
     m = model_fns(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    if not tp_lib.tensor_parallel(cfg, mesh):
+    zero3 = zero3 and mesh is not None
+    if zero3:
+        _model_parallel(cfg, mesh)      # the family's split forward
+    if not (zero3 or tp_lib.tensor_parallel(cfg, mesh)):
         params = tree.tree_map(lambda v: v.requires_grad_(True),
                                m.init(cfg, seed, device))
         if mesh is not None:
             _check_replicated(params)
         return TrainState(0, params, opt.init(params), zero)
-    specs = param_specs(cfg, m.init(cfg, device="meta"), mesh)
+    specs = param_specs(cfg, m.init(cfg, device="meta"), mesh, zero3=zero3)
     params = tree.tree_map(lambda v: v.requires_grad_(True),
                            init_parts(cfg, seed, device, specs, mesh))
     _check_replicated(params, specs, mesh)
@@ -453,28 +481,38 @@ def _check_replicated(params, specs: Optional[dict] = None,
                       mesh=None) -> None:
     """Raise unless the parameters are what every rank should hold: a
     float64 sum of the replicated leaves (and their positions) equal
-    across the world, and, under ``specs``, one of the split leaves equal
-    across the ranks that hold the same parts (one coordinate on the
-    model axis)."""
-    split = {} if specs is None else {
-        p for p, s in specs.items() if any(e is not None for e in s)}
+    across the world, and, under ``specs``, for each set of axes that
+    split leaves, a sum of those leaves equal across the ranks that hold
+    the same parts (one coordinate on those axes; under ZeRO-3 on a mesh
+    without a replicated axis no two ranks do)."""
+    by_axes = {}
+    for p, s in (specs or {}).items():
+        axes = tuple(a for a in mesh.mesh_dim_names
+                     if any(a in entry_axes(e) for e in s))
+        if axes:
+            by_axes[p] = axes
+    kinds = [()] + sorted(set(by_axes.values()))
     with torch.no_grad():
         sums = [torch.zeros((), dtype=torch.float64,
-                            device=tree.flatten(params)[0][1].device)] * 2
+                            device=tree.flatten(params)[0][1].device)
+                for _ in kinds]
         for i, (p, v) in enumerate(tree.flatten(params)):
-            j = int(p in split)
+            j = kinds.index(by_axes.get(p, ()))
             sums[j] = sums[j] + v.double().sum() * (i + 1)
-        coord = float(mesh.get_local_rank(mesh.mesh_dim_names.index(
-            "model"))) if split else 0.0
-        mine = torch.stack([sums[0], sums[1],
-                            sums[0].new_tensor(coord)])
-    world = dist.get_world_size()
-    out = mine.new_empty(world * 3)
+        coords = [0.0] * len(kinds)
+        for j, axes in enumerate(kinds):
+            for a in axes:
+                k = mesh.mesh_dim_names.index(a)
+                coords[j] = coords[j] * mesh.size(k) + mesh.get_local_rank(k)
+        mine = torch.stack(sums + [sums[0].new_tensor(c) for c in coords])
+    world, n = dist.get_world_size(), len(kinds)
+    out = mine.new_empty(world * 2 * n)
     dist.all_gather_into_tensor(out, mine)
-    out = out.reshape(world, 3)
-    same_part = out[:, 2] == mine[2]
-    if not bool((out[:, 0] == mine[0]).all()) or \
-            not bool((out[same_part, 1] == mine[1]).all()):
-        raise RuntimeError(f"parameters differ across ranks: checksums "
-                           f"(replicated, split, model rank) "
-                           f"{out.tolist()}")
+    out = out.reshape(world, 2 * n)
+    for j in range(n):
+        same_part = out[:, n + j] == mine[n + j]
+        if not bool((out[same_part, j] == mine[j]).all()):
+            raise RuntimeError(f"parameters differ across ranks: checksums "
+                               f"of the leaves split over {kinds} and "
+                               f"the coordinates on those axes "
+                               f"{out.tolist()}")

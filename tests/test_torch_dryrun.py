@@ -151,3 +151,23 @@ def test_report_rows_equal_reference(cells, monkeypatch):
     want = rreport.roofline_table("single").splitlines()
     assert len(got) == len(want) == 2 + 2
     assert got[2:] == want[2:]
+
+
+def test_big_arch_cell_walks_zero3(tmp_path):
+    """A ``BIG_ARCHS`` train cell (reduced nemotron-4-340b, one layer, on
+    the fake 256-rank world) walks the reference's >= 340 B policy, and
+    its layout detail names ZeRO-3."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "nemotron-4-340b", "--shape", "train_4k", "--mesh", "single",
+         "--reduced", "--layers", "1", "--outdir", str(tmp_path)],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=TIMEOUT_S)
+    assert p.returncode == 0, (p.stdout[-2000:], p.stderr[-2000:])
+    d = json.loads((tmp_path / "single" /
+                    "nemotron-4-340b__train_4k__owner__1layers.json")
+                   .read_text())
+    assert d["ok"], d.get("traceback")
+    assert "nemotron-4-340b" in tdryrun.BIG_ARCHS
+    assert "with ZeRO-3" in d["roofline"]["detail"]["layout"]

@@ -128,3 +128,88 @@ def test_normalize_is_batch_invariant(shape):
                           axis=(-2, -1), keepdims=True))
     np.testing.assert_allclose(tgram.frobenius_norm(x).numpy(), want,
                                rtol=1e-6)
+
+
+def _ill_conditioned(m, n, smallest, seed=0):
+    """A full-rank m×n matrix (m <= n) whose singular values fall
+    geometrically from 1 to ``smallest``."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    v, _ = np.linalg.qr(rng.standard_normal((n, m)))
+    return ((u * np.geomspace(1.0, smallest, m)) @ v.T).astype(np.float32)
+
+
+def _bf16(a):
+    """A JAX bf16 array as the torch bf16 tensor of the same values."""
+    return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+def _least_eigenvalue(g):
+    return float(np.linalg.eigvalsh(np.asarray(g.astype(jnp.float32),
+                                               np.float64))[0])
+
+
+def test_bf16_blow_up_is_the_reference_s():
+    """The >= 340 B policy's Gram NS (``compute_dtype="bfloat16"``) blows
+    up on an ill-conditioned matrix of full rank in the reference, and the
+    port does what the reference does.  Stage by stage, each op of the
+    port on the reference's bf16 operands is held to the reference's
+    result (so the chaos of the blow-up does not hide a fault): a product
+    within one bf16 ulp (2^-7) of the result's largest entry; P = aI + bG
+    + cG² within two of its largest term, as the port rounds each term and
+    sum to bf16 and the reference's compiler may keep them in fp32.  The
+    cause: bf16 rounding gives G₀ = X₀X₀ᵀ
+    negative eigenvalues, though X₀'s singular values are all positive,
+    and each G' = PGP, P = aI + bG + cG², multiplies a small negative
+    eigenvalue by about a² (about 69 at the first step's a, 8.3)."""
+    x = _ill_conditioned(64, 256, 1e-3)
+    jcfg = jgram.GramNSConfig(compute_dtype="bfloat16")
+    tcfg = tgram.GramNSConfig(compute_dtype="bfloat16")
+
+    def close(got, want, scale=None):
+        want = _bf16(want).double()
+        scale = 2.0 ** -7 * float(want.abs().max()) if scale is None \
+            else 2.0 ** -6 * scale
+        assert float((got.double() - want).abs().max()) <= scale
+    jx0, g = jgram.gram_prepare(jnp.asarray(x, jnp.bfloat16), jcfg)
+    tx0, tg = tgram.gram_prepare(torch.from_numpy(x).to(torch.bfloat16),
+                                 tcfg)
+    close(tx0, jx0)
+    close(tg, g)
+    _, jpoly, jsym = jgram._ops(jcfg)
+    _, tpoly, tsym = tgram._ops(tcfg)
+    least, q, coeffs = [_least_eigenvalue(g)], None, jcfg.coeffs()
+    for i, (a, b, c) in enumerate(coeffs):
+        p = jpoly(g, a, b, c)
+        top = float(jnp.abs(g.astype(jnp.float32)).max())
+        square = float(jnp.abs(jsym(g, g).astype(jnp.float32)).max())
+        close(tpoly(_bf16(g), a, b, c), p,
+              max(abs(a), abs(b) * top, abs(c) * square))
+        if q is None:
+            q = p
+        else:
+            close(tsym(_bf16(p), _bf16(q)), jsym(p, q))
+            q = jsym(p, q)
+        if i != len(coeffs) - 1:
+            t = jsym(p, g)
+            close(tsym(_bf16(p), _bf16(t)), jsym(p, t))
+            close(tsym(_bf16(p), _bf16(g)), t)
+            g = jsym(p, t)
+            least.append(_least_eigenvalue(g))
+    close(tgram._rect_dot(_bf16(q), _bf16(jx0)), jgram._rect_dot(q, jx0))
+    assert least[0] < 0, least
+    assert all(b < a for a, b in zip(least, least[1:])), least
+    assert least[-1] < -10, least
+    # end to end: both blow up in bf16, neither in fp32
+    for dtype, floor, ceiling in (("bfloat16", 100.0, None),
+                                  ("float32", None, 1.0)):
+        got = tgram.gram_newton_schulz(
+            torch.from_numpy(x).to(getattr(torch, dtype)),
+            tgram.GramNSConfig(compute_dtype=dtype))
+        want = jgram.gram_newton_schulz(
+            jnp.asarray(x, dtype), jgram.GramNSConfig(compute_dtype=dtype))
+        for top in (float(got.float().abs().max()),
+                    float(jnp.abs(want.astype(jnp.float32)).max())):
+            assert floor is None or top > floor, (dtype, top)
+            assert ceiling is None or top < ceiling, (dtype, top)

@@ -349,13 +349,6 @@ def test_other_families_and_zero3_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         transformer.forward(cfg, params, tokens,
                             tp=tp_lib.ModelParallel(None, 2, 0))
-    from repro_torch.core import api
-    from repro_torch.train.step import init_state
-    small = configs.get("smollm-360m", reduced=True)
-    opt = api.Muon(api.dedicate_params(
-        transformer.init(small, device="meta")), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        init_state(small, opt, device="cpu", zero3=True)
 
 
 def test_param_specs_split_smollm_mid_head():

@@ -67,6 +67,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1054,9 +1055,25 @@ TP_CONFIGS = {
     # 3 layers of 2 experts: at (2, 2) each expert leaf's 6 matrices over
     # 4 owners, so the owner layout pads the E-split stack (``_route``)
     "dsv3e2": ("deepseek-v3-671b", dict(n_layers=3, moe=dict(n_experts=2))),
+    # ZeRO-3 (``zero3``): reduced nemotron-4-340b (4 / 2 heads of 24,
+    # squared-ReLU MLP of 384) with vocab 256, so the head splits; with
+    # remat, so the backward gathers each layer again; and in two
+    # microbatches accumulated in bf16 (``TP_ACCUM_DTYPE``), the
+    # reference's >= 340 B policy; and in two microbatches on the
+    # bucketed schedule (``TP_PIPELINE``), whose prestaging stages each
+    # microbatch's gradients, split over 'data', to the owners
+    "nemo": ("nemotron-4-340b", dict(vocab=256)),
+    "nemoremat": ("nemotron-4-340b", dict(vocab=256, remat=True)),
+    "nemoacc": ("nemotron-4-340b", dict(vocab=256)),
+    "nemostage": ("nemotron-4-340b", dict(vocab=256)),
 }
 # microbatches a step of the configs named (1 for the others)
-TP_ACCUM = {"dsv3acc": 2}
+TP_ACCUM = {"dsv3acc": 2, "nemoacc": 2, "nemostage": 2}
+# the dtype their gradients are accumulated in (float32 for the others)
+TP_ACCUM_DTYPE = {"nemoacc": "bfloat16"}
+# the optimizer's schedule of the configs named (the config's for the
+# others: fused)
+TP_PIPELINE = {"nemostage": "bucketed"}
 TP_STEPS, TP_BATCH, TP_SEQ = 3, 4, 16
 TP_LR, TP_MOMENTUM = 0.02, 0.95
 TP_CKPT = "qwen256"
@@ -1127,13 +1144,16 @@ def tp_muon_config():
                       ns=GramNSConfig(num_steps=NS_STEPS))
 
 
-def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
+def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS,
+             zero3: bool = False):
     """The port's train step of ``name`` from the numpy parameters
     ``params_np``: tensor-parallel over ``mesh`` (its 'model' axis, even of
-    one rank), or in one process without a mesh.  Returns whole tensors:
-    {quantity: {path: tensor}} for ``chip_smoke.tp_gate``, plus the
-    per-step ``loss_ema``, the gradients' placements and whether each
-    AdamW moment is shaped as its parameter's part."""
+    one rank; with ``zero3`` the block weights also split over 'data',
+    ``param_specs(..., zero3=True)``), or in one process without a mesh.
+    Returns whole tensors: {quantity: {path: tensor}} for
+    ``chip_smoke.tp_gate``, plus the per-step ``loss_ema``, the gradients'
+    placements and whether each AdamW moment is shaped as its parameter's
+    part; also the last state and its parts' shapes."""
     import torch
 
     from repro_torch.core import api, tree
@@ -1148,7 +1168,8 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
     plan = api.dedicate_params(shapes, mesh=mesh, strategy="greedy")
     opt = api.Muon(plan, mesh, config=tp_muon_config(), device="cpu")
     full = tree.tree_map(torch.from_numpy, params_np)
-    specs = None if mesh is None else param_specs(cfg, shapes, mesh)
+    specs = None if mesh is None else param_specs(cfg, shapes, mesh,
+                                                  zero3=zero3)
     params = tree.tree_map(lambda v: v.clone().requires_grad_(True), full) \
         if mesh is None else tree.rebuild(full, {
             p: local_part(v, specs[p], mesh).clone().requires_grad_(True)
@@ -1156,8 +1177,10 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
     state = TrainState(0, params, opt.init(
         params if mesh is None else placed_params(params, specs, mesh)),
         torch.zeros(()))
-    step = make_train_step(cfg, opt, mesh, device="cpu", grad_specs=specs,
-                           accum_steps=TP_ACCUM.get(name, 1))
+    step = make_train_step(
+        cfg, opt, mesh, device="cpu", grad_specs=specs,
+        accum_steps=TP_ACCUM.get(name, 1), pipeline=TP_PIPELINE.get(name),
+        accum_dtype=getattr(torch, TP_ACCUM_DTYPE.get(name, "float32")))
     first = {}
     update = opt.update
 
@@ -1188,6 +1211,9 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
     adamw_local = {p: list(v.shape) for p, v in
                    state.opt_state.adamw.mu.items()}
     local = {p: list(v.shape) for p, v in tree.flatten(state.params)}
+    # the prestaged schedule hands the optimizer owner rows, not
+    # gradients: nothing of them is captured
+    first = first or {"grads": {}, "placements": {}, "updates": {}}
     return {"loss": {"": torch.tensor(ema[0])},
             "grads": first["grads"], "updates": first["updates"],
             "params": {p: whole(p, v) for p, v in
@@ -1198,7 +1224,8 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS):
                 p: local[p] for p in adamw_local},
             "specs": None if specs is None else
             {p: list(s) for p, s in specs.items()},
-            "opt_state": state.opt_state, "plan": plan}
+            "opt_state": state.opt_state, "plan": plan, "state": state,
+            "local_shapes": local}
 
 
 def ulp_params(params_np: dict, rng=None) -> dict:
@@ -1480,6 +1507,196 @@ def tp_restore_rank(args) -> None:
         "whole_bytes": sum(w for _, w in made.values())}))
 
 
+CKPT_PARTS = ("train/params", "train/opt_state/adamw/mu",
+              "train/opt_state/adamw/nu")
+CKPT_MOMENTUM = "train/opt_state/momentum"
+
+
+def _split_paths(specs: dict) -> dict:
+    """{checkpoint path: spec} of the leaves a checkpoint holds in parts
+    (``CKPT_PARTS``), as the resilient loop's ``_parts`` places them."""
+    return {f"{pre}/{p}": tuple(spec) for pre in CKPT_PARTS
+            for p, spec in specs.items() if any(e is not None for e in spec)}
+
+
+def _local_shape(shape, spec, mesh) -> tuple:
+    from repro_torch.models.sharding import placements
+    out = list(shape)
+    for i, q in enumerate(placements(spec, mesh)):
+        if q.is_shard():
+            out[q.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def zero3_save(got: dict, mesh, ckpt_dir: Path) -> dict:
+    """Save ``tp_train``'s last state (``got``) with the checkpoint
+    manager, each rank writing its parts of the split leaves
+    (``shard_range``) and its block of the owner rows; returns the whole
+    arrays (rank 0 keeps them): parameters, AdamW moments, momentum rows."""
+    import torch
+
+    from repro_torch.checkpoint.manager import (CheckpointManager, LeafPart,
+                                                RowBlocks, _flatten)
+    from repro_torch.core.owner_comms import OwnerLayout
+    from repro_torch.models.sharding import shard_range
+    state, specs = got["state"], {p: tuple(s) for p, s in
+                                  got["specs"].items()}
+    layout = OwnerLayout(got["plan"], mesh)
+    tree_ = {"train": state._asdict()}
+    placed = _split_paths(specs)
+    leaves: list = []
+    _flatten(tree_, (), leaves)
+    parts = {path: LeafPart(*shard_range(placed[path], mesh,
+                                         tuple(leaf.shape)))
+             for path, leaf in leaves if path in placed}
+    mgr = CheckpointManager(str(ckpt_dir))
+    mgr.save(state.step, tree_, parts=parts, row_blocks=RowBlocks(
+        (CKPT_MOMENTUM,), layout.owner_index(), layout.shards))
+    mgr.wait()
+    out = {}
+    for pre, t in (("train/params", state.params),
+                   ("train/opt_state/adamw/mu", state.opt_state.adamw.mu),
+                   ("train/opt_state/adamw/nu", state.opt_state.adamw.nu)):
+        out.update({f"{pre}/{p}": v for p, v in
+                    whole_np(t, specs, mesh).items()})
+    for k, v in state.opt_state.momentum.items():
+        out[f"{CKPT_MOMENTUM}/{k}"] = layout.gather_rows(v).to(
+            torch.float32).numpy()
+    return out
+
+
+def zero3_rank(args) -> None:
+    """ZeRO-3 (``param_specs(..., zero3=True)``) on a ("data", "model")
+    mesh: each of ``args.configs`` trained ``TP_STEPS`` steps from
+    ``tp_params`` on ``tp_batch`` by ``tp_train(..., zero3=True)``:
+    loss_ema per step, step 1's gradients' placements, the last
+    parameters (rank 0), each leaf's part as a share of the whole, AdamW
+    moments shaped as the parts, ``padded_owner_checks``, and
+    ``init_state(..., zero3=True)``'s parts bitwise the slices of the
+    one-process ``init``.  On a mesh of one rank also the one-process
+    step of each, and whether the two agree bitwise.  ``--ckpt NAME``:
+    that config's last state checkpointed into DIR/ckpt (``zero3_save``),
+    its whole arrays saved beside."""
+    import torch
+
+    from repro_torch.core import api, tree
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import local_part, param_specs
+    from repro_torch.train.step import init_state
+
+    mesh = _setup(args)
+    info, arrays = {"rank": args.rank, "configs": {}}, {}
+    for name in args.configs.split(","):
+        cfg = tp_config(name)
+        params_np = tp_params(name)
+        got = tp_train(name, mesh, params_np, zero3=True)
+        shapes = transformer.init(cfg, device="meta")
+        whole_shapes = {p: v.shape for p, v in tree.flatten(shapes)}
+        row = {"ema": got["ema"], "placements": got["placements"],
+               "specs": got["specs"],
+               "adamw_local_shapes": got["adamw_local_shapes"],
+               "share": {p: math.prod(s) / math.prod(whole_shapes[p])
+                         for p, s in got["local_shapes"].items()}}
+        row.update(padded_owner_checks(cfg, got["plan"], got["opt_state"],
+                                       mesh))
+        opt = api.Muon(api.dedicate_params(shapes, mesh=mesh), mesh,
+                       config=tp_muon_config(), device="cpu")
+        st = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh,
+                        zero3=True)
+        specs = param_specs(cfg, shapes, mesh, zero3=True)
+        whole = dict(tree.flatten(transformer.init(cfg, 0, "cpu")))
+        row["init_parts_bitwise"] = all(
+            torch.equal(v.detach(), local_part(whole[p], specs[p], mesh))
+            for p, v in tree.flatten(st.params))
+        if args.rank == 0:
+            arrays.update({f"{name}/params/{p}": v.numpy()
+                           for p, v in got["params"].items()})
+            arrays.update({f"{name}/grads/{p}": v.to(torch.float32).numpy()
+                           for p, v in got["grads"].items()
+                           if TP_ACCUM.get(name, 1) == 1})
+        if mesh.size() == 1:
+            one = tp_train(name, None, params_np)
+            row["single_ema"] = one["ema"]
+            row["single_bitwise"] = one["ema"] == got["ema"] and all(
+                torch.equal(v, got["params"][p])
+                for p, v in one["params"].items())
+        if name == args.ckpt:
+            saved = zero3_save(got, mesh, Path(args.out) / "ckpt")
+            if args.rank == 0:
+                arrays.update({f"ckpt/{k}": v for k, v in saved.items()})
+        info["configs"][name] = row
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def zero3_restore_rank(args) -> None:
+    """Restore ``zero3``'s checkpoint of ``--ckpt`` (DIR's parent/ckpt) on
+    this mesh, each rank asking for its ZeRO-3 part of every split leaf
+    alone: whether each part is bitwise its slice of the saved whole
+    array, every other leaf (the owner rows reassembled whole) bitwise the
+    saved one, and the bytes each array read made on this rank's host
+    beside the whole leaf's.  Rank 0 also restores in one process (every
+    leaf whole) and compares the same way."""
+    import torch
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.checkpoint.manager import CheckpointManager, _flatten
+    from repro_torch.models import transformer
+    from repro_torch.models.sharding import param_specs, shard_range
+
+    mesh = _setup(args)
+    parent = Path(args.out).parent
+    saved = {k[len("ckpt/"):]: v for k, v in
+             np.load(parent / "rank0.npz").items() if k.startswith("ckpt/")}
+    cfg = tp_config(args.ckpt)
+    specs = param_specs(cfg, transformer.init(cfg, device="meta"), mesh,
+                        zero3=True)
+    placed = {p: spec for p, spec in _split_paths(specs).items()
+              if p in saved}
+    regions = {}
+    for path, spec in placed.items():
+        local = _local_shape(saved[path].shape, spec, mesh)
+        regions[path] = (shard_range(spec, mesh, local)[1], local)
+    made = {}
+    assemble = manager._assemble
+
+    def counted(d, meta, *region):
+        arr = assemble(d, meta, *region)
+        made[meta["file"]] = [int(arr.nbytes),
+                              int(np.prod(meta["shape"])) * arr.itemsize]
+        return arr
+
+    def compare(got_tree, parts) -> dict:
+        leaves: list = []
+        _flatten(got_tree, (), leaves)
+        out = {}
+        for path, v in leaves:
+            if path not in saved:
+                continue
+            want = saved[path]
+            if path in parts:
+                start, shape = parts[path]
+                want = want[tuple(slice(a, a + n)
+                                  for a, n in zip(start, shape))]
+            out[path] = bool(np.array_equal(
+                v.detach().to(torch.float32).numpy(), want))
+        return out
+    manager._assemble = counted
+    try:
+        mgr = CheckpointManager(str(parent / "ckpt"))
+        got = mgr.restore(parts=regions, device="cpu")
+    finally:
+        manager._assemble = assemble
+    info = {"rank": args.rank, "bitwise": compare(got, regions),
+            "read": {p: made[manager._leaf_file(p)] for p in placed},
+            "compared": sorted(saved)}
+    if args.rank == 0:
+        whole = CheckpointManager(str(parent / "ckpt")).restore(device="cpu")
+        info["single_bitwise"] = compare(whole, {})
+    np.savez(Path(args.out) / f"rank{args.rank}.npz")
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
 # expert-split leaves (L, E, m, n), E split over "model": 6, 2, 8 and 14
 # matrices over the 4 owners of a (2, 2) mesh (padded, or whole blocks)
 PAD_LEAVES = {"a": (3, 2, 8, 12), "b": (1, 2, 12, 8), "c": (2, 4, 8, 8),
@@ -1631,10 +1848,14 @@ def optim_rank(args) -> None:
 
 def jax_tp_reference(args) -> None:
     """The reference's sharded train step (``init_state``'s placements,
-    ``make_train_step(..., grad_specs=param_specs(...))``) of each of
-    ``args.configs`` on an Auto-axis mesh of ``args.mesh``, from
-    ``tp_params`` on ``tp_batch``, ``TP_STEPS`` steps: loss_ema per step
-    and the last parameters, into ``jax.npz``."""
+    ``make_train_step(..., grad_specs=param_specs(...))``; with
+    ``--zero3`` ``param_specs(..., zero3=True)``, and the accumulation
+    dtype of ``TP_ACCUM_DTYPE``) of each of ``args.configs`` on an
+    Auto-axis mesh of ``args.mesh``, from ``tp_params`` on ``tp_batch``,
+    ``TP_STEPS`` steps: loss_ema per step and the last parameters, into
+    ``jax.npz``; with ``--zero3`` also, for a config of one microbatch, the
+    gradients of step 1's loss (the reference's sharded loss function on
+    the placed parameters)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType, NamedSharding, PartitionSpec as Pspec
@@ -1643,7 +1864,7 @@ def jax_tp_reference(args) -> None:
     from repro.core.gram_ns import GramNSConfig
     from repro.core.muon import MuonConfig
     from repro.models.sharding import batch_spec, param_specs
-    from repro.train.step import make_train_step
+    from repro.train.step import make_loss_fn, make_train_step
     from repro.train.train_state import TrainState
 
     n = int(np.prod(args.mesh))
@@ -1654,7 +1875,7 @@ def jax_tp_reference(args) -> None:
     for name in args.configs.split(","):
         cfg = tp_config(name, jax=True)
         params = jax.tree.map(jnp.asarray, tp_params(name))
-        specs = param_specs(cfg, params, mesh)
+        specs = param_specs(cfg, params, mesh, zero3=args.zero3)
         params = jax.device_put(params, jax.tree.map(
             lambda s: NamedSharding(mesh, s), specs,
             is_leaf=lambda x: isinstance(x, Pspec)))
@@ -1665,13 +1886,22 @@ def jax_tp_reference(args) -> None:
         state = TrainState(jnp.zeros((), jnp.int32), params,
                            jax.jit(opt.init)(params),
                            jnp.zeros((), jnp.float32))
-        step = make_train_step(cfg, opt, mesh, grad_specs=specs,
-                               accum_steps=TP_ACCUM.get(name, 1))
+        step = make_train_step(
+            cfg, opt, mesh, grad_specs=specs,
+            accum_steps=TP_ACCUM.get(name, 1), pipeline=TP_PIPELINE.get(name),
+            accum_dtype=getattr(jnp, TP_ACCUM_DTYPE.get(name, "float32")))
         ema = []
         for i in range(TP_STEPS):
             batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(
                 mesh, Pspec(*batch_spec(mesh, TP_BATCH), None)))
                 for k, v in tp_batch(name, i).items()}
+            if i == 0 and args.zero3 and TP_ACCUM.get(name, 1) == 1:
+                grads = jax.jit(jax.grad(make_loss_fn(cfg, mesh)))(
+                    state.params, batch)
+                for kp, v in jax.tree_util.tree_leaves_with_path(grads):
+                    path = "/".join(str(getattr(k, "key", k)) for k in kp)
+                    arrays[f"{name}/grads/{path}"] = np.asarray(
+                        jax.device_get(v))
             state = step(state, batch)
             ema.append(float(state.loss_ema))
         arrays[f"{name}/ema"] = np.asarray(ema)
@@ -1686,12 +1916,16 @@ def main() -> None:
     ap.add_argument("mode", choices=("owner", "train", "variants", "pipeline",
                                      "checkpoint", "restore", "moe", "jax",
                                      "jax_moe", "tp", "tp_restore",
-                                     "jax_tp", "optim", "owner_pad"))
+                                     "jax_tp", "optim", "owner_pad",
+                                     "zero3", "zero3_restore"))
     ap.add_argument("--configs", default=",".join(TP_CONFIGS),
                     help="tp / jax_tp: comma-separated TP_CONFIGS names")
     ap.add_argument("--ckpt", default="",
                     help="tp / tp_restore: the TP_CONFIGS name to "
                          "checkpoint (tp: on this mesh) and restore")
+    ap.add_argument("--zero3", action="store_true",
+                    help="jax_tp: the ZeRO-3 specs (param_specs(..., "
+                         "zero3=True))")
     ap.add_argument("--train-only", action="store_true",
                     help="tp: the training runs alone (no one-process "
                          "references, Functions or checkpoint)")
@@ -1715,7 +1949,8 @@ def main() -> None:
          "checkpoint": checkpoint_rank, "restore": restore_rank,
          "moe": moe_rank, "tp": tp_rank,
          "tp_restore": tp_restore_rank, "optim": optim_rank,
-         "owner_pad": owner_pad_rank}[args.mode](args)
+         "owner_pad": owner_pad_rank, "zero3": zero3_rank,
+         "zero3_restore": zero3_restore_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
