@@ -12,10 +12,11 @@ Phases, each printing one JSON line and asserting what it checks:
   kernels  each Hopper kernel against its plain PyTorch version on the card
            at the slice's shapes, plus bf16 (``BF16_GATE``: 2^-7 of the
            largest entry off the diagonal and on it apart, against the
-           plain version's fp32 product), unaligned (the fp32
-           pad path: syrk (2, 101, 211), symmul m = 198) and
-           block-invariance cases, on inputs whose products are O(1) so the
-           tolerance is small against every term of each product
+           plain version's fp32 product), unaligned (the pad path, fp32
+           and bf16: syrk (2, 101, 211), symmul m = 198), a bf16 symmul
+           whose B is not symmetric, and block-invariance cases (both
+           pairs of each input type), on inputs whose products are O(1)
+           so the tolerance is small against every term of each product
            (asserted).  Every fp32 product (3xTF32 on the tensor cores)
            must be within 5e-6 · max|exact| of the exact (float64)
            product, which one TF32 pass misses by >= 10x (asserted on the
@@ -27,9 +28,15 @@ Phases, each printing one JSON line and asserting what it checks:
            fp32.  Times the kernel, the plain version and one
            ``torch.matmul`` of the same product (a yardstick only, never
            called by the port), beside the tensor-core bound and the bound
-           of fp32 FFMA outside them.
+           of fp32 FFMA outside them.  Then the bf16 kernels at
+           nemotron-4-340b's owner shapes on (2, 2) (``owner_kernels``:
+           SYRK (1, 18432, 73728), (1, 18432, 18432), (1, 1536, 18432),
+           symmul and gram_poly at m = 18432 and 1536; median of 5), the
+           >= 340 B policy's Gram NS, as the four-card zero3 phase
+           prints them.
   blocks   every candidate block pair timed at the slice's shapes (the
-           autotuner's measured backend), beside the analytical choice.
+           autotuner's measured backend), beside the analytical choice;
+           the bf16 pairs at nemotron's owner shapes too.
   gram_ns  Gram NS with the kernels against the plain path (1e-4) and
            against standard NS (2e-3), at (32, 960, 2560) and (3, 64, 192);
            the per-matrix Frobenius normalization timed beside one batched
@@ -631,12 +638,13 @@ def exact_gram_poly(g, coeffs):
 def kernel_cases(torch, gen):
     """(kernel name, shape, dtype, tol, kernel fn, plain fn, library fn,
     product term, one-TF32-pass fn or None, exact fn or None) at the
-    slice's shapes, plus bf16 and unaligned cases.  The product term is
-    what the kernel's product adds to the output: all of it for syrk and
-    symmul, c·G² for gram_poly.  ``tol`` is ``parts`` (``BF16_GATE``)
-    against the plain version's fp32 product (the exact fn of bf16), or
-    ``scaled`` against the exact product for the fp32 tensor-core
-    products."""
+    slice's shapes, plus bf16, unaligned (fp32 and bf16: the pad path)
+    and one bf16 symmul whose B is not symmetric (``nonsymmetric_case``).
+    The product term is what the kernel's product adds to the output: all
+    of it for syrk and symmul, c·G² for gram_poly.  ``tol`` is ``parts``
+    (``BF16_GATE``) against the plain version's fp32 product (the exact fn
+    of bf16), or ``scaled`` against the exact product for the fp32
+    tensor-core products."""
     from repro_torch.core.coefficients import get_coefficients
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain, syrk_tf32_emulated
@@ -656,7 +664,8 @@ def kernel_cases(torch, gen):
                               ((32, 80, 960), torch.float32, tc32),
                               ((8, 320, 960), torch.bfloat16, bf16),
                               ((2, 100, 212), torch.float32, tc32),
-                              ((2, 101, 211), torch.float32, tc32)]:
+                              ((2, 101, 211), torch.float32, tc32),
+                              ((2, 101, 211), torch.bfloat16, bf16)]:
         tc = dtype == torch.float32
         x = (syrk_inputs(torch, gen, *shape) if tc else
              gram_inputs(torch, gen, *shape, dtype, coeffs)[0])
@@ -675,7 +684,8 @@ def kernel_cases(torch, gen):
                                ((32, 80), torch.float32, tc32),
                                ((8, 320), torch.bfloat16, bf16),
                                ((2, 200), torch.float32, tc32),
-                               ((2, 198), torch.float32, tc32)]:
+                               ((2, 198), torch.float32, tc32),
+                               ((2, 198), torch.bfloat16, bf16)]:
         _, g, p = gram_inputs(torch, gen, b, m, 2 * m, dtype, coeffs)
         tc = dtype == torch.float32
         cases.append(("symmul_plain", (b, m, m), dtype, tol,
@@ -702,7 +712,26 @@ def kernel_cases(torch, gen):
                       (lambda g=g: symmul_plain(
                           g, g, epilogue="gram_poly", coeffs=coeffs,
                           out_dtype=torch.float32))))
+    cases.append(nonsymmetric_case(torch, gen, 4, 328))
     return cases
+
+
+def nonsymmetric_case(torch, gen, b, m):
+    """A ``kernel_cases`` tuple of bf16 symmul whose B is not symmetric, so
+    A·B differs from A·Bᵀ everywhere (the Gram products' symmetric P and G
+    cannot tell them apart): A Gaussian, B Gaussian / sqrt(m), products
+    O(1); under ``BF16_GATE``.  A kernel that read B's MN-major slices
+    transposed fails it.  m = 328 leaves a ragged last tile."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.symmul import symmul_plain
+    a = torch.randn(b, m, m, generator=gen, device=gen.device)
+    bb = torch.randn(b, m, m, generator=gen, device=gen.device) / math.sqrt(m)
+    a, bb = a.to(torch.bfloat16), bb.to(torch.bfloat16)
+    return ("symmul_plain", (b, m, m), torch.bfloat16,
+            dict(parts=BF16_GATE, b_symmetric=False),
+            lambda: ops.symmul(a, bb), lambda: symmul_plain(a, bb),
+            lambda: torch.matmul(a, bb), lambda: symmul_plain(a, bb), None,
+            lambda: symmul_plain(a, bb, out_dtype=torch.float32))
 
 
 def check_kernel_case(torch, case, reps: int = 10) -> dict:
@@ -775,7 +804,7 @@ def phase_kernels(torch) -> dict:
     coeffs = get_coefficients("polar_express", 5)[0]
     x = syrk_inputs(torch, gen, 4, 320, 960)
     _, g, _ = gram_inputs(torch, gen, 4, 320, 960, torch.float32, coeffs)
-    pairs = list(autotune.INSTANTIATED_BLOCKS)
+    pairs = list(autotune.INSTANTIATED_BLOCKS[4])
     for name, fn, plain in [
             ("gram_syrk", lambda bm, bk: ops.syrk(x, block_m=bm, block_k=bk),
              lambda: syrk_plain(x)),
@@ -791,12 +820,45 @@ def phase_kernels(torch) -> dict:
         emit({"phase": "kernels", "check": "block_invariance",
               "kernel": name, "blocks": [list(pair) for pair in pairs],
               "max_err": max(errs)})
+
+    # the bf16 pairs, each by parts against the plain version's fp32
+    # product (symmul's B not symmetric; m = 328 leaves a ragged tile)
+    xb = gram_inputs(torch, gen, 4, 328, 960, torch.bfloat16, coeffs)[0]
+    ab = torch.randn(4, 328, 328, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bb = xb[..., :328]
+    for name, fn, plain in [
+            ("gram_syrk", lambda bm, bk: ops.syrk(xb, block_m=bm, block_k=bk),
+             lambda: syrk_plain(xb, out_dtype=torch.float32)),
+            ("symmul_plain",
+             lambda bm, bk: ops.symmul(ab, bb, block_m=bm, block_k=bk),
+             lambda: symmul_plain(ab, bb, out_dtype=torch.float32))]:
+        want = ref.mirror_lower(plain())
+        pairs = list(autotune.INSTANTIATED_BLOCKS[2])
+        parts = [check_parts(f"{name} bf16 block {pair}", fn(*pair), want,
+                             want, BF16_GATE) for pair in pairs]
+        emit({"phase": "kernels", "check": "block_invariance",
+              "kernel": name, "dtype": "bfloat16",
+              "blocks": [list(pair) for pair in pairs],
+              "max_err": max(max(r["max_err_offdiag"], r["max_err_diag"])
+                             for r in parts)})
+
+    # nemotron-4-340b's owner shapes on (2, 2) in bf16, the >= 340 B
+    # policy's Gram NS: the rows the four-card zero3 phase prints, here on
+    # one card (the 73728-long contraction held and timed)
+    del x, g, xb, ab, bb, want
+    torch.cuda.empty_cache()
+    owner_kernels(torch, nemo_config(2, NEMO_VOCAB // 2), NEMO_MESH,
+                  {"phase": "kernels", "arch": NEMO, "n_layers": 2},
+                  dtype=torch.bfloat16, reps=NEMO_KERNEL_REPS)
     return summary
 
 
 def phase_blocks(torch) -> None:
     """Every candidate block pair timed at the main path's shapes (the
-    autotuner's ``measured`` backend), beside the analytical choice."""
+    autotuner's ``measured`` backend), beside the analytical choice; then
+    the bf16 pairs at nemotron-4-340b's owner shapes (batch 1), the
+    >= 340 B policy's."""
     from repro_torch.kernels import autotune
     for mode, m, k in [("syrk", 960, 2560), ("syrk", 960, 960),
                        ("syrk", 320, 960), ("symmul", 960, 960),
@@ -812,6 +874,20 @@ def phase_blocks(torch) -> None:
               "ms": ms, "measured_best": min(ms, key=ms.get),
               "analytical": "x".join(map(str, autotune.lookup(
                   mode, m, k, "float32", arch=autotune.device_arch("cuda"))))})
+    for mode, m, k in [("syrk", 18432, 73728), ("syrk", 18432, 18432),
+                       ("syrk", 1536, 18432), ("symmul", 18432, 18432),
+                       ("gram_poly", 18432, 18432), ("symmul", 1536, 1536),
+                       ("gram_poly", 1536, 1536)]:
+        ms = {f"{bm}x{bk}": autotune.measure_cuda(mode, bm, bk, m, k,
+                                                  "bfloat16", batch=1, reps=5)
+              for bm, bk in autotune.candidate_blocks(mode, m, k, 2)}
+        torch.cuda.empty_cache()
+        emit({"phase": "blocks", "mode": mode, "dtype": "bfloat16",
+              "batch": 1, "m": m, "k": k, "ms": ms,
+              "measured_best": min(ms, key=ms.get),
+              "analytical": "x".join(map(str, autotune.lookup(
+                  mode, m, k, "bfloat16",
+                  arch=autotune.device_arch("cuda"))))})
 
 
 # ----------------------------------------------------------------- gram ns
@@ -4124,10 +4200,10 @@ def gram_kernel_cases(torch, gen, syrk_shapes, gram_shapes, dtype=None):
 
 
 def bf16_gram_cases(torch, gen, syrk_shapes, gram_shapes, coeffs):
-    """``gram_kernel_cases`` in bf16 (the FFMA mainloop, as the >= 340 B
-    policy's Gram NS runs): each kernel against its plain version's fp32
-    product by parts (``BF16_GATE``), the library product one bf16
-    ``torch.matmul``."""
+    """``gram_kernel_cases`` in bf16 (the bf16 wgmma mainloop, as the
+    >= 340 B policy's Gram NS runs): each kernel against its plain
+    version's fp32 product by parts (``BF16_GATE``), the library product
+    one bf16 ``torch.matmul``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.gram_syrk import syrk_plain
     from repro_torch.kernels.symmul import symmul_plain

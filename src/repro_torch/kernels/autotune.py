@@ -2,11 +2,13 @@
 persistent cache (port of ``repro.kernels.autotune``, paper §3.3, Fig. 6).
 
 The search space is the (block_m, block_k) pairs the CUDA kernels are
-instantiated for (``INSTANTIATED_BLOCKS``; csrc/*.cu dispatch on exactly
-these) that fit the 227 KB of shared memory a Hopper block may use.  Two
-mainloops sit behind them, with their own footprint and cost: fp32 syrk,
-symmul and gram_poly run 3xTF32 on the tensor cores (csrc/tf32_lower.cuh);
-bf16 inputs run FFMA register tiles (csrc/lower_tiles.cuh).
+instantiated for, per input type (``INSTANTIATED_BLOCKS``; csrc/*.cu
+dispatch on exactly these) that fit the 227 KB of shared memory a Hopper
+block may use.  Two tensor-core mainloops sit behind them, with their own
+footprint and cost: fp32 syrk, symmul and gram_poly run 3xTF32
+(csrc/tf32_lower.cuh), bf16 inputs one bf16 wgmma pass fed by a producer
+warp (csrc/bf16_lower.cuh).  Either way block_k is one 128-byte swizzle row
+of the input type (``slice_k``).
 
 Two backends:
   * ``analytical`` — padded lower-tile work times the mainloop's per-tile
@@ -36,10 +38,17 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-# (block_m, block_k) pairs the CUDA kernels are compiled for.
-INSTANTIATED_BLOCKS = ((64, 32), (128, 32))
+# (block_m, block_k) pairs the CUDA kernels are compiled for, by the bytes
+# of an input element: fp32 (3xTF32) and bf16 (bf16 wgmma).
+INSTANTIATED_BLOCKS = {4: ((64, 32), (128, 32)), 2: ((128, 64), (192, 64))}
 SMEM_BYTES = 232_448            # dynamic shared memory a Hopper block may use
-THREADS = 256                   # FFMA threads per block (16 x 16 micro-tile grid)
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+BF16_STAGES = {128: 6, 192: 4}  # csrc/bf16_lower.cuh's Bf16Cfg<bm>: ring stages
+# bf16 time a product of a tile on a grid that fills the card, against the
+# 192-row tile's (exact in binary): 128-row tiles read 1.5x the operand
+# bytes a product, and took 1.35-2.4x the time at nemotron-4-340b's
+# m = 18432 (chip_smoke.py's blocks phase on an H100, PERF.md §6)
+BF16_TILE_COST = {128: 1.5, 192: 1.0}
 
 CACHE_PATH = str(Path(__file__).resolve().parents[3] / "build"
                  / "repro_torch" / "autotune.json")
@@ -101,73 +110,82 @@ def _save(path: str) -> None:
         pass
 
 
+def slice_k(dtype_bytes: int) -> int:
+    """The kernels' block_k: one 128-byte swizzle row of the input type."""
+    return 128 // dtype_bytes
+
+
 def tensor_core_path(mode: str, dtype_bytes: int) -> bool:
-    """fp32 syrk, symmul and gram_poly run 3xTF32 on the tensor cores; bf16
-    inputs run the FFMA mainloop."""
-    return mode in ("syrk", "symmul", "gram_poly") and dtype_bytes == 4
+    """syrk, symmul and gram_poly run on the tensor cores in both input
+    types: 3xTF32 for fp32, one bf16 wgmma pass for bf16."""
+    return mode in ("syrk", "symmul", "gram_poly") and dtype_bytes in (2, 4)
 
 
 def smem_bytes(mode: str, bm: int, bk: int, dtype_bytes: int = 4) -> int:
-    """Dynamic shared memory of one block.
+    """Dynamic shared memory of one block (the same for syrk, symmul and
+    gram_poly).
 
-    * tensor cores (csrc/tf32_lower.cuh, ``Tf32Cfg``; the same for syrk,
-      symmul and gram_poly): a ring of raw A and B slices (3 stages at
-      bm = 128, 2 at bm = 64), one split buffer {B big, B small} (A's split
-      stays in registers), one mbarrier a stage and 1 KB of alignment
-      slack;
-    * FFMA (csrc/lower_tiles.cuh): two BK x (BM + 1) fp32 slices or the
-      BM x (BM + 1) transpose buffer, whichever is larger; operands are
-      staged as fp32 whatever their type.
+    * fp32 (csrc/tf32_lower.cuh, ``Tf32Cfg``): a ring of raw A and B
+      slices (3 stages at bm = 128, 2 at bm = 64), one split buffer
+      {B big, B small} (A's split stays in registers), one mbarrier a stage
+      and 1 KB of alignment slack;
+    * bf16 (csrc/bf16_lower.cuh, ``Bf16Cfg``): a ring of A and B slices
+      (``BF16_STAGES``: 6 at bm = 128, 4 at 192), a full and an empty
+      mbarrier a stage and 1 KB of alignment slack.
     """
-    if tensor_core_path(mode, dtype_bytes):
-        tile = bm * bk * 4
-        stages = 3 if bm == 128 else 2
-        return stages * 2 * tile + 2 * tile + stages * 8 + 1024
-    return 4 * max(2 * bk * (bm + 1), bm * (bm + 1))
+    tile = bm * bk * dtype_bytes
+    if dtype_bytes == 2:
+        stages = BF16_STAGES[bm]
+        return stages * 2 * tile + 2 * stages * 8 + 1024
+    stages = 3 if bm == 128 else 2
+    return stages * 2 * tile + 2 * tile + stages * 8 + 1024
 
 
 def candidate_blocks(mode: str, m: int, k: int, dtype_bytes: int = 4
                      ) -> Iterable[tuple[int, int]]:
-    """Instantiated (block_m, block_k) pairs whose ``mode`` mainloop fits a
-    block's shared memory."""
-    return [(bm, bk) for bm, bk in INSTANTIATED_BLOCKS
+    """Instantiated (block_m, block_k) pairs of the input type whose
+    ``mode`` mainloop fits a block's shared memory."""
+    return [(bm, bk) for bm, bk in INSTANTIATED_BLOCKS[dtype_bytes]
             if smem_bytes(mode, bm, bk, dtype_bytes) <= SMEM_BYTES]
 
 
 def analytical_score(mode: str, bm: int, bk: int, m: int, k: int,
                      dtype_bytes: int = 4) -> float:
-    """Lower is better: padded work times the mainloop's per-tile cost.
+    """Lower is better: padded work times the mainloop's cost a product.
 
     * padded work — the lower tiles of a ceil(m/bm)-block grid over
       ceil(k/bk) slices, relative to the m(m+1)/2 · k products needed;
-    * FFMA register tile — a thread's (bm/16)² micro-tile does (bm/16)²
-      FFMA per 2·bm/16 shared-memory reads, so the cost per FFMA is
-      1 + 2/(bm/16);
-    * tensor-core tile — no factor: a 64-row block leaves room for four
+    * fp32 (3xTF32) — no other factor: a 64-row block leaves room for four
       blocks an SM, whose splits and products overlap, so the larger tile
-      saves nothing per product.
+      saves nothing per product;
+    * bf16 (one block an SM) — the tile's cost a product on a full card
+      (``BF16_TILE_COST``), times the share of the card one matrix's lower
+      tiles leave idle when they are fewer than its ``SMS`` SMs.
 
-    The factors are exact in binary, so equal scores compare equal; a tie
-    goes to the larger tile on the FFMA path (its cost per product falls
-    with the tile) and to the smaller on the tensor cores (more blocks an SM
-    overlap, and 128×32 never won there on the card).  On the slice's shapes
-    the rule picks the measured winners of chip_smoke.py's blocks phase on
-    an H100: 64×32 for every fp32 product (syrk, symmul, gram_poly) at
-    m = 960 and m = 320, since 960 = 15 · 64 while the 128-row grid pads
-    20% more work (60% at m = 320).
+    The factors are exact in binary or equal for equal grids, so equal
+    scores compare equal; a tie goes to the smaller tile in fp32 (more
+    blocks an SM overlap, and 128×32 never won there on the card) and to
+    the larger in bf16.  On the slice's shapes the rule picks the measured
+    winners of chip_smoke.py's blocks phase on an H100: 64×32 for every
+    fp32 product (syrk, symmul, gram_poly) at m = 960 and m = 320, since
+    960 = 15 · 64 while the 128-row grid pads 20% more work (60% at
+    m = 320); in bf16 192×64 at nemotron-4-340b's m = 18432 and 128×64 at
+    its m = 1536 (36 tiles of 192 rows against 78 of 128).
     """
     nb = -(-m // bm)
     nk = -(-k // bk)
-    padded = nb * (nb + 1) // 2 * bm * bm * nk * bk
-    tile = (1.0 if tensor_core_path(mode, dtype_bytes)
-            else 1.0 + 2.0 / (bm // 16))
-    return padded * tile / (m * (m + 1) / 2.0 * k)
+    tiles = nb * (nb + 1) // 2
+    padded = tiles * bm * bm * nk * bk
+    cost = 1.0
+    if dtype_bytes == 2:
+        cost = BF16_TILE_COST[bm] * max(1.0, SMS / tiles)
+    return padded * cost / (m * (m + 1) / 2.0 * k)
 
 
 def tie_break(mode: str, block: tuple[int, int], dtype_bytes: int = 4) -> int:
-    """Second sort key of equal scores: larger tile first on the FFMA
-    path, smaller first on the tensor cores (see ``analytical_score``)."""
-    return block[0] if tensor_core_path(mode, dtype_bytes) else -block[0]
+    """Second sort key of equal scores: smaller tile first in fp32, larger
+    first in bf16 (see ``analytical_score``)."""
+    return -block[0] if dtype_bytes == 2 else block[0]
 
 
 def tune(mode: str, m: int, k: int, dtype: str = "float32", *,

@@ -24,10 +24,17 @@
 // TMA needs 16-byte row strides and the epilogue's vector stores m % 4 == 0,
 // so the wrapper zero-pads m and n to multiples of 4.
 //
-// bf16 inputs (bf16 or fp32 output) are not on the main path and keep the
-// FFMA mainloop of lower_tiles.cuh (syrk_ffma_kernel: fp32 FFMA, each
-// thread's BM/16 x BM/16 accumulator in registers, ragged m and n masked),
-// by an explicit dispatch on dtype in gram_syrk_lower below.
+// bf16 inputs (bf16 or fp32 output; the Gram NS of the >= 340 B policy,
+// GramNSConfig(compute_dtype="bfloat16")): syrk_bf16_kernel, one bf16 wgmma
+// pass a product.  Bound: operations, m²n FLOPs (half of 2m²n) at 989
+// TFLOP/s, 25.3 ms for nemotron-4-340b's (1, 18432, 73728) against 2.7 GB
+// moved.  Design (bf16_lower.cuh): square tiles of 192 rows (128 where 192
+// leaves SMs idle) in an L2-friendly order; a producer warp keeps a TMA
+// ring of 64-deep slices of X's rows i·BM and j·BM in flight (one box on a
+// diagonal tile), both K-major, and the consumer warpgroups run four wgmma
+// m64nBMk16 a slice from shared memory with one group in flight.  The
+// wrapper zero-pads m and n to multiples of 8 (TMA's 16-byte row strides).
+#include "bf16_lower.cuh"
 #include "tf32_lower.cuh"
 
 namespace {
@@ -57,56 +64,46 @@ int launch_tf32(const void* x, void* out, int batch, int m, int n, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ bf16 inputs (FFMA)
+// ------------------------------------------------------------ bf16 (wgmma)
 
-template <typename T, typename O, int BM, int BK>
-__global__ void __launch_bounds__(lt::kThreads)
-syrk_ffma_kernel(const T* __restrict__ x, O* __restrict__ out, int m, int n) {
-  extern __shared__ float smem[];
-  float* xi = smem;
-  float* xj = smem + BK * (BM + 1);
-  int ti, tj;
-  lt::tile_of(blockIdx.x, ti, tj);
-  const T* xb = x + (size_t)blockIdx.y * m * n;
-  O* ob = out + (size_t)blockIdx.y * m * m;
-
-  float acc[BM / 16][BM / 16];
-#pragma unroll
-  for (int u = 0; u < BM / 16; ++u)
-#pragma unroll
-    for (int v = 0; v < BM / 16; ++v) acc[u][v] = 0.0f;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    lt::load_k_contiguous<T, BM, BK>(xi, xb, m, n, n, ti * BM, k0);
-    lt::load_k_contiguous<T, BM, BK>(xj, xb, m, n, n, tj * BM, k0);
-    __syncthreads();
-    lt::mma_slice<BM, BK>(xi, xj, acc);  // X_i · X_jᵀ
-    __syncthreads();
-  }
-  lt::store_lower_and_mirror<O, BM>(ob, m, ti, tj, acc, smem);
+template <int BM, typename O>
+__global__ void __launch_bounds__(bf::Bf16Cfg<BM>::kThreads, 1)
+syrk_bf16_kernel(const __grid_constant__ CUtensorMap map_x, O* __restrict__ out, int m, int n) {
+  bf::lower_tile_bf16<BM, false, true, O>(map_x, map_x, nullptr, out, m, n, 0.0f, 0.0f, 0.0f);
 }
 
-template <typename T, typename O, int BM, int BK>
-int launch_ffma(const void* x, void* out, int batch, int m, int n, cudaStream_t stream) {
-  constexpr int smem = lt::smem_floats(BM, BK) * (int)sizeof(float);
-  int err = lt::allow_dynamic_smem<syrk_ffma_kernel<T, O, BM, BK>>(smem);
+template <int BM, typename O>
+int launch_bf16(const void* x, void* out, int batch, int m, int n, cudaStream_t stream) {
+  using C = bf::Bf16Cfg<BM>;
+  if (m % 8 != 0 || n % 8 != 0) return hw::kUnaligned;
+  CUtensorMap map_x;
+  int err = hw::encode_bf16_3d(&map_x, x, batch, m, n, C::kBK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  err = lt::allow_dynamic_smem<syrk_bf16_kernel<BM, O>>(C::kSmem);
   if (err != 0) return err;
   const int nb = (m + BM - 1) / BM;
   const dim3 grid(nb * (nb + 1) / 2, batch);
-  syrk_ffma_kernel<T, O, BM, BK><<<grid, lt::kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<O*>(out), m, n);
+  syrk_bf16_kernel<BM, O><<<grid, C::kThreads, C::kSmem, stream>>>(map_x, static_cast<O*>(out),
+                                                                     m, n);
   return (int)cudaGetLastError();
 }
 
-// fp32 -> fp32 on the tensor cores (3xTF32); bf16 inputs on the FFMA mainloop.
-template <int BM, int BK>
-int dispatch_dtype(const void* x, void* out, int batch, int m, int n, int in_dt, int out_dt,
-                   cudaStream_t s) {
-  if (in_dt == lt::kF32 && out_dt == lt::kF32) return launch_tf32<BM>(x, out, batch, m, n, s);
-  if (in_dt == lt::kBF16 && out_dt == lt::kBF16)
-    return launch_ffma<__nv_bfloat16, __nv_bfloat16, BM, BK>(x, out, batch, m, n, s);
-  if (in_dt == lt::kBF16 && out_dt == lt::kF32)
-    return launch_ffma<__nv_bfloat16, float, BM, BK>(x, out, batch, m, n, s);
+// fp32 -> fp32 on the 3xTF32 mainloop.  fp32 BLOCKS (keep in step with
+// repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS[4])
+int dispatch_f32(const void* x, void* out, int batch, int m, int n, int block_m, int block_k,
+                 cudaStream_t s) {
+  if (block_m == 64 && block_k == 32) return launch_tf32<64>(x, out, batch, m, n, s);
+  if (block_m == 128 && block_k == 32) return launch_tf32<128>(x, out, batch, m, n, s);
+  return lt::kUnsupported;
+}
+
+// bf16 -> bf16 or fp32 on the bf16 mainloop.  bf16 BLOCKS (keep in step with
+// repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS[2])
+template <typename O>
+int dispatch_bf16(const void* x, void* out, int batch, int m, int n, int block_m, int block_k,
+                  cudaStream_t s) {
+  if (block_m == 128 && block_k == 64) return launch_bf16<128, O>(x, out, batch, m, n, s);
+  if (block_m == 192 && block_k == 64) return launch_bf16<192, O>(x, out, batch, m, n, s);
   return lt::kUnsupported;
 }
 
@@ -116,16 +113,17 @@ extern "C" {
 
 // Returns 0 on a successful launch, a cudaError_t code, -1 for a
 // (block_m, block_k, dtype) combination that has no instantiation, -2 if the
-// TMA tensor map cannot be encoded, -3 for fp32 with m or n not a multiple
-// of 4 (the wrapper pads such shapes).
+// TMA tensor map cannot be encoded, -3 for m or n not a multiple of 16
+// bytes of the input type (the wrapper pads such shapes).
 int gram_syrk_lower(const void* x, void* out, int batch, int m, int n, int block_m, int block_k,
                     int in_dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // BLOCKS (keep in step with repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS)
-  if (block_m == 64 && block_k == 32)
-    return dispatch_dtype<64, 32>(x, out, batch, m, n, in_dtype, out_dtype, s);
-  if (block_m == 128 && block_k == 32)
-    return dispatch_dtype<128, 32>(x, out, batch, m, n, in_dtype, out_dtype, s);
+  if (in_dtype == lt::kF32 && out_dtype == lt::kF32)
+    return dispatch_f32(x, out, batch, m, n, block_m, block_k, s);
+  if (in_dtype == lt::kBF16 && out_dtype == lt::kBF16)
+    return dispatch_bf16<__nv_bfloat16>(x, out, batch, m, n, block_m, block_k, s);
+  if (in_dtype == lt::kBF16 && out_dtype == lt::kF32)
+    return dispatch_bf16<float>(x, out, batch, m, n, block_m, block_k, s);
   return lt::kUnsupported;
 }
 

@@ -1,18 +1,29 @@
-// Hopper building blocks of the fp32 Gram products on tensor cores
-// (tf32_lower.cuh, for symmul.cu and gram_syrk.cu): TMA tile loads
-// completing on mbarriers, the 3xTF32 operand split, and wgmma with tf32
-// operands (A from registers, B from shared memory).
+// Hopper building blocks of the Gram products on the tensor cores: TMA tile
+// loads completing on mbarriers, wgmma with tf32 operands (A from
+// registers, B from shared memory) and the 3xTF32 operand split for the
+// fp32 products (tf32_lower.cuh), wgmma with bf16 operands (both from
+// shared memory) for the bf16 products (bf16_lower.cuh); for symmul.cu and
+// gram_syrk.cu.
 //
-// Shared-memory operand layout (what TMA's 128-byte swizzle writes and what
-// a K-major wgmma descriptor with layout type SW128 reads): a tile of R rows
-// by 32 fp32 along the contraction, 128 bytes a row, based on a 1024-byte
-// boundary; element (r, k) lies at byte
+// K-major shared-memory operand layout (what TMA's 128-byte swizzle writes
+// and what a K-major wgmma descriptor with layout type SW128 reads): a tile
+// of R rows by 128 bytes along the contraction (32 fp32 or 64 bf16), based
+// on a 1024-byte boundary; the 16-byte chunk q of row r lies at byte
 //
-//     r * 128 + (((k / 4) ^ (r % 8)) * 16) + (k % 4) * 4
+//     r * 128 + ((q ^ (r % 8)) * 16)
 //
 // so eight rows form one 1024-byte swizzle atom (the descriptor's stride
-// byte offset), and the k-th group of 8 tf32 starts 32·k bytes into a row
-// (the descriptor's start address advances by 2 units of 16 bytes).
+// byte offset), and a wgmma's 32-byte step along the contraction (8 tf32 or
+// 16 bf16) starts 32·k bytes into a row (the descriptor's start address
+// advances by 2 units of 16 bytes).
+//
+// MN-major layout (bf16 only: tf32 wgmma has no transpose bit): the same
+// swizzle with the roles swapped, a row of 128 bytes holding 64 entries
+// along M (or N) at one index of the contraction, rows one contraction
+// index apart.  A box of 64 rows is one 8 KB atom column; wider operands
+// place such atom columns side by side (the descriptor's leading byte
+// offset), eight rows of the contraction are 1024 bytes (its stride byte
+// offset), and a 16-deep step of the contraction starts 2048 bytes on.
 #pragma once
 
 #include <cuda.h>
@@ -77,6 +88,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// One arrival on ``bar`` (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // -------------------------------------------------------------------- TMA
 
 // Copy the box at coordinates (c0, c1, c2) (innermost first) of ``map`` into
@@ -133,6 +149,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint32_t a = smem_addr(p);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+
+// Matrix descriptor of an MN-major, 128-byte-swizzled bf16 operand at ``p``
+// (see the layout above): start address, leading byte offset ``lbo`` (from
+// one 64-wide atom column along M or N to the next), stride byte offset
+// ``sbo`` (from eight rows of the contraction to the next), layout type
+// SW128.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // D[64 x 128] = A[64 x 8] · B[8 x 128] + (scale_d ? D : 0): A from registers
@@ -203,6 +230,102 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ------------------------------------------------------------- bf16 wgmma
+
+// D[64 x 192] = A[64 x 16] · B[16 x 192] + (scale_d ? D : 0), bf16 operands
+// both from shared memory through descriptors: A K-major, B K-major
+// (TRANS_B = 0) or MN-major (TRANS_B = 1); fp32 accumulators in registers
+// (96 a thread, the fragment layout of the tf32 form).  The tensor core
+// adds into D rounding toward zero (see bf16_lower.cuh for why the bf16
+// chain needs no fold).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_ss(float (&d)[96], uint64_t da, uint64_t db,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 128] = A[64 x 16] · B[16 x 128] + (scale_d ? D : 0), as above (64
+// accumulators a thread).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
 // ------------------------------------------------------------ 3xTF32 split
 
 // x rounded to the nearest tf32 (ties away from zero), 13 low mantissa bits
@@ -246,20 +369,35 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a contiguous fp32 (batch, rows, cols) array read in boxes of
-// box_rows x box_cols of one matrix; 0 or kTensorMapFailed.
-inline int encode_f32_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols,
-                         int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+// Tensor map of a contiguous (batch, rows, cols) array of ``type``
+// (``elem_bytes`` each) read in boxes of box_rows x box_cols of one matrix;
+// 0 or kTensorMapFailed.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
+                     int batch, int rows, int cols, int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTensorMapFailed;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)rows * cols * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapFailed;
+}
+
+inline int encode_f32_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                         int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, batch, rows, cols, box_cols,
+                   box_rows, swizzle);
+}
+
+inline int encode_bf16_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                          int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, batch, rows, cols, box_cols,
+                   box_rows, swizzle);
 }
 
 }  // namespace hw

@@ -26,9 +26,17 @@
 // 32-wide slice folded by FADD, mirror through shared memory.  The wrapper
 // pads m to a multiple of 4 (TMA's 16-byte row strides).
 //
-// bf16 operands (bf16 or fp32 output) are not on the main path and keep the
-// FFMA mainloop of lower_tiles.cuh (symmul_ffma_kernel), by an explicit
-// dispatch on dtype in symmul_lower below.
+// bf16 operands (bf16 or fp32 output; the Gram NS of the >= 340 B policy):
+// symmul_bf16_kernel, one bf16 wgmma pass a product.  Bound: operations, m³
+// FLOPs (half of 2m³) at 989 TFLOP/s, 6.33 ms at nemotron-4-340b's
+// m = 18432 against 2 GB moved.  Design (bf16_lower.cuh): square tiles of
+// 192 rows (128 where 192 leaves SMs idle) in an L2-friendly order; a
+// producer warp keeps a TMA ring of 64-deep slices in flight, A's rows
+// K-major and B's columns read as they lie (row-major, MN-major for wgmma:
+// the B transpose bit, no transposing copy, never taken as symmetric), and
+// the consumer warpgroups run four wgmma m64nBMk16 a slice from shared
+// memory with one group in flight.  The wrapper pads m to a multiple of 8.
+#include "bf16_lower.cuh"
 #include "tf32_lower.cuh"
 
 namespace {
@@ -62,84 +70,70 @@ int launch_tf32(const void* a, const void* b, void* out, int batch, int m, float
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ bf16 operands (FFMA)
+// ------------------------------------------------------------ bf16 (wgmma)
 
-template <typename T, typename O, int BM, int BK, bool POLY>
-__global__ void __launch_bounds__(lt::kThreads)
-symmul_ffma_kernel(const T* __restrict__ a, const T* __restrict__ b, O* __restrict__ out, int m,
-                   float ca, float cb, float cc) {
-  extern __shared__ float smem[];
-  float* as = smem;
-  float* bs = smem + BK * (BM + 1);
-  int ti, tj;
-  lt::tile_of(blockIdx.x, ti, tj);
-  const size_t off = (size_t)blockIdx.y * m * m;
-  const T* ab = a + off;
-  const T* bb = b + off;
-  O* ob = out + off;
-
-  float acc[BM / 16][BM / 16];
-#pragma unroll
-  for (int u = 0; u < BM / 16; ++u)
-#pragma unroll
-    for (int v = 0; v < BM / 16; ++v) acc[u][v] = 0.0f;
-
-  for (int k0 = 0; k0 < m; k0 += BK) {
-    lt::load_k_contiguous<T, BM, BK>(as, ab, m, m, m, ti * BM, k0);
-    lt::load_n_contiguous<T, BM, BK>(bs, bb, m, k0, tj * BM);
-    __syncthreads();
-    lt::mma_slice<BM, BK>(as, bs, acc);  // A_i,k · B_k,j
-    __syncthreads();
-  }
-
-  if (POLY) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int u = 0; u < BM / 16; ++u)
-#pragma unroll
-      for (int v = 0; v < BM / 16; ++v) {
-        const int r = ti * BM + ty + 16 * u, c = tj * BM + tx + 16 * v;
-        const float g = (r < m && c < m) ? lt::to_f32(ab[(size_t)r * m + c]) : 0.0f;
-        const float eye = (r == c) ? 1.0f : 0.0f;
-        acc[u][v] = ca * eye + cb * g + cc * acc[u][v];
-      }
-  }
-  lt::store_lower_and_mirror<O, BM>(ob, m, ti, tj, acc, smem);
+template <int BM, bool POLY, typename O>
+__global__ void __launch_bounds__(bf::Bf16Cfg<BM>::kThreads, 1)
+symmul_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, const __nv_bfloat16* __restrict__ g,
+                   O* __restrict__ out, int m, float ca, float cb, float cc) {
+  bf::lower_tile_bf16<BM, POLY, false, O>(map_a, map_b, g, out, m, m, ca, cb, cc);
 }
 
-template <typename T, typename O, int BM, int BK, bool POLY>
-int launch_ffma(const void* a, const void* b, void* out, int batch, int m, float ca, float cb,
+template <int BM, bool POLY, typename O>
+int launch_bf16(const void* a, const void* b, void* out, int batch, int m, float ca, float cb,
                 float cc, cudaStream_t stream) {
-  constexpr int smem = lt::smem_floats(BM, BK) * (int)sizeof(float);
-  int err = lt::allow_dynamic_smem<symmul_ffma_kernel<T, O, BM, BK, POLY>>(smem);
+  using C = bf::Bf16Cfg<BM>;
+  if (m % 8 != 0) return hw::kUnaligned;
+  CUtensorMap map_a, map_b;
+  int err = hw::encode_bf16_3d(&map_a, a, batch, m, m, C::kBK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  err = hw::encode_bf16_3d(&map_b, b, batch, m, m, 64, C::kBK, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  err = lt::allow_dynamic_smem<symmul_bf16_kernel<BM, POLY, O>>(C::kSmem);
   if (err != 0) return err;
   const int nb = (m + BM - 1) / BM;
   const dim3 grid(nb * (nb + 1) / 2, batch);
-  symmul_ffma_kernel<T, O, BM, BK, POLY><<<grid, lt::kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<O*>(out), m, ca, cb, cc);
+  symmul_bf16_kernel<BM, POLY, O><<<grid, C::kThreads, C::kSmem, stream>>>(
+      map_a, map_b, static_cast<const __nv_bfloat16*>(a), static_cast<O*>(out), m, ca, cb, cc);
   return (int)cudaGetLastError();
 }
 
-// fp32 -> fp32 on the tensor cores (3xTF32); bf16 inputs on the FFMA mainloop.
-template <int BM, int BK, bool POLY>
-int dispatch_dtype(const void* a, const void* b, void* out, int batch, int m, float ca, float cb,
-                   float cc, int in_dt, int out_dt, cudaStream_t s) {
-  if (in_dt == lt::kF32 && out_dt == lt::kF32)
-    return launch_tf32<BM, POLY>(a, b, out, batch, m, ca, cb, cc, s);
-  if (in_dt == lt::kBF16 && out_dt == lt::kBF16)
-    return launch_ffma<__nv_bfloat16, __nv_bfloat16, BM, BK, POLY>(a, b, out, batch, m, ca, cb,
-                                                                   cc, s);
-  if (in_dt == lt::kBF16 && out_dt == lt::kF32)
-    return launch_ffma<__nv_bfloat16, float, BM, BK, POLY>(a, b, out, batch, m, ca, cb, cc, s);
+template <bool POLY>
+int dispatch_f32(const void* a, const void* b, void* out, int batch, int m, int block_m,
+                 int block_k, float ca, float cb, float cc, cudaStream_t s) {
+  // fp32 BLOCKS (keep in step with repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS[4])
+  if (block_m == 64 && block_k == 32)
+    return launch_tf32<64, POLY>(a, b, out, batch, m, ca, cb, cc, s);
+  if (block_m == 128 && block_k == 32)
+    return launch_tf32<128, POLY>(a, b, out, batch, m, ca, cb, cc, s);
   return lt::kUnsupported;
 }
 
-template <int BM, int BK>
-int dispatch_epilogue(const void* a, const void* b, void* out, int batch, int m, int poly,
-                      float ca, float cb, float cc, int in_dt, int out_dt, cudaStream_t s) {
-  if (poly)
-    return dispatch_dtype<BM, BK, true>(a, b, out, batch, m, ca, cb, cc, in_dt, out_dt, s);
-  return dispatch_dtype<BM, BK, false>(a, b, out, batch, m, ca, cb, cc, in_dt, out_dt, s);
+template <bool POLY, typename O>
+int dispatch_bf16(const void* a, const void* b, void* out, int batch, int m, int block_m,
+                  int block_k, float ca, float cb, float cc, cudaStream_t s) {
+  // bf16 BLOCKS (keep in step with repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS[2])
+  if (block_m == 128 && block_k == 64)
+    return launch_bf16<128, POLY, O>(a, b, out, batch, m, ca, cb, cc, s);
+  if (block_m == 192 && block_k == 64)
+    return launch_bf16<192, POLY, O>(a, b, out, batch, m, ca, cb, cc, s);
+  return lt::kUnsupported;
+}
+
+// fp32 -> fp32 on the 3xTF32 mainloop; bf16 -> bf16 or fp32 on the bf16 one.
+template <bool POLY>
+int dispatch_dtype(const void* a, const void* b, void* out, int batch, int m, int block_m,
+                   int block_k, float ca, float cb, float cc, int in_dt, int out_dt,
+                   cudaStream_t s) {
+  if (in_dt == lt::kF32 && out_dt == lt::kF32)
+    return dispatch_f32<POLY>(a, b, out, batch, m, block_m, block_k, ca, cb, cc, s);
+  if (in_dt == lt::kBF16 && out_dt == lt::kBF16)
+    return dispatch_bf16<POLY, __nv_bfloat16>(a, b, out, batch, m, block_m, block_k, ca, cb, cc,
+                                              s);
+  if (in_dt == lt::kBF16 && out_dt == lt::kF32)
+    return dispatch_bf16<POLY, float>(a, b, out, batch, m, block_m, block_k, ca, cb, cc, s);
+  return lt::kUnsupported;
 }
 
 }  // namespace
@@ -149,20 +143,17 @@ extern "C" {
 // epilogue: 0 = plain, 1 = gram_poly (coefficients ca, cb, cc; a == b == G).
 // Returns 0 on a successful launch, a cudaError_t code, -1 for a
 // (block_m, block_k, dtype) combination that has no instantiation, -2 if the
-// TMA tensor maps cannot be encoded, -3 for fp32 with m % 4 != 0 (the wrapper
-// pads such m).
+// TMA tensor maps cannot be encoded, -3 for m not a multiple of 16 bytes of
+// the input type (the wrapper pads such m).
 int symmul_lower(const void* a, const void* b, void* out, int batch, int m, int block_m,
                  int block_k, int epilogue, float ca, float cb, float cc, int in_dtype,
                  int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // BLOCKS (keep in step with repro_torch/kernels/autotune.py:INSTANTIATED_BLOCKS)
-  if (block_m == 64 && block_k == 32)
-    return dispatch_epilogue<64, 32>(a, b, out, batch, m, epilogue, ca, cb, cc, in_dtype,
-                                     out_dtype, s);
-  if (block_m == 128 && block_k == 32)
-    return dispatch_epilogue<128, 32>(a, b, out, batch, m, epilogue, ca, cb, cc, in_dtype,
-                                      out_dtype, s);
-  return lt::kUnsupported;
+  if (epilogue)
+    return dispatch_dtype<true>(a, b, out, batch, m, block_m, block_k, ca, cb, cc, in_dtype,
+                                out_dtype, s);
+  return dispatch_dtype<false>(a, b, out, batch, m, block_m, block_k, ca, cb, cc, in_dtype,
+                               out_dtype, s);
 }
 
 const char* symmul_error_string(int code) {

@@ -6,10 +6,11 @@ stack X of shape (B, m, n).  G is symmetric, so the kernel computes only the
 lower tiles and writes the dense result (lower triangle mirrored up).
 
 fp32 inputs run on the tensor cores as 3xTF32 (``syrk_tf32_emulated``
-repeats that arithmetic in plain PyTorch); their TMA loads and vector stores
-need m % 4 == 0 and n % 4 == 0, and the wrapper zero-pads any other m or n
-and crops the result (``symmul.padded_call``), which is exact.  bf16 inputs
-run on the FFMA mainloop and take any shape.
+repeats that arithmetic in plain PyTorch); bf16 inputs as one bf16 wgmma
+pass with fp32 accumulation.  TMA needs 16-byte row strides, m and n
+multiples of 4 in fp32 and of 8 in bf16 (``symmul.TMA_ALIGN``), and the
+wrapper zero-pads any other m or n and crops the result
+(``symmul.padded_call``), which is exact.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels.autotune import slice_k
 from repro_torch.kernels.symmul import (DTYPE_CODES, LAUNCH_ERRORS, TMA_ALIGN,
                                         check_kernel_args, padded_call,
                                         symmul_tf32_emulated, tma_ready)
@@ -59,22 +61,24 @@ def _kernel():
     return _entry
 
 
-def syrk_lower(x: torch.Tensor, *, block_m: int = 128, block_k: int = 32,
+def syrk_lower(x: torch.Tensor, *, block_m: int = 128,
+               block_k: Optional[int] = None,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """G = X Xᵀ for x of shape (B, m, n) -> dense (B, m, m) whose upper
-    triangle mirrors the lower one.
+    triangle mirrors the lower one.  ``block_k`` defaults to one 128-byte
+    swizzle row of the input type (``autotune.slice_k``).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version."""
     if x.ndim != 3:
         raise ValueError(f"expected (B, m, n), got {tuple(x.shape)}")
     out_dtype = out_dtype or x.dtype
+    block_k = block_k or slice_k(x.element_size())
     check_kernel_args(x, block_m, block_k, out_dtype)
     if x.device.type == "cpu":
         return ref.mirror_lower(syrk_plain(x, out_dtype))
 
-    if x.dtype == torch.float32 and (x.shape[-2] % TMA_ALIGN
-                                     or x.shape[-1] % TMA_ALIGN):
+    if x.shape[-2] % TMA_ALIGN[x.dtype] or x.shape[-1] % TMA_ALIGN[x.dtype]:
         return padded_call(functools.partial(
             syrk_lower, block_m=block_m, block_k=block_k,
             out_dtype=out_dtype), x)

@@ -12,10 +12,11 @@ C = A·B and writes the dense result (the lower triangle mirrored up, i.e.
   before the cast, so the polynomial never round-trips device memory.
 
 fp32 operands run on the tensor cores as 3xTF32 (``symmul_tf32_emulated``
-repeats that arithmetic in plain PyTorch); their TMA loads need m % 4 == 0,
-and the wrapper zero-pads any other m and crops the result
-(``padded_call``), which is exact for both epilogues.  bf16 operands run on
-the FFMA mainloop and take any m.
+repeats that arithmetic in plain PyTorch); bf16 operands as one bf16 wgmma
+pass with fp32 accumulation.  TMA needs 16-byte row strides, m % 4 == 0 in
+fp32 and m % 8 == 0 in bf16 (``TMA_ALIGN``), and the wrapper zero-pads any
+other m and crops the result (``padded_call``), which is exact for both
+epilogues.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES, ref
-from repro_torch.kernels.autotune import INSTANTIATED_BLOCKS
+from repro_torch.kernels.autotune import INSTANTIATED_BLOCKS, slice_k
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (input, output) dtype pairs the kernels are compiled for
@@ -36,11 +37,12 @@ KERNEL_DTYPES = {(torch.float32, torch.float32),
                  (torch.bfloat16, torch.bfloat16),
                  (torch.bfloat16, torch.float32)}
 MAX_BATCH = 65535               # grid.y limit
-TMA_ALIGN = 4                   # fp32 elements in 16 bytes: TMA's row-stride unit
+# elements in 16 bytes, TMA's row-stride unit, per input dtype
+TMA_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 # error codes of the C entry points (csrc/symmul.cu, csrc/gram_syrk.cu) below 0
 LAUNCH_ERRORS = {-1: "no instantiation",
                  -2: "TMA tensor map encoding failed",
-                 -3: "fp32 dims not multiples of 4 (TMA row strides)"}
+                 -3: "dims not multiples of 16 bytes (TMA row strides)"}
 
 
 def tri_index_tables(n_blocks: int) -> tuple[np.ndarray, np.ndarray]:
@@ -57,10 +59,11 @@ def tri_index_tables(n_blocks: int) -> tuple[np.ndarray, np.ndarray]:
 def check_kernel_args(x: torch.Tensor, block_m: int, block_k: int,
                       out_dtype: torch.dtype) -> None:
     """Raise on what the CUDA kernels do not take."""
-    if (block_m, block_k) not in INSTANTIATED_BLOCKS:
+    blocks = INSTANTIATED_BLOCKS.get(x.element_size(), ())
+    if (block_m, block_k) not in blocks:
         raise ValueError(f"no kernel instantiated for block (block_m, block_k)"
-                         f"=({block_m}, {block_k}); "
-                         f"instantiated: {INSTANTIATED_BLOCKS}")
+                         f"=({block_m}, {block_k}) and {x.dtype}; "
+                         f"instantiated: {blocks}")
     if (x.dtype, out_dtype) not in KERNEL_DTYPES:
         raise ValueError(f"no kernel for {x.dtype} -> {out_dtype}")
     if x.shape[0] > MAX_BATCH:
@@ -120,18 +123,19 @@ def symmul_tf32_emulated(a: torch.Tensor, b: torch.Tensor, *,
 def padded_call(fn: Callable[..., torch.Tensor],
                 *operands: torch.Tensor) -> torch.Tensor:
     """``fn(*operands)`` on (B, rows, cols) operands whose last two dims are
-    zero-padded, each on its own, to the next multiple of ``TMA_ALIGN``,
-    cropped back to (B, m, m) with m the first operand's rows.  Exact for
-    the symmetric product's epilogues and for the SYRK: zero columns add
-    zero terms to every kept product, zero rows only add output rows and
-    columns that are cropped, and aI + bG at a kept entry reads only kept
-    entries of G.  An operand that is the first one stays the first one
-    (padded once)."""
+    zero-padded, each on its own, to the next multiple of ``TMA_ALIGN`` of
+    their dtype, cropped back to (B, m, m) with m the first operand's rows.
+    Exact for the symmetric product's epilogues and for the SYRK: zero
+    columns add zero terms to every kept product, zero rows only add output
+    rows and columns that are cropped, and aI + bG at a kept entry reads
+    only kept entries of G.  An operand that is the first one stays the
+    first one (padded once)."""
     def pad(t):
         rows, cols = t.shape[-2:]
-        return torch.nn.functional.pad(
-            t, (0, -cols % TMA_ALIGN, 0, -rows % TMA_ALIGN))
-    if not any(d % TMA_ALIGN for t in operands for d in t.shape[-2:]):
+        align = TMA_ALIGN[t.dtype]
+        return torch.nn.functional.pad(t, (0, -cols % align, 0, -rows % align))
+    if not any(d % TMA_ALIGN[t.dtype] for t in operands
+               for d in t.shape[-2:]):
         return fn(*operands)
     first = pad(operands[0])
     padded = [first if t is operands[0] else pad(t) for t in operands]
@@ -166,11 +170,12 @@ def tma_ready(x: torch.Tensor) -> torch.Tensor:
 
 def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
                  coeffs: Optional[tuple] = None, block_m: int = 128,
-                 block_k: int = 32,
+                 block_k: Optional[int] = None,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Symmetric product of a, b: (B, m, m) -> dense (B, m, m) whose upper
     triangle mirrors the lower one.  For ``epilogue='gram_poly'`` call with
-    a == b == G and (a, b, c) in ``coeffs``.
+    a == b == G and (a, b, c) in ``coeffs``.  ``block_k`` defaults to one
+    128-byte swizzle row of the operand type (``autotune.slice_k``).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version."""
@@ -185,12 +190,13 @@ def symmul_lower(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "plain",
     if a.dtype != b.dtype or a.device != b.device:
         raise ValueError("symmul operands must share dtype and device")
     out_dtype = out_dtype or a.dtype
+    block_k = block_k or slice_k(a.element_size())
     check_kernel_args(a, block_m, block_k, out_dtype)
     if a.device.type == "cpu":
         return ref.mirror_lower(symmul_plain(a, b, epilogue=epilogue,
                                              coeffs=coeffs, out_dtype=out_dtype))
 
-    if a.dtype == torch.float32 and a.shape[-1] % TMA_ALIGN:
+    if a.shape[-1] % TMA_ALIGN[a.dtype]:
         return padded_call(functools.partial(
             symmul_lower, epilogue=epilogue, coeffs=coeffs, block_m=block_m,
             block_k=block_k, out_dtype=out_dtype), a, b)

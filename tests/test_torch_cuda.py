@@ -7,7 +7,9 @@ Needs no JAX, so it runs where the port runs:
 Without a CUDA card every test skips.  Tolerances: fp32 rtol 1e-4 /
 atol 1e-3, bf16 2e-2 (the reference's kernel tolerances); the fp32 SYRK on
 the tensor cores (3xTF32) also max|err| <= 1e-5 · max|want| on
-heavy-tailed rows, the gate of chip_smoke.py.
+heavy-tailed rows, the gate of chip_smoke.py; the bf16 unaligned and
+non-symmetric cases 2^-7 of the largest entry (chip_smoke.BF16_GATE,
+the diagonal apart).
 """
 
 import pytest
@@ -20,7 +22,7 @@ from repro_torch.kernels.symmul import symmul_lower, symmul_plain
 
 pytestmark = pytest.mark.cuda
 
-BLOCKS = list(autotune.INSTANTIATED_BLOCKS)
+BLOCKS = list(autotune.INSTANTIATED_BLOCKS[4])
 TOL = {"float32": dict(rtol=1e-4, atol=1e-3),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SCALED_GATE = 1e-5
@@ -46,8 +48,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bm,bk", BLOCKS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,bm,bk", [
+    (dtype, bm, bk) for dtype, nbytes in (("float32", 4), ("bfloat16", 2))
+    for bm, bk in autotune.INSTANTIATED_BLOCKS[nbytes]])
 def test_kernels_match_plain(cuda_device, bm, bk, dtype):
     dt = getattr(torch, dtype)
     gen = torch.Generator(cuda_device).manual_seed(0)
@@ -74,6 +77,63 @@ def test_output_is_exactly_symmetric(cuda_device):
     assert torch.equal(c, c.mT)
     torch.testing.assert_close(c, ref.mirror_lower(symmul_plain(a, b)),
                                **TOL["float32"])
+
+
+@pytest.mark.parametrize("bm,bk", autotune.INSTANTIATED_BLOCKS[2])
+@pytest.mark.parametrize("m", [101, 198, 328])
+def test_bf16_symmul_nonsymmetric_b(cuda_device, m, bm, bk):
+    """bf16 symmul reads B as it lies (MN-major, the wgmma transpose bit):
+    with B not symmetric the kernel matches the plain A·B within 2^-7 of
+    its largest entry and is far from A·Bᵀ; m = 101 and 198 take the pad
+    path (m % 8 != 0), one launch each."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    a = torch.randn(2, m, m, generator=gen, device=cuda_device)
+    b = torch.randn(2, m, m, generator=gen, device=cuda_device) / m ** 0.5
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    reset_launches()
+    got = symmul_lower(a, b, block_m=bm, block_k=bk)
+    assert LAUNCHES["symmul"] == 1
+    assert got.shape == (2, m, m) and torch.equal(got, got.mT)
+    want = ref.mirror_lower(symmul_plain(a, b, out_dtype=torch.float32))
+    wrong = ref.mirror_lower(symmul_plain(a, b.mT, out_dtype=torch.float32))
+    scale = float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2.0 ** -7 * scale
+    assert float((got.float() - wrong).abs().max()) >= 0.1 * scale
+
+
+@pytest.mark.parametrize("bm,bk", autotune.INSTANTIATED_BLOCKS[2])
+@pytest.mark.parametrize("shape", [(2, 101, 211), (3, 198, 1003),
+                                   (1, 60, 73728)])
+def test_bf16_syrk_and_gram_poly_unaligned(cuda_device, shape, bm, bk):
+    """bf16 shapes whose m or n is not a multiple of 8 go through the
+    zero-pad-and-crop (one launch); the SYRK (bf16 and fp32 output) and
+    gram_poly match the plain versions within 2^-7 of the largest entry,
+    the diagonal apart."""
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    x = (torch.randn(*shape, generator=gen, device=cuda_device)
+         / shape[-1] ** 0.5).to(torch.bfloat16)
+    want = ref.mirror_lower(syrk_plain(x, out_dtype=torch.float32))
+
+    def close(got, want):
+        off = (got.float() - want).abs()
+        diag = off.diagonal(dim1=-2, dim2=-1).clone()
+        off.diagonal(dim1=-2, dim2=-1).zero_()
+        w = want.abs()
+        wdiag = w.diagonal(dim1=-2, dim2=-1).clone()
+        w.diagonal(dim1=-2, dim2=-1).zero_()
+        assert float(off.max()) <= 2.0 ** -7 * float(w.max())
+        assert float(diag.max()) <= 2.0 ** -7 * float(wdiag.max())
+    reset_launches()
+    g = syrk_lower(x, block_m=bm, block_k=bk)
+    close(g, want)
+    close(syrk_lower(x, block_m=bm, block_k=bk, out_dtype=torch.float32),
+          want)
+    assert LAUNCHES["syrk"] == 2
+    c = (8.287, -23.6, 17.3)
+    p = symmul_lower(g, g, epilogue="gram_poly", coeffs=c, block_m=bm,
+                     block_k=bk)
+    close(p, ref.mirror_lower(symmul_plain(g, g, epilogue="gram_poly",
+                                           coeffs=c, out_dtype=torch.float32)))
 
 
 def test_wrappers_count_launches(cuda_device):

@@ -23,15 +23,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import autotune, ops, ref  # noqa: E402
-from repro_torch.kernels.gram_syrk import syrk_lower  # noqa: E402
+from repro_torch.kernels.gram_syrk import syrk_lower, syrk_plain  # noqa: E402
 from repro_torch.kernels.symmul import (  # noqa: E402
-    symmul_lower, symmul_plain, tri_index_tables)
+    TMA_ALIGN, padded_call, symmul_lower, symmul_plain, tri_index_tables)
 
 SHAPES_SQUARE = [(1, 16), (2, 64), (3, 128), (2, 160), (1, 200), (4, 96)]
 SHAPES_RECT = [(1, 16, 64), (2, 64, 256), (2, 96, 40), (1, 128, 384),
                (3, 32, 32), (1, 200, 72)]
 DTYPES = ["float32", "bfloat16"]
-BLOCKS = list(autotune.INSTANTIATED_BLOCKS)
+BLOCKS = list(autotune.INSTANTIATED_BLOCKS[4])
+# a block pair of each input type (block_k: one 128-byte swizzle row)
+PAIR = {"float32": dict(block_m=64, block_k=32),
+        "bfloat16": dict(block_m=128, block_k=64)}
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
 
 
@@ -73,7 +76,7 @@ def test_symmul_matches_reference(batch, m, dtype):
     a32 = _sym((batch, m, m), 0)
     ta, ja = _both(a32, dtype)
     tb, jb = ref.symmul_ref(ta, ta), jref.symmul_ref(ja, ja)   # A², commutes with A
-    got = ops.symmul(ta, tb, block_m=64, block_k=32)
+    got = ops.symmul(ta, tb, **PAIR[dtype])
     want_ref = jref.mirror_lower(jref.symmul_ref(ja.astype(jnp.float32),
                                                  jb.astype(jnp.float32)))
     np.testing.assert_allclose(_np(got), _np(want_ref), **_tol(dtype))
@@ -88,7 +91,7 @@ def test_syrk_matches_reference(batch, m, n, dtype):
     x32 = np.random.default_rng(2).standard_normal((batch, m, n)).astype(
         np.float32)
     tx, jx = _both(x32, dtype)
-    got = ops.syrk(tx, block_m=64, block_k=32)
+    got = ops.syrk(tx, **PAIR[dtype])
     np.testing.assert_allclose(
         _np(got), _np(jref.syrk_ref(jx.astype(jnp.float32))), **_tol(dtype))
     pallas = jops.syrk(jx, block_m=64, block_k=64, interpret=True)
@@ -141,6 +144,35 @@ def test_unaligned_padding_roundtrip():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("kernel", ["gram_syrk", "symmul_plain",
+                                    "symmul_gram_poly"])
+@pytest.mark.parametrize("m,n", [(101, 211), (198, 203), (60, 1003)])
+def test_padded_call_bf16_equals_unpadded_bitwise(kernel, m, n):
+    """bf16 pads m and n to multiples of 8 (TMA's 16-byte row strides):
+    the zero-pad-and-crop of ``padded_call`` equals the unpadded plain
+    result bit for bit, for the SYRK and both epilogues.  The operands are
+    small integers, so every fp32 partial sum is exact and the comparison
+    does not hang on the CPU BLAS summing a longer contraction in another
+    order (MKL does, at (60, 1003))."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-8, 9, (2, m, n)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(-4, 5, (2, m, m)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-4, 5, (2, m, m)).astype(np.float32))
+    x, a, b = (t.to(torch.bfloat16) for t in (x, a, b))
+    g = ref.mirror_lower(a)
+    coeffs = (8.287, -23.6, 17.3)
+    fn, operands = {
+        "gram_syrk": (syrk_plain, (x,)),
+        "symmul_plain": (symmul_plain, (a, b)),
+        "symmul_gram_poly": (lambda p, q: symmul_plain(
+            p, q, epilogue="gram_poly", coeffs=coeffs), (g, g)),
+    }[kernel]
+    assert TMA_ALIGN[torch.bfloat16] == 8 and m % 8
+    got = padded_call(fn, *operands)
+    assert got.shape == (2, m, m) and got.dtype == torch.bfloat16
+    assert torch.equal(got, fn(*operands))
+
+
 def test_leading_batch_dims_flatten():
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (2, 3, 16, 40)).astype(np.float32))
@@ -173,6 +205,47 @@ def test_tile_closed_form_matches_table():
         assert (t, l - t * (t + 1) // 2) == (i, j)
 
 
+def _grouped_tile_of(l, nb, group, rows):
+    """csrc/lower_tiles.cuh:grouped_tile_of, line for line (``rows``: the
+    row-major row of every tile, tile_of's)."""
+    t = int(rows[l])
+    r0 = (t // group) * group
+    h = min(group, nb - r0)
+    q = l - r0 * (r0 + 1) // 2
+    full = (r0 + 1) * h
+    if q < full:
+        return r0 + q % h, q // h
+    q -= full
+    for d in range(1, h):
+        if q < h - d:
+            return r0 + d + q, r0 + d
+        q -= h - d
+    raise AssertionError(f"tile {l} outside the {nb}-block grid")
+
+
+@pytest.mark.parametrize("nb,group", [(1, 8), (7, 8), (8, 8), (12, 8),
+                                      (24, 16), (29, 16), (144, 8),
+                                      (145, 16)])
+def test_grouped_tile_order_covers_each_lower_tile_once(nb, group):
+    """The bf16 kernels' tile order (lower_tiles.cuh:grouped_tile_of) is a
+    permutation of the lower tiles that keeps each group of ``group`` block
+    rows in its row-major places, column by column inside the group: at
+    nemotron-4-340b's m = 18432 (144 blocks of 128) the 132 blocks in flight
+    read about 8 row panels and 17 column panels."""
+    ii, _ = tri_index_tables(nb)
+    tiles = [_grouped_tile_of(l, nb, group, ii) for l in range(len(ii))]
+    assert sorted(tiles) == [(i, j) for i in range(nb) for j in range(i + 1)]
+    assert [i // group for i, _ in tiles] == [int(i) // group for i in ii]
+    for l in range(len(tiles) - 1):
+        (i0, j0), (i1, j1) = tiles[l], tiles[l + 1]
+        if i0 // group == i1 // group:
+            assert (j0, i0) < (j1, i1)
+    if nb == 144:
+        window = tiles[5000:5132]
+        assert len({i for i, _ in window}) <= 8
+        assert len({j for _, j in window}) <= 18
+
+
 def test_mirror_lower_discards_upper_half_elementwise():
     raw = torch.arange(16.0).reshape(1, 4, 4) + torch.triu(
         torch.full((4, 4), float("nan")), 1)
@@ -194,12 +267,20 @@ def test_wrappers_validate_block_contract():
 
 
 def test_instantiated_blocks_match_cuda_dispatch():
-    """Every autotune candidate has a CUDA instantiation and vice versa."""
+    """Every autotune candidate has a CUDA instantiation and vice versa,
+    per input type: each source's fp32 and bf16 dispatch (the blocks
+    after its "fp32 BLOCKS" / "bf16 BLOCKS" note)."""
     for src in ("gram_syrk.cu", "symmul.cu"):
         text = (CSRC / src).read_text()
-        pairs = {(int(a), int(b)) for a, b in re.findall(
-            r"block_m == (\d+) && block_k == (\d+)", text)}
-        assert pairs == set(autotune.INSTANTIATED_BLOCKS), src
+        for dtype, nbytes in (("fp32", 4), ("bf16", 2)):
+            part = text.split(f"{dtype} BLOCKS", 1)[1]
+            part = part.split("return lt::kUnsupported", 1)[0]
+            pairs = {(int(a), int(b)) for a, b in re.findall(
+                r"block_m == (\d+) && block_k == (\d+)", part)}
+            assert pairs == set(autotune.INSTANTIATED_BLOCKS[nbytes]), \
+                (src, dtype)
+            assert all(bk * nbytes == 128 for _, bk in pairs)
+        assert len(re.findall(r"block_m == \d+ && block_k", text)) == 4, src
 
 
 # csrc/tf32_lower.cuh's Tf32Cfg<BM>::kSmem: raw ring (2 stages at BM = 64,
@@ -207,6 +288,11 @@ def test_instantiated_blocks_match_cuda_dispatch():
 # mbarrier a stage and 1 KB of alignment slack
 TF32_SMEM = {64: 2 * 2 * 8192 + 2 * 8192 + 2 * 8 + 1024,
              128: 3 * 2 * 16384 + 2 * 16384 + 3 * 8 + 1024}
+# csrc/bf16_lower.cuh's Bf16Cfg<BM>::kSmem: ring (6 stages at BM = 128, 4 at
+# 192) of two BM x 64 bf16 slices, a full and an empty mbarrier a stage and
+# 1 KB of alignment slack
+BF16_SMEM = {128: 6 * 2 * 16384 + 2 * 6 * 8 + 1024,
+             192: 4 * 2 * 24576 + 2 * 4 * 8 + 1024}
 
 
 @pytest.mark.parametrize("mode,m,k,dtype_bytes",
@@ -214,29 +300,27 @@ TF32_SMEM = {64: 2 * 2 * 8192 + 2 * 8192 + 2 * 8 + 1024,
                           ("gram_poly", 320, 320, 4), ("symmul", 320, 320, 2),
                           ("syrk", 320, 960, 2)])
 def test_autotune_candidates_fit_hopper_smem(mode, m, k, dtype_bytes):
-    """fp32 products (syrk included) take the tensor-core mainloop's
-    footprint, bf16 inputs the FFMA one's."""
+    """Every product takes its tensor-core mainloop's footprint: 3xTF32 for
+    fp32 inputs, the bf16 wgmma ring for bf16."""
     cands = autotune.candidate_blocks(mode, m, k, dtype_bytes)
-    assert cands and set(cands) <= set(autotune.INSTANTIATED_BLOCKS)
-    assert autotune.tensor_core_path(mode, dtype_bytes) == (dtype_bytes == 4)
+    assert cands and set(cands) <= set(
+        autotune.INSTANTIATED_BLOCKS[dtype_bytes])
+    assert autotune.tensor_core_path(mode, dtype_bytes)
     for bm, bk in cands:
         smem = autotune.smem_bytes(mode, bm, bk, dtype_bytes)
         assert smem <= autotune.SMEM_BYTES
-        if autotune.tensor_core_path(mode, dtype_bytes):
-            # whole 64-row warpgroup slabs; bk fp32 = one 128-byte swizzle row
-            assert bm % 64 == 0 and bk * 4 == 128
-            assert smem == TF32_SMEM[bm]
-        else:
-            assert bm % 16 == 0 and \
-                (bm // 16) ** 2 * autotune.THREADS == bm * bm
-            assert smem == 4 * max(2 * bk * (bm + 1), bm * (bm + 1))
+        # whole 64-row warpgroup slabs; bk = one 128-byte swizzle row
+        assert bm % 64 == 0 and bk * dtype_bytes == 128
+        assert bk == autotune.slice_k(dtype_bytes)
+        want = TF32_SMEM if dtype_bytes == 4 else BF16_SMEM
+        assert smem == want[bm]
 
 
 def test_autotune_cache_roundtrip_keyed_by_arch(_isolated_cache):
     path = _isolated_cache
     win = autotune.tune("symmul", 512, 512, "float32", cache_path=path,
                         arch="sm90")
-    assert win in autotune.INSTANTIATED_BLOCKS
+    assert win in autotune.INSTANTIATED_BLOCKS[4]
     assert autotune.lookup("symmul", 512, 512, "float32", cache_path=path,
                            arch="sm90") == win
     autotune.clear_memory_cache()
@@ -277,13 +361,35 @@ def test_rule_digest_follows_kernel_sources(monkeypatch):
                          [("syrk", "float32", (64, 32)),
                           ("symmul", "float32", (64, 32)),
                           ("gram_poly", "float32", (64, 32)),
-                          ("symmul", "bfloat16", (128, 32)),
-                          ("syrk", "bfloat16", (128, 32))])
+                          ("symmul", "bfloat16", (128, 64)),
+                          ("syrk", "bfloat16", (128, 64))])
 def test_autotune_tie_break_per_mainloop(_isolated_cache, mode, dtype, want):
-    """m = 512 pads neither grid, so the scores tie on the tensor cores and
-    the tie goes to the smaller tile; on the FFMA path the larger tile's
-    lower cost per product wins."""
+    """m = 512 pads neither fp32 grid, so the fp32 scores tie and the tie
+    goes to the smaller tile.  In bf16 neither grid fills the card's 132
+    SMs (10 tiles of 128 rows, 3 of 192): the 128-row tile leaves fewer
+    idle, which outweighs its cost a product; on equal bf16 scores the
+    larger tile would go first."""
     assert autotune.lookup(mode, 512, 512, dtype, arch="sm90") == want
+    nbytes = 2 if dtype == "bfloat16" else 4
+    pairs = sorted(autotune.INSTANTIATED_BLOCKS[nbytes],
+                   key=lambda b: autotune.tie_break(mode, b, nbytes))
+    assert pairs[0][0] == (192 if nbytes == 2 else 64)
+
+
+# nemotron-4-340b's bf16 Gram shapes (the >= 340 B policy, one owner's rows
+# on (2, 2)) and the pair measured fastest at each on an H100
+# (chip_smoke.py, blocks phase): the analytical rule must pick the same.
+BF16_WINNERS = [("syrk", 18432, 73728, (192, 64)),
+                ("syrk", 18432, 18432, (192, 64)),
+                ("symmul", 18432, 18432, (192, 64)),
+                ("gram_poly", 18432, 18432, (192, 64)),
+                ("syrk", 1536, 18432, (128, 64)),
+                ("symmul", 1536, 1536, (128, 64))]
+
+
+@pytest.mark.parametrize("mode,m,k,want", BF16_WINNERS)
+def test_bf16_rule_picks_measured_winner(_isolated_cache, mode, m, k, want):
+    assert autotune.lookup(mode, m, k, "bfloat16", arch="sm90") == want
 
 
 def test_autotune_default_cache_is_the_ports_own(monkeypatch):

@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s bf16 kernel gate (``check_parts``) and the sampled
 captures of its four-card nemotron gate (``sample_grid``,
-``sampled_whole``), on the CPU.
+``sampled_whole``), on the CPU.  Besides tile faults, the gate must catch
+the two faults a bf16 wgmma kernel can make silently: B's MN-major slices
+read transposed (A·Bᵀ for A·B) and a contraction's last slice left out.
 
 The bf16 gate holds each kernel's output to the plain version's fp32
 product of the same bf16 operands, the off-diagonal entries and the
@@ -13,6 +15,7 @@ rounds its output, and the faults are planted in its output.
 """
 
 import importlib.util
+import inspect
 from pathlib import Path
 
 import pytest
@@ -20,6 +23,8 @@ import torch
 
 from repro_torch.core.coefficients import get_coefficients
 from repro_torch.kernels import ref
+from repro_torch.kernels.gram_syrk import syrk_plain
+from repro_torch.kernels.symmul import symmul_plain
 
 TILE = 128
 
@@ -77,6 +82,38 @@ def test_bf16_gate_sees_what_the_old_one_missed(cs):
     with pytest.raises(AssertionError, match="off the diagonal"):
         cs.check_parts("gram_syrk", bad, ref.mirror_lower(exact()), term(),
                        tol["parts"])
+
+
+def test_bf16_gate_tells_a_b_from_a_b_transposed(cs):
+    """On the kernels phase's non-symmetric case (``nonsymmetric_case``,
+    B not symmetric) the gate passes the plain product and rejects A·Bᵀ:
+    what a kernel that read B's MN-major slices transposed would return.
+    The Gram products' symmetric P and G cannot tell the two apart."""
+    gen = torch.Generator().manual_seed(0)
+    name, _, _, tol, kern, plain, _, term, _, exact = cs.nonsymmetric_case(
+        torch, gen, 2, 328)
+    want = ref.mirror_lower(exact())
+    row = cs.check_parts(name, kern(), want, term(), tol["parts"])
+    assert row["max_err_offdiag"] <= row["allowance_offdiag"]
+    a, b = (inspect.getclosurevars(plain).nonlocals[k] for k in ("a", "bb"))
+    assert not torch.equal(b, b.mT)
+    transposed = ref.mirror_lower(symmul_plain(a, b.mT))
+    with pytest.raises(AssertionError, match="off the diagonal"):
+        cs.check_parts(name, transposed, want, term(), tol["parts"])
+
+
+def test_bf16_gate_sees_a_missing_k_tail(cs):
+    """A SYRK that leaves out the last 64-wide slice of nemotron-4-340b's
+    73728-long contraction (the K-tail a TMA box can miss) fails the gate
+    off the diagonal, at a small m."""
+    _, _, _, tol, kern, _, _, term, _, exact = _cases(cs, 73728)["gram_syrk"]
+    x = kern.__defaults__[0]
+    assert x.shape[-1] == 73728
+    short = ref.mirror_lower(syrk_plain(x[..., :-64]))
+    want = ref.mirror_lower(exact())
+    cs.check_parts("gram_syrk", kern(), want, term(), tol["parts"])
+    with pytest.raises(AssertionError, match="off the diagonal"):
+        cs.check_parts("gram_syrk", short, want, term(), tol["parts"])
 
 
 def test_sample_grid_takes_both_ends_and_a_spread(cs):

@@ -110,7 +110,9 @@ def test_padded_call_pads_rows_and_columns_independently():
     assert seen == [(2, 8, 8), (2, 8, 8), (2, 8, 12)]
     assert out.shape == (2, 5, 5) and torch.equal(out, torch.full((2, 5, 5),
                                                                   7.0))
-    assert TMA_ALIGN == 4
+    assert TMA_ALIGN[torch.float32] == 4
+    padded_call(fn, torch.ones(2, 8, 12, dtype=torch.bfloat16))
+    assert seen[-1] == (2, 8, 16) and TMA_ALIGN[torch.bfloat16] == 8
 
 
 def test_syrk_lower_on_cpu_is_the_mirrored_plain_version():

@@ -113,7 +113,9 @@ def test_padded_call_pads_to_tma_alignment_and_keeps_aliasing():
     padded_call(fn, g, g.clone())
     out = padded_call(fn, torch.ones(1, 8, 8), torch.ones(1, 8, 8))
     assert seen == [(8, True), (8, False), (8, False)]
-    assert TMA_ALIGN == 4 and out.shape == (1, 8, 8)
+    assert TMA_ALIGN[torch.float32] == 4 and out.shape == (1, 8, 8)
+    padded_call(fn, g.to(torch.bfloat16), g.to(torch.bfloat16))
+    assert seen[-1] == (8, False) and TMA_ALIGN[torch.bfloat16] == 8
 
 
 def test_tf32_round_is_round_to_nearest_ties_away():
