@@ -304,6 +304,20 @@ Phases, each printing one JSON line and asserting what it checks:
            without ZeRO-3 by ``tp_gate`` (on a grid of every leaf's
            entries, the first and last 256 and 256 spread over each dim,
            each from the rank that holds it).
+  serve_mesh
+           serving under a mesh (``Scheduler(..., mesh=mesh)``, the
+           contiguous tier), one NCCL rank a card.  One card: smollm-360m
+           at the serve phase's settings on a (1, 1) world, every logit
+           and token bitwise the one-card scheduler on the serve queue.
+           Four cards (``SERVE_MESH_RUNS``): (a) qwen2.5-14b, all 48
+           layers, bf16, 16 slots of 32768 on (1, 4): a 103 GB cache, KV
+           heads split (TTFT, decode step, tokens/s, 5 decode steps traced
+           on rank 0, the decode peak a card beside the walk's,
+           ``serve_mesh_predict``); (b) DeepSeek-V3, 1 layer, 256 experts,
+           on (1, 4): MLA's latent by sequence, experts split; (c)
+           smollm-360m 32 x 2304 on (2, 2): KV by sequence, slots over
+           'data'.  Each mesh run held to rank 0's one-card run of the same
+           requests and parameters by ``serve_gate``.
 
 Then a ``{"kernels": [...]}`` summary line (``launches`` is null unless the
 train phase ran; ``launches_moe`` / ``launches_families`` those of the moe
@@ -370,7 +384,7 @@ PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dropin",
           "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
           "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe",
-          "zero3")
+          "zero3", "serve_mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -5718,6 +5732,364 @@ def phase_serve_paged(torch, smi: str, trace: str | None = None) -> None:
     emit({"phase": "serve_paged", "seconds": time.perf_counter() - t_phase,
           "nvidia_smi": smi})
 
+# ------------------------------------------------------------ serve_mesh
+# Serving under a mesh (``Scheduler(..., mesh=mesh)``, the contiguous
+# tier): on one card a (1, 1) world at the serve phase's settings, bitwise
+# the one-card scheduler; on four cards three runs, each held to one card
+# on the same requests and parameters by ``serve_gate``.  Each run: its
+# config (``serve_mesh_config``), mesh, slots x max_len, chunk and pack,
+# queue (``serve_queue``'s arguments) and its one-card reference's slots
+# x max_len where one card cannot hold the mesh run's cache.
+SERVE_MESH_RUNS = {
+    # qwen2.5-14b, all 48 layers at its widths, bf16 parameters and cache:
+    # 16 slots of 32768 positions, 103.1 GB of K / V, 25.8 GB a card with
+    # its 8 KV heads 2 a card; 16 prompts of 512-4000 tokens (chunks of
+    # 2048), 64 new tokens each.  One card holds the same requests at 8
+    # slots of 4096 (6.4 GB of cache beside 29.5 GB of weights)
+    "a": dict(arch="qwen2.5-14b", mesh=(1, 4), num_slots=16,
+              max_len=32768, chunk_len=2048, prefill_pack=4,
+              queue=dict(n=16, prompt_lens=(512, 1536, 4000),
+                         new_tokens=(64, 64), seed=0),
+              one_card=dict(num_slots=8, max_len=4096)),
+    # DeepSeek-V3 at its widths, the tp_moe phase's cut (1 layer, all 256
+    # experts), bf16: the MLA latent by sequence (1024 rows a card), the
+    # experts 64 a card
+    "b": dict(arch="deepseek-v3-671b", mesh=(1, 4), num_slots=8,
+              max_len=4096, chunk_len=2048, prefill_pack=4,
+              queue=dict(n=12, prompt_lens=(256, 512, 3000),
+                         new_tokens=(16, 32), seed=0), one_card={}),
+    # smollm-360m (fp32 parameters, bf16 cache) on (2, 2): 5 KV heads on
+    # 2 ranks, so the sequence split (1152 rows a card), and 16 of the 32
+    # slots a data rank
+    "c": dict(arch="smollm-360m", mesh=(2, 2), num_slots=32,
+              max_len=SERVE_CONFIG["max_len"], chunk_len=1536,
+              prefill_pack=4,
+              queue=dict(n=48, prompt_lens=(128, 256, 512, 2048),
+                         new_tokens=(16, 64), seed=0), one_card={}),
+}
+SERVE_MESH_TRACE_FROM = 8       # run (a)'s decode steps traced on rank 0
+SERVE_MESH_TRACE_STEPS = 5
+SERVE_MESH_SPREAD_SEED = 5
+
+
+def serve_mesh_config(name: str):
+    """The config of ``SERVE_MESH_RUNS[name]``: qwen in bf16, DeepSeek-V3
+    at the tp_moe phase's cut (1 layer, 256 experts), smollm as the serve
+    phase's."""
+    from repro_torch import configs
+    arch = SERVE_MESH_RUNS[name]["arch"]
+    if arch == "deepseek-v3-671b":
+        return tp_moe_config(1, 256)
+    if arch == "qwen2.5-14b":
+        return configs.get(arch, param_dtype="bfloat16",
+                           compute_dtype="bfloat16")
+    return configs.get(arch)
+
+
+def serve_mesh_scfg(torch, run: dict, one_card: bool = False,
+                    record: bool = False):
+    from repro_torch.serve import ServeConfig
+    geometry = {k: run[k] for k in ("num_slots", "max_len", "chunk_len",
+                                    "prefill_pack")}
+    if one_card:
+        geometry.update(run["one_card"])
+    return ServeConfig(cache_dtype=torch.bfloat16, record_logits=record,
+                       **geometry)
+
+
+def serve_gate(mesh_rec, one_rec, spread_rec, ulp: float = 2.0 ** -23
+               ) -> dict:
+    """The mesh run's logits against one card's on the same requests and
+    parameters, token by token.  ``*_rec``: {rid: (tokens, logits)} of the
+    mesh run, the one-card run and the one-card run from the parameters
+    with a random half of their entries one ulp up.  The mesh's forward
+    differs from one card's by rounding only (row-parallel partial sums
+    reduced over 'model', the vocab's columns gathered, the partials of a
+    sequence split merged), as one ulp on the parameters moves it.  Step
+    i passes where max|mesh − one| <= ``TP_SPREAD`` · b_i, b_i =
+    max(max|spread − one|, ``ulp`` · max|one|).  The greedy tokens must
+    be the same wherever the one-card top-2 margin is at least
+    ``TP_SPREAD`` · b_i; where it is under (a near tie either run may
+    break its own way) a different token ends that request's comparison,
+    as does the spread run's first different token (its later logits
+    follow other inputs).  Returns the worst ratio (max|Δ| over its
+    bound), the steps compared, the near ties and the failures."""
+    import numpy as np
+    worst, steps, ties, bad = 0.0, 0, [], []
+    for rid, (one_toks, one_logits) in one_rec.items():
+        m_toks, m_logits = mesh_rec[rid]
+        s_toks, s_logits = spread_rec[rid]
+        for i, one in enumerate(one_logits):
+            if i >= len(m_logits) or i >= len(s_logits):
+                bad.append(f"rid {rid}: {len(m_logits)} mesh / "
+                           f"{len(s_logits)} spread of {len(one_logits)} "
+                           "tokens")
+                break
+            d = float(np.abs(m_logits[i] - one).max())
+            s = float(np.abs(s_logits[i] - one).max())
+            bound = TP_SPREAD * max(s, ulp * float(np.abs(one).max()))
+            worst = max(worst, d / bound)
+            steps += 1
+            top = np.partition(one, -2)[-2:]
+            margin = float(top[1] - top[0])
+            if margin < bound:
+                ties.append({"rid": rid, "step": i, "margin": margin,
+                             "bound": bound})
+            if m_toks[i] != one_toks[i]:
+                if margin >= bound:
+                    bad.append(f"rid {rid} step {i}: token {m_toks[i]} != "
+                               f"{one_toks[i]} at margin {margin:.4g} >= "
+                               f"{bound:.4g}")
+                break
+            if s_toks[i] != one_toks[i]:
+                break
+    return {"factor": worst, "steps": steps,
+            "tokens": sum(len(t) for t, _ in one_rec.values()),
+            "near_ties": ties, "failures": bad, "spread_factor": TP_SPREAD}
+
+
+def serve_mesh_predict(out: str) -> None:
+    """The dry run's walk (``launch.dryrun.walk_cell``) of run (a)'s decode
+    step: ``serve_mesh_config("a")``, ``num_slots`` x ``max_len`` on a fake
+    world of its mesh, the parameters and the cache as their parts; its
+    JSON to ``out``."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import walk_cell
+    run = SERVE_MESH_RUNS["a"]
+    shape = ShapeSpec("serve_mesh_a", run["max_len"], run["num_slots"],
+                      "decode")
+    result = walk_cell(serve_mesh_config("a"), run["arch"], shape,
+                       run["mesh"], "owner")
+    Path(out).write_text(json.dumps(result, default=str))
+
+
+def start_serve_mesh_predictions() -> list:
+    """Run (a)'s predicted peak (``serve_mesh_predict``,
+    ``start_walks``)."""
+    return start_walks("serve_mesh_predict",
+                       {"serve_a": ("serve_mesh_predict", ())})
+
+
+def recorded(metrics) -> dict:
+    """{rid: (tokens, logits)} of a run with ``record_logits``."""
+    return {r: (v.tokens, v.logits) for r, v in metrics.requests.items()}
+
+
+def serve_mesh_timed(torch, sched, queue, trace: bool) -> tuple:
+    """``sched.run(queue)`` from a cleared peak: (metrics, {"peak_gb": the
+    run's peak, "decode_peak_gb": the peak from the first decode step on
+    (what the dry run's decode walk predicts where every request was
+    admitted before it)}, the traced decode steps' ``trace_summary`` or
+    None).  With ``trace`` ``SERVE_MESH_TRACE_STEPS`` decode steps from
+    the ``SERVE_MESH_TRACE_FROM``-th on run under ``torch.profiler``
+    (this rank's host and card)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step, count, peaks = sched._decode_step, [0], {}
+
+    def watched(metrics, t0):
+        i = count[0]
+        count[0] += 1
+        if i == 0:
+            torch.cuda.synchronize()
+            peaks["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        i -= SERVE_MESH_TRACE_FROM
+        if not (trace and 0 <= i < SERVE_MESH_TRACE_STEPS):
+            return step(metrics, t0)
+        if i == 0:
+            prof.start()
+        with torch.profiler.record_function(f"step{i}"):
+            step(metrics, t0)
+        torch.cuda.synchronize()
+        if i == SERVE_MESH_TRACE_STEPS - 1:
+            prof.stop()
+    sched._decode_step = watched
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = sched.run(queue)
+    torch.cuda.synchronize()
+    peaks["decode_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    peaks["peak_gb"] = max(peaks.get("peak_gb", 0.0),
+                           peaks["decode_peak_gb"])
+    summary = trace_summary(prof, SERVE_MESH_TRACE_STEPS) \
+        if trace and count[0] > SERVE_MESH_TRACE_FROM else None
+    return metrics, peaks, summary
+
+
+def serve_mesh_one(torch, dist, rank: int, world: int) -> None:
+    """One card: smollm-360m at the serve phase's settings (``SERVE_CONFIG``,
+    bf16 cache) on a (1, 1) NCCL world through ``Scheduler(..., mesh=)``,
+    bitwise the one-card scheduler on the serve phase's queue (its
+    ``SERVE_QUEUE`` and the chunked ``SERVE_LONG`` prompt): every logit
+    and every token."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve import Scheduler, ServeConfig
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    cfg = configs.get(SERVE_ARCH)
+    params = transformer.init(cfg, seed=0, device="cuda")
+    scfg = ServeConfig(cache_dtype=torch.bfloat16, record_logits=True,
+                       **SERVE_CONFIG)
+
+    def queue():
+        return serve_queue(cfg, **SERVE_QUEUE,
+                           extra=[serve_long_request(cfg)])
+    t0 = time.perf_counter()
+    plain = Scheduler(cfg, params, scfg).run(queue())
+    on_mesh = Scheduler(cfg, params, scfg, mesh=mesh).run(queue())
+    check_complete("serve_mesh (1, 1)", on_mesh)
+    same = all(plain.requests[r].tokens == v.tokens and all(
+        np.array_equal(a, b) for a, b in zip(plain.requests[r].logits,
+                                             v.logits))
+        for r, v in on_mesh.requests.items())
+    emit({"phase": "serve_mesh", "check": "one_by_one_bitwise_one_card",
+          "arch": cfg.name, "mesh": [1, 1], **SERVE_CONFIG,
+          "requests": len(on_mesh.requests),
+          "tokens": on_mesh.summary()["tokens"], "bitwise": same,
+          "seconds": time.perf_counter() - t0})
+    if not same:
+        raise AssertionError("serve_mesh: the (1, 1) mesh run is not "
+                             "bitwise the one-card scheduler's")
+
+
+def serve_mesh_run(torch, dist, rank: int, world: int, name: str,
+                   measured: Path) -> str | None:
+    """Run ``name`` of ``SERVE_MESH_RUNS`` on this rank: the parameters
+    as this rank's parts (``init_parts``, bitwise the slices of the
+    one-card ``init``), a timed run (peak GB, TTFT, decode step, tokens/s;
+    run (a) traces decode steps on rank 0), then a run with its logits
+    recorded; rank 0 then serves the same requests on its card alone from
+    the whole parameters, and again from them with a random half of their
+    entries one ulp up, and holds the mesh run to it (``serve_gate``).
+    Returns rank 0's failure, or None."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.core import tree
+    from repro_torch.serve import Scheduler
+    from repro_torch.train import serve as serve_fns
+    from repro_torch.train.step import init_parts
+    run = SERVE_MESH_RUNS[name]
+    lead = rank == 0
+    cfg = serve_mesh_config(name)
+    mesh = make_mesh(run["mesh"], ("data", "model"), "cuda")
+    ctx = serve_fns.mesh_context(cfg, mesh)
+    params = init_parts(cfg, 0, "cuda", ctx.specs, mesh)
+    scfg = serve_mesh_scfg(torch, run)
+
+    def queue():
+        return serve_queue(cfg, **run["queue"])
+    t0 = time.perf_counter()
+    sched = Scheduler(cfg, params, scfg, mesh=mesh)
+    cache_gb = sum(v.numel() * v.element_size()
+                   for v in sched.slots.cache.values()) / 1e9
+    timed, peaks, steps = serve_mesh_timed(torch, sched, queue(),
+                                           trace=lead and name == "a")
+    check_complete(f"serve_mesh ({name})", timed)
+    del sched
+    sched = Scheduler(cfg, params, dataclasses.replace(
+        scfg, record_logits=True), mesh=mesh)
+    mesh_rec = recorded(sched.run(queue()))
+    mesh_s = time.perf_counter() - t0
+    del sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, {**peaks, "cache_gb": cache_gb})
+    failure = None
+    if lead:
+        s = serve_summary(timed)
+        emit({"phase": "serve_mesh", "run": name, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "mesh": list(run["mesh"]),
+              "param_dtype": cfg.param_dtype, "cache_dtype": "bfloat16",
+              "num_slots": scfg.num_slots, "max_len": scfg.max_len,
+              "whole_cache_gb": cache_gb * world,
+              "per_rank": per_rank, "queue": run["queue"], **s,
+              "trace": steps, "seconds": mesh_s})
+        if name == "a":
+            measured.write_text(json.dumps(per_rank))
+        t1 = time.perf_counter()
+        whole = transformer.init(cfg, seed=0, device="cuda")
+        one_scfg = serve_mesh_scfg(torch, run, one_card=True, record=True)
+        one = recorded(Scheduler(cfg, whole, one_scfg).run(queue()))
+        gen = torch.Generator("cuda").manual_seed(SERVE_MESH_SPREAD_SEED)
+        with torch.no_grad():
+            for _, v in tree.flatten(whole):
+                if v.is_floating_point():
+                    v.copy_(one_ulp_up(torch, v, gen))
+        spread = recorded(Scheduler(cfg, whole, one_scfg).run(queue()))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        gate = serve_gate(mesh_rec, one, spread)
+        emit({"phase": "serve_mesh", "run": name, "check": "vs_one_card",
+              "one_card": {"num_slots": one_scfg.num_slots,
+                           "max_len": one_scfg.max_len},
+              **{k: v for k, v in gate.items() if k != "near_ties"},
+              "near_ties": gate["near_ties"][:8],
+              "n_near_ties": len(gate["near_ties"]),
+              "seconds": time.perf_counter() - t1})
+        if gate["failures"] or not gate["factor"] <= 1.0:
+            failure = (f"serve_mesh ({name}): factor {gate['factor']:.4g}, "
+                       f"{gate['failures'][:4]}")
+    return failure
+
+
+def serve_mesh_checks(torch, dist, rank: int, world: int,
+                      measured: Path) -> None:
+    """The ``serve_mesh`` phase on one rank: on one card the (1, 1) check
+    (``serve_mesh_one``), on four the runs of ``SERVE_MESH_RUNS``, each
+    failure raised on every rank once its run has ended everywhere."""
+    if world == 1:
+        serve_mesh_one(torch, dist, rank, world)
+        return
+    for name in SERVE_MESH_RUNS:
+        failure = serve_mesh_run(torch, dist, rank, world, name, measured)
+        failures = [None] * world
+        dist.all_gather_object(failures, failure)
+        if failures[0] is not None:
+            raise AssertionError(failures[0])
+
+
+def phase_serve_mesh(torch, smi: str, cells: list) -> None:
+    """Every visible card, one NCCL rank each (spawned, as the tp
+    phases'): on one card ``serve_mesh_one``, on four the runs of
+    ``SERVE_MESH_RUNS``, then run (a)'s peak on each card beside the host
+    walk's prediction of its decode step (``cells``:
+    ``start_serve_mesh_predictions``).  Other counts say so and pass."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+    world = torch.cuda.device_count()
+    if world not in (1, 4):
+        emit({"phase": "serve_mesh", "skipped": f"needs 1 or 4 cards, "
+              f"{world} visible"})
+        return
+    out = ROOT / "build" / "serve_mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    measured = out / "peaks.json"
+    measured.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(nccl_rank, args=(world, free_port(),
+                                        "serve_mesh_checks", measured),
+                       nprocs=world, start_method="spawn", join=True)
+    line = {"phase": "serve_mesh", "world": world,
+            "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+    if world == 4:
+        predicted = tp_predictions(cells)["serve_a"]["peak_gb"]
+        got = json.loads(measured.read_text())
+        decode = [r["decode_peak_gb"] for r in got]
+        line.update({"check": "a_peak_vs_dryrun",
+                     "predicted_decode_peak_gb": predicted,
+                     "measured_decode_peak_gb_per_card": decode,
+                     "measured_run_peak_gb_per_card":
+                         [r["peak_gb"] for r in got],
+                     "predicted_over_measured": predicted / max(decode)})
+    emit(line)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5758,7 +6130,9 @@ def main() -> int:
     tp_cells = (start_tp_predictions() if "tp_qwen" in phases and four
                 else []) + (start_tp_moe_predictions()
                             if "tp_moe" in phases and four else []) + \
-        (start_zero3_predictions() if "zero3" in phases and four else [])
+        (start_zero3_predictions() if "zero3" in phases and four else []) + \
+        (start_serve_mesh_predictions() if "serve_mesh" in phases and four
+         else [])
     try:
         return run_phases(torch, args, phases, cells, tp_cells)
     finally:
@@ -5885,6 +6259,11 @@ def run_phases(torch, args, phases: list, cells: list,
         phase_zero3(torch, smi[0],
                     [c for c in tp_cells if c["cell"].startswith(
                         ("zero3_", "tp_"))], train_runs.get("muon"))
+    if "serve_mesh" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_mesh(torch, smi[0], [c for c in tp_cells
+                                         if c["cell"] == "serve_a"])
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],

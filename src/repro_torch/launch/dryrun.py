@@ -24,19 +24,19 @@ gather / AdamW mode, once; the costs are those of rank 0.  Serve cells run
 ``train/serve.prefill_fn`` / ``decode_fn`` on one rank's rows.  The
 batch is split over the mesh's data axes (``models.sharding.dp_axes``), a
 batch smaller than the data-parallel size run whole on each card.  The
-dense family's train cells walk the tensor-parallel step of
-``train/step.py``: parameters split by ``param_specs`` over the 'model'
-axis (16 cards), the forward's collectives on it; so do the MoE
-family's, its experts split over that axis (expert parallelism).
-nemotron-4-340b's, deepseek-v3-671b's and kimi-k2-1t-a32b's cells
-(``BIG_ARCHS``) run the reference's >= 340 B memory policy: ZeRO-3
-(``param_specs(..., zero3=True)``: the block weights also split over
-'data', gathered a layer at a time), bf16 gradient accumulation and bf16
-optimizer state, and their ``detail`` says so.
-Every other cell keeps the parameters replicated on every card (the
-tensor-parallel forward of the other families and of serving is ROADMAP
-item 6): a model of more than ~10 B parameters does not fit a card in
-that layout, and ``fits_hbm`` says so.  The eager step has no lowering: a
+dense family's train and serve cells walk the tensor-parallel forward:
+parameters split by ``param_specs`` over the 'model' axis (16 cards), the
+forward's collectives on it, and a serve cell's decode cache split by
+``cache_specs``; so do the MoE family's, its experts split over that axis
+(expert parallelism).  nemotron-4-340b's, deepseek-v3-671b's and
+kimi-k2-1t-a32b's cells (``BIG_ARCHS``) run the reference's >= 340 B
+memory policy: ZeRO-3 (``param_specs(..., zero3=True)``: the block
+weights also split over 'data', gathered a layer at a time) and, in
+training, bf16 gradient accumulation and bf16 optimizer state; their
+``detail`` says so.  The other families' cells keep the parameters
+replicated on every card (their tensor-parallel forward is ROADMAP item
+6): a model of more than ~10 B parameters does not fit a card in that
+layout, and ``fits_hbm`` says so.  The eager step has no lowering: a
 cell's ``timings_s`` hold ``build`` (parameters, optimizer state and
 inputs), ``lower`` (0) and ``compile`` (the walked call, where the
 reference compiles).
@@ -77,7 +77,7 @@ from repro_torch.launch.mesh import HBM_BYTES, axis_sizes, \
 from repro_torch.launch.op_walker import OpWalker
 from repro_torch.models import model_fns
 from repro_torch.models.sharding import dp_axes, local_part, param_specs
-from repro_torch.models.tp import model_extent, tensor_parallel
+from repro_torch.models.tp import model_extent, ported, tensor_parallel
 from repro_torch.train.train_state import TrainState
 
 RESULT_DIR = os.path.abspath(os.path.join(
@@ -193,27 +193,49 @@ def build_train_cell(cfg, arch_id, shape, mesh, mode, muon=None,
     return step, (state, inputs), plan
 
 
-def build_serve_cell(cfg, arch_id, shape, mesh):
+def build_serve_cell(cfg, arch_id, shape, mesh, zero3: bool = False,
+                     split: bool = True):
     """(fn, example_args) of one prefill or decode cell on this rank's
-    rows; parameters in the serving dtype (bf16)."""
-    from repro_torch.train.serve import decode_fn, prefill_fn
+    rows; parameters in the serving dtype (bf16).  The dense and MoE
+    families (``split``, their tensor-parallel forward) serve on the
+    reference's layout (``src/repro/launch/dryrun.py:134-175``): the
+    parameters this rank's parts by ``param_specs`` (ZeRO-3's with
+    ``zero3``), the decode cache this rank's part by ``cache_specs``
+    (``train.serve.init_cache_part``), the mesh serving functions on the
+    fake world.  The other families, or ``split=False``, keep every
+    parameter whole on every card and the cache's rows of this rank."""
+    from repro_torch.train import serve as serve_fns
     m = model_fns(cfg)
     sp = _spec(shape)
     params = m.init(cfg, 0, device="cpu")
     inputs = rank_inputs(cfg, sp, mesh)
+    rows = inputs["tokens" if sp.kind == "prefill" else "token"].shape[0]
+    ctx = None
+    if split and ported(cfg):
+        ctx = serve_fns.mesh_context(cfg, mesh, zero3=zero3)
+        params = tree.tree_map(lambda v: v.clone(),
+                               serve_fns.local_params(params, ctx))
+        if rows == sp.global_batch:      # every data rank runs it whole
+            ctx = ctx.whole_batch()
     if sp.kind == "prefill":
         max_len = sp.seq_len + (cfg.frontend_len if cfg.frontend == "patch"
                                 else 0)
+        kw = {} if ctx is None else {"ctx": ctx}
 
         def fn(params, inputs):
-            return prefill_fn(cfg, params, inputs["tokens"], max_len,
-                              **{k: v for k, v in inputs.items()
-                                 if k != "tokens"})
+            return serve_fns.prefill_fn(
+                cfg, params, inputs["tokens"], max_len, **kw,
+                **{k: v for k, v in inputs.items() if k != "tokens"})
         return fn, (params, inputs)
 
     # decode: one token against a seq_len-deep cache
-    rows = inputs["token"].shape[0]
-    if cfg.encdec:
+    kw = {}
+    if ctx is not None:
+        cache, _ = serve_fns.init_cache_part(cfg, sp.global_batch,
+                                             sp.seq_len, mesh,
+                                             torch.bfloat16, "cpu")
+        kw = dict(ctx=ctx, max_len=sp.seq_len)
+    elif cfg.encdec:
         cache = m.init_cache(cfg, rows, sp.seq_len, sp.seq_len,
                              torch.bfloat16, device="cpu")
     else:
@@ -221,7 +243,7 @@ def build_serve_cell(cfg, arch_id, shape, mesh):
                              device="cpu")
 
     def fn(params, token, cache, pos):
-        return decode_fn(cfg, params, token, cache, pos)
+        return serve_fns.decode_fn(cfg, params, token, cache, pos, **kw)
     return fn, (params, inputs["token"], cache, inputs["pos"])
 
 
@@ -252,7 +274,8 @@ def _fake_mesh(mesh_kind):
 
 
 def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
-              muon=None, accum=None, zero3: bool | None = None) -> dict:
+              muon=None, accum=None, zero3: bool | None = None,
+              split: bool = True) -> dict:
     """Build and walk one cell on the fake world; the result's fields
     (``ok`` and after), or an exception.  ``shape``: a name of ``SHAPES``
     or a ``ShapeSpec``; ``mesh_kind``: "single", "multi" or a (data,
@@ -261,7 +284,9 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
     optimizer settings, microbatches and ZeRO-3 with bf16 accumulation,
     ``build_train_cell``).  ``zero3`` None: the arch's memory policy
     (``BIG_ARCHS``) on a production mesh, none on a (data, model)
-    shape."""
+    shape.  ``split=False`` walks a serve cell with the parameters and
+    the cache whole over 'model' (``build_serve_cell``), the layout the
+    split one is held against."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     sp = _spec(shape)
     world = MESH_WORLD.get(mesh_kind) or math.prod(mesh_kind)
@@ -278,7 +303,8 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
                 fn, args, plan = build_train_cell(cfg, arch_id, sp, mesh,
                                                   mode, muon, accum, zero3)
             else:
-                fn, args = build_serve_cell(cfg, arch_id, sp, mesh)
+                fn, args = build_serve_cell(cfg, arch_id, sp, mesh, zero3,
+                                            split)
             t_build = time.time() - t0
 
             t0 = time.time()
@@ -318,6 +344,15 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
             f"parameters split by param_specs over 'model' "
             f"({model_extent(mesh)} cards); {batch}; the tensor-parallel "
             "forward")
+    elif sp.kind != "train" and split and ported(cfg):
+        zero = (f", with ZeRO-3 (the block weights also over 'data', "
+                f"{axis_sizes(mesh)['data']} cards, gathered a layer at a "
+                "time)") if zero3 else ""
+        r.detail["layout"] = (
+            f"parameters split by param_specs over 'model' "
+            f"({model_extent(mesh)} cards){zero}; the decode cache by "
+            "cache_specs (slots over the data axes, KV heads or sequence "
+            f"over 'model'); {batch}; the tensor-parallel forward")
     else:
         r.detail["layout"] = (
             f"parameters replicated on every card; {batch}; no "

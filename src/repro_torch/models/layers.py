@@ -257,11 +257,25 @@ def _dense_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
 def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
     """Online-softmax attention over query blocks × KV blocks with fp32
     running (max, denom, acc): O(S·chunk) memory instead of O(S·T)."""
+    S, T = qg.shape[1], k.shape[1]
+    _, l, acc = _online_softmax(qg, k, v, scale, qpos, kpos, causal, window,
+                                _block_len(S, _Q_CHUNK),
+                                _block_len(T, _KV_CHUNK))
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _online_softmax(qg, k, v, scale, qpos, kpos, causal, window, qc, kc,
+                    round_p: bool = True):
+    """``_chunked_sdpa``'s loop over query blocks of ``qc`` rows × KV blocks
+    of ``kc``: the running (row max (B, S, G, R), sum of exponentials,
+    probability-weighted V (B, S, G, R, hv)) in fp32, unnormalised.  A row
+    that sees no key keeps max -1e30 (the mask's fill), never NaN.
+    ``round_p``: the probabilities cross to the product in the value
+    dtype (the chunked path's rule); fp32 otherwise (the dense path's)."""
     B, S, G, R, hd = qg.shape
     T = k.shape[1]
     hv = v.shape[-1]
-    qc, kc = _block_len(S, _Q_CHUNK), _block_len(T, _KV_CHUNK)
-    outs = []
+    ms, ls, accs = [], [], []
     for q0 in range(0, S, qc):
         q_i = qg[:, q0:q0 + qc].float()
         n = q_i.shape[1]
@@ -284,11 +298,44 @@ def _chunked_sdpa(qg, k, v, scale, qpos, kpos, causal, window):
             # the reference's; the product itself is fp32 (bf16 values are
             # exact in fp32), as its preferred_element_type=float32
             v_j = v[:, k0:k0 + kc]
+            if round_p:
+                p = p.to(v_j.dtype).float()
             acc = acc * corr[..., None] + torch.einsum(
-                "bqgrk,bkgh->bqgrh", p.to(v_j.dtype).float(), v_j.float())
+                "bqgrk,bkgh->bqgrh", p, v_j.float())
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    return torch.cat(outs, dim=1)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return torch.cat(ms, dim=1), torch.cat(ls, dim=1), torch.cat(accs, dim=1)
+
+
+def _sdpa_rows(q, k, v, *, scale, qpos, kpos, causal, window, tp):
+    """Attention of the whole (B, S, H, hd) queries ``q`` over the key rows
+    at ``kpos`` that this rank holds (``k`` / ``v`` (B, T, KV, ·)), merged
+    with every other rank's rows over the model axis ``tp``: each rank's
+    partial (row max, sum of exponentials, weighted V) from
+    ``_online_softmax``, all-gathered and merged by log-sum-exp in rank
+    order, so every rank gets the same bits.  A rank whose rows a query
+    cannot see contributes exp(-1e30 − max) = 0.  The probabilities meet
+    V as ``_sdpa`` would on the whole cache: in the value dtype where it
+    takes the chunked path, in fp32 where the dense one.  (B, S, H, hv) in
+    q's dtype."""
+    B, S, H, hd = q.shape
+    T, KV, hv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    qc = _block_len(S, _Q_CHUNK) if S > _Q_CHUNK else S
+    kc = _block_len(T, _KV_CHUNK) if T > _KV_CHUNK else T
+    chunked = S > _Q_CHUNK and T * tp.size > _KV_CHUNK
+    m, l, acc = _online_softmax(qg, k, v, scale, qpos, kpos, causal, window,
+                                qc, kc, round_p=chunked)
+    part = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    every = tp_lib.gather_stack(part, tp)          # (n, B, S, G, R, hv + 2)
+    ms, ls, accs = every[..., 0], every[..., 1], every[..., 2:]
+    w = torch.exp(ms - ms.amax(0))
+    l = (ls * w).sum(0)
+    acc = (accs * w[..., None]).sum(0)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, S, H, hv).to(q.dtype)
 
 
 def _is_vector(pos) -> bool:
@@ -319,6 +366,48 @@ def _cache_write(leaf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     else:
         p = int(pos)
         leaf[:, p:p + new.shape[1]] = new
+    return leaf
+
+
+def cache_row_range(kv_heads: int, max_len: int,
+                    tp) -> Optional[Tuple[int, int]]:
+    """[lo, hi): the rows of a ``max_len``-position attention cache this
+    rank holds where ``models.sharding.cache_specs`` splits its sequence
+    over the model axis ``tp``: the ``kv_heads`` do not divide the axis
+    and ``max_len`` does (MLA's latent and rope key: ``kv_heads`` 1).
+    None where it holds every row: the heads split (``tp`` divides them),
+    nothing divides (the cache whole on every rank), or no ``tp``."""
+    if tp is None or tp.divides(kv_heads) or not tp.divides(max_len):
+        return None
+    n = max_len // tp.size
+    return tp.rank * n, (tp.rank + 1) * n
+
+
+def _cache_write_rows(leaf: torch.Tensor, new: torch.Tensor, pos,
+                      lo: int) -> torch.Tensor:
+    """``_cache_write`` into this rank's rows [lo, lo + leaf.shape[1]) of a
+    cache split by sequence: the new rows (B, S, ...) at global positions
+    [pos, pos + S) (a scalar ``pos``) or row b at ``pos[b]`` (a (B,)
+    vector, S == 1) land here only where they fall in that range.  The
+    vector write reads and rewrites each row's clamped local index and
+    keeps its old value where the position is another rank's, so no host
+    sync decides who writes."""
+    new = new.to(leaf.dtype)
+    rows = leaf.shape[1]
+    if _is_vector(pos):
+        if new.shape[1] != 1:
+            raise ValueError("vector pos is a single-token decode path")
+        pos = pos.to(leaf.device).long()
+        own = (pos >= lo) & (pos < lo + rows)
+        b = torch.arange(leaf.shape[0], device=leaf.device)
+        idx = (pos - lo).clamp(0, rows - 1)
+        own = own.reshape((-1,) + (1,) * (new.ndim - 2))
+        leaf[b, idx] = torch.where(own, new[:, 0], leaf[b, idx])
+    else:
+        p = int(pos)
+        a, e = max(p, lo), min(p + new.shape[1], lo + rows)
+        if a < e:
+            leaf[:, a - lo:e - lo] = new[:, a - p:e - p]
     return leaf
 
 
@@ -366,7 +455,7 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
               xk: Optional[torch.Tensor] = None,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               pos=None, rope_cs=None, static_cache: bool = False,
-              block_table=None, tp=None):
+              block_table=None, tp=None, cache_rows=None):
     """Self (``xk`` None) or cross attention with an optional KV cache, as
     the reference's ``attention``: self attention is causal, with the
     sliding window, unless ``cfg.causal`` is off, and rotary when
@@ -386,14 +475,20 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
 
     Returns the output (B, S, d), or (output, cache) when a cache is given.
 
-    tp: a ``models.tp.ModelParallel``: the training path's self attention
-    with the projections split over the model axis (``_attention_tp``).
+    tp: a ``models.tp.ModelParallel``: self attention with the projections
+    split over the model axis, without a cache (the training path,
+    ``_attention_tp``) or with this rank's part of a contiguous one (the
+    serving path, ``_attention_cached_tp``; ``cache_rows`` the rows it
+    holds where the cache is split by sequence, ``cache_row_range``).
     """
     if tp is not None:
-        if cache is not None or xk is not None:
-            raise ValueError("tensor-parallel attention is the training "
-                             "path: self attention, no cache")
-        return _attention_tp(p, cfg, x, rope_cs, tp)
+        if xk is not None or block_table is not None or static_cache:
+            raise ValueError("tensor-parallel attention is self attention "
+                             "over a contiguous cache or none")
+        if cache is None:
+            return _attention_tp(p, cfg, x, rope_cs, tp)
+        return _attention_cached_tp(p, cfg, x, cache, pos, rope_cs, tp,
+                                    cache_rows)
     if block_table is not None and (cache is None or xk is not None):
         raise ValueError("the paged cache is a self-attention cache path")
     B, S, _ = x.shape
@@ -441,6 +536,80 @@ def _whole(t: torch.Tensor, split: bool, tp) -> torch.Tensor:
     if split:
         return tp_lib.gather_from_model(t, tp, -1, reduce_grad=True)
     return tp_lib.copy_to_model(t, tp)
+
+
+def _gathered(t: torch.Tensor, split: bool, tp) -> torch.Tensor:
+    """A column projection's (B, T, F) output whole on every rank (the
+    serving path: no gradient)."""
+    return tp_lib.gather_from_model(t, tp, -1) if split else t
+
+
+def _row_parallel(p: Params, out: torch.Tensor, split: bool, tp,
+                  local: bool = False) -> torch.Tensor:
+    """The row-parallel out-projection of ``out`` (B, S, F): where its rows
+    are split, this rank's F / tp columns of ``out`` (``out`` already them
+    with ``local``) through its rows, the partial sums reduced over the
+    model axis; whole otherwise."""
+    if not split:
+        return linear(p, out)
+    if not local:
+        w = out.shape[-1] // tp.size
+        out = out[..., tp.rank * w:(tp.rank + 1) * w]
+    return tp_lib.reduce_from_model(linear(p, out), tp)
+
+
+def _attention_cached_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, cache,
+                         pos, rope_cs, tp, rows):
+    """Self attention of the replicated (B, S, d) ``x`` over this rank's
+    part of the cache placed by ``cache_specs`` (the serving path, under
+    ``torch.inference_mode``): q / k / v column-parallel, o row-parallel,
+    as ``_attention_tp``.  Three layouts:
+
+    * heads split (the KV heads divide the axis, so the query heads do):
+      each rank writes and attends its own heads, no collective inside;
+    * sequence split (``rows`` [lo, hi)): the new k / v and the queries
+      are gathered to whole heads, each rank writes the new rows that fall
+      in its range and attends its rows, masked by global position, and
+      the partials merge over the axis (``_sdpa_rows``);
+    * whole (nothing divides): the cache is the same on every rank, which
+      attends as one card does on the whole heads.
+
+    The rotary embeddings take each query's and key's global position
+    (``rope_cs``, the same on every rank)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = tp.size
+    q_split, kv_split = tp.divides(H * hd), tp.divides(KV * hd)
+    heads = tp.divides(KV)
+    q = linear(p["q_proj"], x)
+    k, v = linear(p["k_proj"], x), linear(p["v_proj"], x)
+    if heads:
+        q = q.reshape(B, S, H // n, hd)
+        k, v = (t.reshape(B, S, KV // n, hd) for t in (k, v))
+    else:
+        q = _gathered(q, q_split, tp).reshape(B, S, H, hd)
+        k, v = (_gathered(t, kv_split, tp).reshape(B, S, KV, hd)
+                for t in (k, v))
+    cos_q, sin_q, cos_k, sin_k = rope_cs
+    q, k = apply_rope(q, cos_q, sin_q), apply_rope(k, cos_k, sin_k)
+    scale = 1.0 / math.sqrt(hd)
+    qpos = _query_positions(pos, S, x.device)
+    if rows is None or heads:
+        k_c, v_c = _cache_write(cache[0], k, pos), _cache_write(cache[1], v,
+                                                                pos)
+        out = _sdpa(q, k_c, v_c, scale=scale, qpos=qpos,
+                    kpos=torch.arange(k_c.shape[1], device=x.device),
+                    causal=cfg.causal, window=cfg.sliding_window)
+    else:
+        lo, hi = rows
+        k_c = _cache_write_rows(cache[0], k, pos, lo)
+        v_c = _cache_write_rows(cache[1], v, pos, lo)
+        out = _sdpa_rows(q, k_c, v_c, scale=scale, qpos=qpos,
+                         kpos=torch.arange(lo, hi, device=x.device),
+                         causal=cfg.causal, window=cfg.sliding_window, tp=tp)
+    out = _row_parallel(p["o_proj"], out.reshape(B, S, -1), q_split, tp,
+                        local=heads)
+    return out, cache
 
 
 def _kv_groups(k: torch.Tensor, n_heads: int, tp) -> torch.Tensor:
@@ -563,7 +732,8 @@ def mla_init(gen, cfg: MLAConfig, *, lead: tuple = (), dtype=torch.float32,
 
 def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  pos=None, rope_cs=None, block_table=None, tp=None):
+                  pos=None, rope_cs=None, block_table=None, tp=None,
+                  cache_rows=None):
     """Multi-head Latent Attention: q through the rank-``q_lora_rank``
     bottleneck, k and v expanded from the normalised latent ``c_kv`` plus
     one rope key shared by every head.  The v head dim may differ from the
@@ -575,13 +745,18 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
     per-row tables, as ``attention``'s.  Returns the output, or
     (output, cache) when a cache is given.
 
-    tp: a ``models.tp.ModelParallel``: the training path with the
-    projections split over the model axis (``_mla_tp``)."""
+    tp: a ``models.tp.ModelParallel``: the projections split over the
+    model axis, without a cache (the training path, ``_mla_tp``) or with
+    this rank's part of a contiguous one (the serving path,
+    ``_mla_cached_tp``; ``cache_rows`` as ``attention``'s)."""
     if tp is not None:
-        if cache is not None:
-            raise ValueError("tensor-parallel MLA is the training path: no "
-                             "cache")
-        return _mla_tp(p, cfg, x, rope_cs, tp)
+        if block_table is not None:
+            raise ValueError("tensor-parallel MLA reads a contiguous cache "
+                             "or none")
+        if cache is None:
+            return _mla_tp(p, cfg, x, rope_cs, tp)
+        return _mla_cached_tp(p, cfg, x, cache, pos, rope_cs, tp,
+                              cache_rows)
     if block_table is not None and cache is None:
         raise ValueError("block_table needs the paged cache")
     B, S, _ = x.shape
@@ -693,6 +868,59 @@ def _mla_tp(p: Params, cfg: MLAConfig, x: torch.Tensor, rope_cs, tp):
     if o_split:
         return tp_lib.reduce_from_model(linear(p["o_proj"], out), tp)
     return linear(p["o_proj"], out)
+
+
+def _mla_cached_tp(p: Params, cfg: MLAConfig, x: torch.Tensor, cache, pos,
+                   rope_cs, tp, rows):
+    """MLA of the replicated (B, S, d) ``x`` over this rank's part of the
+    cache placed by ``cache_specs`` (the serving path): the latent and the
+    rope key are split by sequence (``rows``) or whole, while ``kv_b_proj``
+    is split by heads.  The down-projections are gathered whole (as
+    ``_mla_tp``'s), each rank writes the new latent / rope rows that fall
+    in its range, and the cache's rows are then all-gathered over the axis,
+    so each rank expands the whole latent through its own ``kv_b_proj``
+    columns and attends its own heads (head-parallel where the heads divide
+    the axis).  Where they do not, the q_b / kv_b outputs are gathered to
+    whole heads and every rank attends all of them alike."""
+    B, S, _ = x.shape
+    H, n = cfg.n_heads, tp.size
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    qb_split, kvb_split = tp.divides(H * (nd + rd)), tp.divides(H * (nd + vd))
+
+    def down(name, width):
+        """The whole down-projection, alike on every rank."""
+        return _gathered(linear(p[name], x), tp.divides(width), tp)
+    q = linear(p["q_b_proj"], rmsnorm(p["q_a_norm"],
+                                      down("q_a_proj", cfg.q_lora_rank)))
+    kv_a = down("kv_a_proj", r + rd)
+    c_kv = rmsnorm(p["kv_a_norm"], kv_a[..., :r])
+    cos_q, sin_q, cos_k, sin_k = rope_cs
+    k_rope = apply_rope(kv_a[..., r:].reshape(B, S, 1, rd), cos_k, sin_k)
+    if rows is None:
+        c_kv = _cache_write(cache[0], c_kv, pos)
+        k_rope = _cache_write(cache[1], k_rope, pos)
+    else:
+        c_kv, k_rope = (tp_lib.gather_from_model(
+            _cache_write_rows(leaf, new, pos, rows[0]), tp, 1)
+            for leaf, new in zip(cache, (c_kv, k_rope)))
+    T = c_kv.shape[1]
+    heads = tp.divides(H)
+    h = H // n if heads else H
+    kv = linear(p["kv_b_proj"], c_kv)
+    if not heads:
+        q, kv = _gathered(q, qb_split, tp), _gathered(kv, kvb_split, tp)
+    q = q.reshape(B, S, h, nd + rd)
+    kv = kv.reshape(B, T, h, nd + vd)
+    qf = torch.cat([q[..., :nd], apply_rope(q[..., nd:], cos_q, sin_q)],
+                   dim=-1)
+    k = torch.cat([kv[..., :nd], k_rope.expand(B, T, h, rd)], dim=-1)
+    out = _sdpa(qf, k, kv[..., nd:], scale=1.0 / math.sqrt(nd + rd),
+                qpos=_query_positions(pos, S, x.device),
+                kpos=torch.arange(T, device=x.device), causal=True)
+    out = _row_parallel(p["o_proj"], out.reshape(B, S, h * vd),
+                        tp.divides(H * vd), tp, local=heads)
+    return out, cache
 
 
 # --------------------------------------------------------------------- MLPs

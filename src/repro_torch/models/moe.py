@@ -166,17 +166,21 @@ def moe(p, cfg: MoEConfig, x: torch.Tensor, *, tp=None,
     written twice, so forward and backward are deterministic.
 
     dp: a ``models.tp.DataParallel`` when ``x`` is this rank's rows of a
-    global batch split over the data axes.  The reference dispatches the
-    global batch (T = B·S of every rank, rank 0's rows first): C counts
-    every rank's tokens, and an assignment is kept exactly when its rank
-    among every rank's assignments to its expert is below C.  A kept
+    global batch split over the data axes (a training batch, or the
+    serving decode's slots: every data rank runs every MoE layer of every
+    decode step, so each makes the counts' all-gather and its own read of
+    its buffer length; a prefill every data rank runs whole passes none).
+    The reference dispatches the global batch (T = B·S of every rank,
+    rank 0's rows first): C counts every rank's tokens, and an assignment
+    is kept exactly when its rank among every rank's assignments to its
+    expert is below C.  A kept
     token's output does not depend on the other tokens of its buffer, so
     each rank still runs only its own tokens, in buffers as long as it
     keeps of its fullest expert (``_dispatch``: one read to the host a
     call), not the global C.
 
-    tp: a ``models.tp.ModelParallel`` (the training path; ``x``
-    replicated over the model axis).  Where the experts divide the axis
+    tp: a ``models.tp.ModelParallel`` (training and the serving path;
+    ``x`` replicated over the model axis).  Where the experts divide the axis
     (``param_specs``' guard) the leaves are this rank's E/tp experts and
     ``router_w``'s columns: the local logits are gathered to (T, E), the
     routing and the dispatch are then the same on every rank, each rank

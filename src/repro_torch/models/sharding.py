@@ -13,9 +13,13 @@ one major), as the reference's ``PartitionSpec``.  ``placements`` turns a
 spec into the ``DTensor`` placements of a ``DeviceMesh``, and ``place`` a
 tree by a spec table.  The mesh is a ``DeviceMesh`` or any object with
 ``mesh_dim_names`` and a ``shape`` tuple (the rules read shapes only).
-``input_shardings`` and ``cache_specs`` are the serving rules: the port
-serves on one card today (a sharded forward is ROADMAP item 6), and they
-are held equal to the reference's entry for entry.
+``input_shardings`` and ``cache_specs`` are the serving rules, held equal
+to the reference's entry for entry: the serving tier on a mesh
+(``serve.Scheduler(..., mesh=...)``, the dense and MoE families) allocates
+each cache leaf as this rank's part (``local_shape``) from the start.  The
+families without a tensor-parallel forward, and the paged pool, still
+serve on one card (ROADMAP item 6; the reference refuses the paged pool
+under a mesh too).
 """
 
 from __future__ import annotations
@@ -129,6 +133,20 @@ def placements(spec: Spec, mesh) -> tuple:
                              f"in mesh order {mesh.mesh_dim_names}")
         for i in dims:
             out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape, spec: Spec, mesh) -> tuple:
+    """The shape of this rank's part of a leaf of ``shape`` under
+    ``spec``: each split dim divided by the extent of the axes that split
+    it (``local_part``'s result, with no tensor to cut)."""
+    out = list(shape)
+    for i, p in enumerate(placements(spec, mesh)):
+        if p.is_shard():
+            if out[p.dim] % mesh.size(i):
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split over {mesh.size(i)} ranks")
+            out[p.dim] //= mesh.size(i)
     return tuple(out)
 
 

@@ -198,6 +198,16 @@ def gather_over_data(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
     return out
 
 
+def gather_stack(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """(mp.size, *x.shape): every model rank's ``x``, in rank order, the
+    same on every rank (no gradient: the serving path's attention
+    partials, ``layers._sdpa_rows``)."""
+    out = x.new_empty((mp.size,) + tuple(x.shape))
+    dist.all_gather_into_tensor(out, x.detach().contiguous()[None],
+                                group=mp.group)
+    return out
+
+
 # ------------------------------------------------------------ collectives
 
 def _all_reduce(x: torch.Tensor, mp: ModelParallel,

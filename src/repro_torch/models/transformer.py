@@ -230,7 +230,8 @@ def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
                  global_layer: bool = False, *, cache=None, ssm_state=None,
-                 pos=None, block_table=None, tp=None, dp=None):
+                 pos=None, block_table=None, tp=None, dp=None,
+                 cache_rows=None):
     """Residual block; ``global_layer`` drops the sliding window (hymba's
     ``global_layers``, the reference's per-layer window flag).  With this
     layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``
@@ -239,13 +240,17 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
     and MoE families' training path) the block's leaves are this rank's
     parts and ``x`` is replicated over the model axis: the attention (GQA
     or MLA) and the MLP or MoE each reduce their row-parallel partial sums
-    once, before the residual add.  ``dp``: the data axes the MoE dispatch
+    once, before the residual add; a ``cache`` is then this rank's part
+    (``cache_rows``: the rows it holds where it is split by sequence,
+    ``layers.cache_row_range``).  ``dp``: the data axes the MoE dispatch
     ranks its tokens over (``moe.moe``)."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     kw = {} if cache is None else dict(cache=cache, pos=pos,
                                        block_table=block_table)
     if tp is not None:
         kw["tp"] = tp
+        if cache is not None:
+            kw["cache_rows"] = cache_rows
     if cfg.attn_kind == "mla":
         attn_out = layers.mla_attention(p["attn"], cfg.mla, h,
                                         rope_cs=rope_cs, **kw)
@@ -292,7 +297,17 @@ def _check_tp(cfg: ArchConfig, tp) -> None:
     if tp is not None and tp.size > 1 and not tp_lib.ported(cfg):
         raise NotImplementedError(
             f"the tensor-parallel forward of the {cfg.family} family is not "
-            "ported (ROADMAP item 6); train it on a (world, 1) mesh")
+            "ported (ROADMAP item 6); train it on a (world, 1) mesh and "
+            "serve it on one card")
+
+
+def _serve_tp(cfg: ArchConfig, tp):
+    """The serving entry points' model axis: ``tp`` where it has more than
+    one rank (refused for a family without the tensor-parallel forward),
+    else None, so a model axis of one rank runs the one-card code
+    bitwise."""
+    _check_tp(cfg, tp)
+    return tp if tp is not None and tp.size > 1 else None
 
 
 def _xlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
@@ -429,12 +444,28 @@ def _xlstm_forward(cfg: ArchConfig, params: Params,
 # ------------------------------------------------------------ serving paths
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device: DeviceLike = None):
+               dtype=torch.bfloat16, device: DeviceLike = None, *, tp=None):
     """Zeroed decode cache (module docstring) of ``batch`` rows of
     ``max_len`` positions on ``device`` (CUDA unless given; ``"meta"``
     builds shapes only).  The xLSTM memories and the SSM states are fp32
-    whatever ``dtype``, as the reference's."""
+    whatever ``dtype``, as the reference's.
+
+    ``tp`` (a ``models.tp.ModelParallel``; the dense and MoE families):
+    this rank's part over the model axis as ``models.sharding.cache_specs``
+    places it, the batch whole: the KV heads split where they divide the
+    axis, else the sequence where ``max_len`` does
+    (``layers.cache_row_range``), else the whole cache; MLA's latent and rope
+    key by sequence, or whole."""
     _check_decoder(cfg)
+    tp = _serve_tp(cfg, tp)
+    kv_heads = cfg.n_kv_heads
+    if tp is not None:
+        rows = layers.cache_row_range(
+            1 if cfg.attn_kind == "mla" else kv_heads, max_len, tp)
+        if rows is not None:
+            max_len = rows[1] - rows[0]
+        elif cfg.attn_kind != "mla" and tp.divides(kv_heads):
+            kv_heads //= tp.size
     device = resolve_device(device)
     dtype = as_dtype(dtype)
     L = cfg.n_layers
@@ -457,7 +488,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         cache["krope"] = zeros((L, batch, eff_len, 1, cfg.mla.qk_rope_dim),
                                dtype=dtype)
     else:
-        kvshape = (L, batch, eff_len, cfg.n_kv_heads, cfg.hd)
+        kvshape = (L, batch, eff_len, kv_heads, cfg.hd)
         cache["k"] = zeros(kvshape, dtype=dtype)
         cache["v"] = zeros(kvshape, dtype=dtype)
     if cfg.family == "hybrid":
@@ -514,30 +545,56 @@ def init_paged_cache(cfg: ArchConfig, batch: int, num_blocks: int,
 
 
 def _cache_scan(cfg: ArchConfig, params: Params, x: torch.Tensor, cache, *,
-                pos, positions: torch.Tensor, block_tables=None):
+                pos, positions: torch.Tensor, block_tables=None, tp=None,
+                dp=None, zero=None, max_len: Optional[int] = None):
     """The blocks over the decode cache, one layer at a time, each reading
     and writing its own view of every leaf: shared by prefill (pos 0),
     chunked prefill (a scalar offset) and decode (a scalar, or a (B,)
     tensor of per-slot positions).  ``block_tables`` (B, W) reads and
     writes the attention leaves as (L, P, bs, ...) pools, one table for
-    every layer."""
+    every layer.  ``tp`` / ``dp`` / ``zero``: the mesh context of the
+    serving entry points (``prefill``), the cache this rank's part of a
+    ``max_len``-position cache (``init_cache(..., tp=...)``)."""
     rope_cs = _rope_for(cfg, positions)
     keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
     kv = [cache[k].unbind(0) for k in keys]
     hybrid = cfg.family == "hybrid"
     if hybrid:
         conv, ssm_h = cache["conv"].unbind(0), cache["ssm_h"].unbind(0)
+    mesh_kw = {}
+    if tp is not None:
+        mesh_kw = dict(tp=tp, cache_rows=layers.cache_row_range(
+            1 if cfg.attn_kind == "mla" else cfg.n_kv_heads,
+            _whole_len(cfg, kv[0][0], tp, max_len), tp))
+    if dp is not None and cfg.moe is not None:
+        mesh_kw["dp"] = dp
+    block = _block_apply if zero is None else \
+        functools.partial(_gathered_block, zero)
     for l, bp in enumerate(unbound_layers(params["blocks"])):
         state = (conv[l], ssm_h[l]) if hybrid else None
-        x, _, state = _block_apply(
+        x, _, state = block(
             cfg, bp, x, rope_cs,
             global_layer=hybrid and l in cfg.global_layers,
             cache=(kv[0][l], kv[1][l]), ssm_state=state, pos=pos,
-            block_table=block_tables)
+            block_table=block_tables, **mesh_kw)
         if hybrid:
             conv[l].copy_(state[0])
             ssm_h[l].copy_(state[1])
     return x, cache
+
+
+def _whole_len(cfg: ArchConfig, leaf: torch.Tensor, tp,
+               max_len: Optional[int]) -> int:
+    """The positions of the whole cache of which ``leaf`` (one layer's
+    (B, rows, ...) attention leaf) is this rank's part.  A GQA cache whose
+    KV heads split holds every row; otherwise its rows alone cannot tell a
+    sequence split from a whole cache, so the caller names ``max_len``."""
+    if cfg.attn_kind != "mla" and tp.divides(cfg.n_kv_heads):
+        return leaf.shape[1]
+    if max_len is None:
+        raise ValueError("a tensor-parallel cache split by sequence or "
+                         "whole needs its max_len")
+    return max_len
 
 
 def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -553,50 +610,73 @@ def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     return x
 
 
-def _last_logits(cfg: ArchConfig, params: Params,
-                 x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits (B, vocab) of the last position."""
+def _last_logits(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                 tp=None) -> torch.Tensor:
+    """fp32 logits (B, vocab) of the last position; with ``tp`` (the vocab
+    split over the model axis) each rank's columns gathered whole, so every
+    rank samples the same token."""
     x = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return layers.unembed(head, x)[:, 0]
+    vocab_tp = _split(tp, cfg.vocab)
+    logits = layers.unembed(head, x, tp=vocab_tp)[:, 0]
+    if vocab_tp is None:
+        return logits
+    return tp_lib.gather_from_model(logits, vocab_tp, -1)
 
 
 @torch.inference_mode()
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             max_len: int, *, patches: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, tp=None, dp=None, zero=None):
     """Process the prompt: (last-token logits (B, vocab) fp32, a filled
     cache of ``max_len`` positions).  VLM / audio-frontend archs prepend
     the projected patch / frame embeddings; the cache then covers prefix +
-    prompt, and decode positions continue at ``frontend_len + S``."""
+    prompt, and decode positions continue at ``frontend_len + S``.
+
+    Under a mesh (the dense and MoE families; ``src/repro/train/serve.py``
+    under GSPMD): ``tp`` (a ``models.tp.ModelParallel``) runs the
+    tensor-parallel forward on this rank's parameter parts
+    (``param_specs``) and fills this rank's part of the cache
+    (``init_cache(..., tp=...)``); the embedding and the head are
+    vocab-parallel and the logits gathered whole.  ``dp`` (a
+    ``models.tp.DataParallel``): ``tokens`` are this rank's rows of a batch
+    split over the data axes, which the MoE dispatch ranks over the whole
+    batch.  ``zero`` (a ``models.tp.ZeroShards``): the block weights split
+    over 'data' too, gathered a layer at a time (ZeRO-3)."""
     _check_decoder(cfg)
+    tp = _serve_tp(cfg, tp)
     x = _embed(cfg, params, tokens, patches if patches is not None
-               else frames)
+               else frames, tp=_split(tp, cfg.vocab))
     B, S = x.shape[:2]
-    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=x.device, tp=tp)
     if cfg.family == "ssm":
         x, cache = _xlstm_serve(cfg, params, x, cache)
     else:
         x, cache = _cache_scan(cfg, params, x, cache, pos=0,
-                               positions=torch.arange(S, device=x.device))
-    return _last_logits(cfg, params, x), cache
+                               positions=torch.arange(S, device=x.device),
+                               tp=tp, dp=dp, zero=zero, max_len=max_len)
+    return _last_logits(cfg, params, x, tp), cache
 
 
 @torch.inference_mode()
 def prefill_chunk(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-                  cache, pos, block_tables=None):
+                  cache, pos, block_tables=None, *, tp=None, dp=None,
+                  zero=None, max_len: Optional[int] = None):
     """Continue a prefill: write a prompt chunk at positions
     [pos, pos + S) of an existing cache (chunked prefill of prompts too
     long for one call).  Token-only: frontend archs prepend their prefix in
     the first full prefill.  ``block_tables`` (1, W): write the chunk
     straight into a paged pool cache through the request's block table
     (serve/paged.py's admission path).  Returns (chunk-final logits,
-    cache)."""
+    cache).  ``tp`` / ``dp`` / ``zero`` as ``prefill``'s, the cache this
+    rank's part of a ``max_len``-position cache (needed where the KV heads
+    do not divide the model axis)."""
     _check_decoder(cfg)
     if cfg.frontend is not None:
         raise ValueError("chunked prefill is token-only")
-    x = _embed(cfg, params, tokens)
+    tp = _serve_tp(cfg, tp)
+    x = _embed(cfg, params, tokens, tp=_split(tp, cfg.vocab))
     S = x.shape[1]
     if cfg.family == "ssm":
         x, cache = _xlstm_serve(cfg, params, x, cache)
@@ -604,29 +684,35 @@ def prefill_chunk(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         x, cache = _cache_scan(
             cfg, params, x, cache, pos=pos,
             positions=layers._query_positions(pos, S, x.device),
-            block_tables=_tables(block_tables, x.device))
-    return _last_logits(cfg, params, x), cache
+            block_tables=_tables(block_tables, x.device), tp=tp, dp=dp,
+            zero=zero, max_len=max_len)
+    return _last_logits(cfg, params, x, tp), cache
 
 
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
-                cache, pos, block_tables=None):
+                cache, pos, block_tables=None, *, tp=None, dp=None,
+                zero=None, max_len: Optional[int] = None):
     """One decode step: (B,) token ids + cache + pos -> (logits (B, vocab)
     fp32, cache).  pos is a scalar (every row at the same depth) or a (B,)
     tensor of per-row positions (slot-based continuous batching).
     ``block_tables`` (B, W) reads and writes the attention cache through
     per-slot block tables over a paged pool (serve/paged.py); recurrent
-    state is unaffected."""
+    state is unaffected.  ``tp`` / ``dp`` / ``zero`` / ``max_len`` as
+    ``prefill_chunk``'s: with ``dp`` the rows are this rank's slots of the
+    decode batch split over the data axes."""
     _check_decoder(cfg)
-    x = _embed(cfg, params, token[:, None])
+    tp = _serve_tp(cfg, tp)
+    x = _embed(cfg, params, token[:, None], tp=_split(tp, cfg.vocab))
     if cfg.family == "ssm":
         x, cache = _xlstm_serve(cfg, params, x, cache)
     else:
         x, cache = _cache_scan(
             cfg, params, x, cache, pos=pos,
             positions=layers._query_positions(pos, 1, x.device),
-            block_tables=_tables(block_tables, x.device))
-    return _last_logits(cfg, params, x), cache
+            block_tables=_tables(block_tables, x.device), tp=tp, dp=dp,
+            zero=zero, max_len=max_len)
+    return _last_logits(cfg, params, x, tp), cache
 
 
 def _tables(block_tables, device):

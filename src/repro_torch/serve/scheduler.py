@@ -34,8 +34,24 @@ values.
 
 ``run_oneshot`` is the static-batch baseline: FIFO rounds of ``batch``
 requests prefilled together and decoded in lockstep until the slowest
-request in the round finishes.  Serving under a mesh (``mesh=``) needs
-the tensor-parallel forward, ROADMAP item 6.
+request in the round finishes.
+
+Under a ("data", "model") mesh (``mesh=``; the reference's
+``Scheduler(..., mesh=mesh)``, scheduler.py:109-116) every rank runs this
+same host loop on a ``torch.distributed`` world of one process a card,
+and makes the same decisions: the queue, admission and eviction are
+deterministic, and where requests are still to arrive the ranks agree on
+the clock (the largest of theirs).  The parameters are this rank's parts
+(``param_specs``), the slot cache this rank's part (``cache_specs``:
+slots over the data axes, KV heads or sequence over 'model').  Each
+packed or chunked prefill runs on every rank of the data axes, on the
+whole group, and each keeps the rows of the slots it holds; each decode
+step runs this rank's slot rows, and the sampled logits are all-gathered
+over the data axes so every rank advances every slot.  Each rank records
+its own ``ServeMetrics`` (report rank 0's).  On a mesh of one rank every
+collective is the identity and the run is bitwise the one-card
+scheduler's.  The families without a tensor-parallel forward and the
+paged pool (refused by the reference too) serve on one card.
 """
 
 from __future__ import annotations
@@ -46,18 +62,21 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree
 from repro_torch.device import DeviceLike
 from repro_torch.models import model_fns
+from repro_torch.models import tp as tp_lib
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.paged import PagedSlotManager, PreemptedSlot
 from repro_torch.serve.queue import Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
 from repro_torch.train import serve as serve_fns
 
-MESH = ("serving under a mesh needs the tensor-parallel forward, ROADMAP "
-        "item 6")
+# the reference's refusal (src/repro/serve/scheduler.py:110-113)
+PAGED_MESH = ("paged pool sharding is follow-up work; serve paged caches "
+              "single-process for now")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +135,13 @@ class Scheduler:
         if scfg.preempt_every is not None and not self.paged:
             raise ValueError("preempt_every drills need kv='paged' "
                              "(contiguous slots cannot resume)")
+        # under a mesh: the mesh seen from this rank (module docstring)
+        self.ctx: Optional[serve_fns.MeshContext] = None
         if mesh is not None:
-            raise NotImplementedError(MESH)
+            if self.paged:
+                raise NotImplementedError(PAGED_MESH)
+            self.ctx = serve_fns.mesh_context(cfg, mesh)
+            params = serve_fns.local_params(params, self.ctx)
         self.device = _params_device(params)
         if device is not None and torch.device(device) != self.device:
             raise ValueError(f"parameters are on {self.device}, not on the "
@@ -136,7 +160,7 @@ class Scheduler:
             self.slots = SlotManager(cfg, scfg.num_slots, scfg.max_len,
                                      cache_dtype=scfg.cache_dtype,
                                      enc_len=scfg.enc_len,
-                                     device=self.device)
+                                     device=self.device, mesh=mesh)
         # paged slots round max_len up to whole blocks; every staging cache
         # takes the same length, so the gathered view matches it
         self.max_len = self.slots.max_len
@@ -151,6 +175,13 @@ class Scheduler:
         self._direct_chunk = self._use_tables and cfg.family != "hybrid"
         self._resume: List[PreemptedSlot] = []   # preempted, awaiting blocks
         self._steps = 0                          # decode steps (drill clock)
+        if self.ctx is not None:
+            # prefill runs the whole group on every data rank; decode this
+            # rank's slots, ranked over the data axes only where they split
+            self._prefill_ctx = self.ctx.whole_batch()
+            first, end = self.slots.rows
+            self._decode_ctx = self.ctx if end - first < scfg.num_slots \
+                else self._prefill_ctx
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -164,6 +195,8 @@ class Scheduler:
         key = _frontend_key(self.cfg)
         if key is not None:
             kw[key] = self._tensor(np.stack([r.frames for r in group]))
+        if self.ctx is not None:
+            kw["ctx"] = self._prefill_ctx
         return serve_fns.prefill_fn(self.cfg, self.params, toks,
                                     self.max_len,
                                     cache_dtype=self.scfg.cache_dtype, **kw)
@@ -171,15 +204,19 @@ class Scheduler:
     def _prefill_chunked(self, req: Request):
         """Stream one long prompt through the cache in chunk_len pieces."""
         c = self.scfg.chunk_len
+        kw, mesh_kw = {}, {}
+        if self.ctx is not None:
+            kw = dict(tp=self.ctx.tp)
+            mesh_kw = dict(ctx=self._prefill_ctx, max_len=self.max_len)
         cache = model_fns(self.cfg).init_cache(
             self.cfg, 1, self.max_len, self.scfg.cache_dtype,
-            device=self.device)
+            device=self.device, **kw)
         toks = np.asarray(req.tokens)[None]
         logits = None
         for off in range(0, req.prompt_len, c):
             logits, cache = serve_fns.prefill_chunk_fn(
                 self.cfg, self.params, self._tensor(toks[:, off:off + c]),
-                cache, off)
+                cache, off, **mesh_kw)
         return logits, cache
 
     def _prefill_chunked_paged(self, req: Request):
@@ -296,11 +333,14 @@ class Scheduler:
         if n_active == 0:
             return
         t_start = time.perf_counter()
-        tables = (self._tensor(slots.block_tables()) if self._use_tables
-                  else None)
-        logits, slots.cache = serve_fns.decode_fn(
-            self.cfg, self.params, self._tensor(slots.tok), slots.cache,
-            self._tensor(slots.pos), block_tables=tables)
+        if self.ctx is None:
+            tables = (self._tensor(slots.block_tables()) if self._use_tables
+                      else None)
+            logits, slots.cache = serve_fns.decode_fn(
+                self.cfg, self.params, self._tensor(slots.tok), slots.cache,
+                self._tensor(slots.pos), block_tables=tables)
+        else:
+            logits = self._decode_mesh()
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()  # host sync
         self._steps += 1
         metrics.on_decode_step(time.perf_counter() - t_start, n_active)
@@ -319,6 +359,34 @@ class Scheduler:
                 metrics.on_done(r.rid, now)
                 slots.evict(i)
 
+    def _decode_mesh(self) -> torch.Tensor:
+        """One decode step of this rank's slot rows under the mesh: their
+        logits, gathered over the data axes where the slots split over
+        them, so every rank holds (num_slots, vocab) in slot order."""
+        slots = self.slots
+        first, end = slots.rows
+        logits, slots.cache = serve_fns.decode_fn(
+            self.cfg, self.params, self._tensor(slots.tok[first:end]),
+            slots.cache, self._tensor(slots.pos[first:end]),
+            ctx=self._decode_ctx, max_len=self.max_len)
+        dp = self._decode_ctx.dp
+        if dp is None:
+            return logits
+        return tp_lib.gather_over_data(logits, dp).reshape(
+            self.scfg.num_slots, -1)
+
+    def _now(self, t0: float, queue: RequestQueue) -> float:
+        """Seconds since ``t0``; under a mesh, while requests are still to
+        arrive, the largest of every rank's, so every rank admits the same
+        requests at the same step."""
+        now = time.perf_counter() - t0
+        if self.ctx is None or self.ctx.mesh.size() == 1 or \
+                queue.next_arrival() is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
     # ----------------------------------------------------------------- run
 
     @torch.inference_mode()
@@ -327,8 +395,7 @@ class Scheduler:
         metrics = ServeMetrics(self.scfg.num_slots)
         t0 = time.perf_counter()
         while True:
-            now = time.perf_counter() - t0
-            queue.poll(now)
+            queue.poll(self._now(t0, queue))
             self._admit_resumes(metrics, t0)   # preempted hold seniority
             while self.slots.num_free > 0 and queue.num_ready > 0:
                 head = queue.peek()

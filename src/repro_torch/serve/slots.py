@@ -16,6 +16,14 @@ slot then decodes at its own position via the vector-``pos`` decode path.
 stale row is *recycled*, not zeroed, because ``insert`` overwrites every
 leaf's full row and causal masking never reads rows past a slot's own
 position.
+
+Under a mesh (``mesh=``) the cache is this rank's part as
+``models.sharding.cache_specs`` places it (``train.serve.init_cache_part``):
+the slots [first, end) of ``rows`` where they split over the data axes,
+each leaf's KV heads or sequence split over 'model'.  The host bookkeeping
+(positions, tokens, the free list) stays whole and the same on every rank;
+``insert`` copies a prefilled row only on the data ranks that hold the
+slot.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from repro_torch.core import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model_fns
 from repro_torch.serve.queue import Request
+from repro_torch.train.serve import init_cache_part
 
 
 @dataclasses.dataclass
@@ -63,12 +72,15 @@ class SlotManager:
 
     def __init__(self, cfg, num_slots: int, max_len: int, *,
                  cache_dtype=torch.bfloat16, enc_len: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
         self.enc_len = enc_len
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # the slots [first, end) whose rows this rank's cache holds
+        self.rows = (0, num_slots)
         self.cache = self._alloc_cache(cache_dtype)
         # per-slot decode state, consumed directly by the vector-pos decode:
         # pos[i] is the next cache write position, tok[i] the last sampled
@@ -84,6 +96,11 @@ class SlotManager:
         """Cache-layout hook: contiguous (L, B, S_max, ...) rows here;
         ``paged.PagedSlotManager`` overrides it with the block-pool
         layout."""
+        if self.mesh is not None:
+            cache, self.rows = init_cache_part(self.cfg, self.num_slots,
+                                               self.max_len, self.mesh,
+                                               cache_dtype, self.device)
+            return cache
         m = model_fns(self.cfg)
         if self.cfg.encdec:
             if self.enc_len is None:
@@ -129,7 +146,9 @@ class SlotManager:
             raise ValueError(f"prompt fills the cache: pos {pos} >= "
                              f"max_len {self.max_len}")
         i = self._free.pop()
-        _write_row(self.cache, row_cache, i, row)
+        first, end = self.rows
+        if first <= i < end:
+            _write_row(self.cache, row_cache, i - first, row)
         self.pos[i] = pos
         self.tok[i] = first_token
         self._seq += 1

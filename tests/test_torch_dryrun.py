@@ -171,3 +171,47 @@ def test_big_arch_cell_walks_zero3(tmp_path):
     assert d["ok"], d.get("traceback")
     assert "nemotron-4-340b" in tdryrun.BIG_ARCHS
     assert "with ZeRO-3" in d["roofline"]["detail"]["layout"]
+
+
+SERVE_WALK = """
+import json, sys
+from repro_torch import configs
+from repro_torch.launch.dryrun import walk_cell
+out = {}
+for arch in ("qwen2.5-14b", "deepseek-v3-671b"):
+    cfg = configs.get(arch, n_layers=2, param_dtype="bfloat16",
+                      compute_dtype="bfloat16")
+    for split in (True, False):
+        r = walk_cell(cfg, arch, "decode_32k", (16, 16), "owner",
+                      split=split)
+        out[f"{arch}/{split}"] = {
+            "mem": r["memory_analysis"],
+            "layout": r["roofline"]["detail"]["layout"]}
+print(json.dumps(out))
+"""
+
+
+def test_serve_cells_walk_split_layout():
+    """The dry run's decode_32k cells of a dense and an MoE arch (two
+    layers at their widths, bf16, on a fake (16, 16) world) walk the
+    reference's serving layout: the parameters as their parts by
+    ``param_specs`` and the cache by ``cache_specs``, each card's
+    parameters 1 / 16 or less of the walk that keeps them whole and each
+    card's predicted bytes far below it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", SERVE_WALK], env=env,
+                       capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert p.returncode == 0, p.stderr[-2000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    for arch in ("qwen2.5-14b", "deepseek-v3-671b"):
+        split, whole = got[f"{arch}/True"], got[f"{arch}/False"]
+        assert "split by param_specs" in split["layout"]
+        assert "cache_specs" in split["layout"]
+        assert "replicated" in whole["layout"]
+        cfg = tdryrun.configs.get(arch, n_layers=2)
+        param_bytes = 2 * cfg.param_count()
+        # the arguments: this card's parameters and its cache part
+        assert whole["mem"]["argument_size_in_bytes"] >= param_bytes
+        assert split["mem"]["argument_size_in_bytes"] - param_bytes / 16 < \
+            whole["mem"]["argument_size_in_bytes"] - param_bytes
+        assert split["mem"]["total_bytes"] < whole["mem"]["total_bytes"] / 4

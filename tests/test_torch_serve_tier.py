@@ -3,9 +3,12 @@
 structure of a scheduler run against the reference's on the same
 synthetic queue (decode steps, tokens, each request's count and the
 admission order do not depend on the token values), the synthetic workload
-request for request, and serving under a mesh (ROADMAP item 6) raising.
-Slot parity is ``tests/test_torch_serve_parity.py``; the paged tier is
-``tests/test_torch_serve_paged.py``.
+request for request, and what serving under a mesh still refuses: the
+families without a tensor-parallel forward (ROADMAP item 6) and the paged
+pool (as the reference).  Slot parity is
+``tests/test_torch_serve_parity.py``; the paged tier is
+``tests/test_torch_serve_paged.py``; serving under a mesh of several ranks
+is ``tests/test_torch_serve_mesh.py``.
 """
 
 import numpy as np
@@ -239,15 +242,45 @@ def test_structure_equals_reference_scheduler():
 
 # ------------------------------------------------ what is not in the slice
 
+class _OneRankMesh:
+    """A ("data", "model") mesh of one rank: what the serving rules and
+    the scheduler read of a ``DeviceMesh`` (no process group is needed
+    where every axis holds one rank)."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+
+    def size(self, i=None):
+        return 1
+
+    def get_local_rank(self, i):
+        return 0
+
+    def get_group(self, i):
+        return None
+
+
 def test_mesh_and_unknown_kv_serving_raise():
-    """Serving under a mesh is ROADMAP item 6; an unknown cache layout and
-    a preemption drill without the paged cache are refused, as the
-    reference's (the paged tier is tests/test_torch_serve_paged.py)."""
+    """A dense model serves on a mesh (here of one rank: bitwise the
+    one-card run); a family without the tensor-parallel forward still
+    raises naming ROADMAP item 6, and the paged pool under a mesh raises
+    the reference's refusal; an unknown cache layout and a preemption
+    drill without the paged cache are refused, as the reference's (the
+    paged tier is tests/test_torch_serve_paged.py)."""
     cfg, params = _build("smollm-360m")
+    scfg = ServeConfig(num_slots=2, max_len=24, cache_dtype=F32,
+                       record_logits=True)
+    runs = [Scheduler(cfg, params, scfg, **kw).run(RequestQueue.synthetic(
+        3, cfg.vocab, prompt_lens=(4, 8), new_tokens=(2, 4), seed=1))
+        for kw in ({}, {"mesh": _OneRankMesh()})]
+    for a, b in zip(*(m.requests.values() for m in runs)):
+        assert a.tokens == b.tokens
+        assert all(torch.equal(torch.from_numpy(x), torch.from_numpy(y))
+                   for x, y in zip(a.logits, b.logits))
+    hcfg, hparams = _build("hymba-1.5b")
     with pytest.raises(NotImplementedError, match="item 6"):
-        Scheduler(cfg, params, ServeConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Scheduler(cfg, params, ServeConfig(kv="paged"), mesh=object())
+        Scheduler(hcfg, hparams, ServeConfig(), mesh=_OneRankMesh())
+    with pytest.raises(NotImplementedError, match="paged pool sharding"):
+        Scheduler(cfg, params, ServeConfig(kv="paged"), mesh=_OneRankMesh())
     with pytest.raises(ValueError, match="kv must be"):
         Scheduler(cfg, params, ServeConfig(kv="ring"))
     with pytest.raises(ValueError, match="preempt_every"):

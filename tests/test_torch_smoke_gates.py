@@ -1,6 +1,7 @@
-"""``chip_smoke.py``'s bf16 kernel gate (``check_parts``) and the sampled
+"""``chip_smoke.py``'s bf16 kernel gate (``check_parts``), the sampled
 captures of its four-card nemotron gate (``sample_grid``,
-``sampled_whole``), on the CPU.  Besides tile faults, the gate must catch
+``sampled_whole``) and its serving-under-a-mesh gate (``serve_gate``), on
+the CPU.  Besides tile faults, the gate must catch
 the two faults a bf16 wgmma kernel can make silently: B's MN-major slices
 read transposed (A·Bᵀ for A·B) and a contraction's last slice left out.
 
@@ -165,3 +166,62 @@ def test_sampled_whole_puts_every_rank_s_part_in_place(cs):
     assert torch.equal(got, want)
     with pytest.raises(AssertionError, match="held by no rank"):
         cs.sampled_whole(torch, _FakeDist(every[:3]), 3, every[0], k)
+
+
+def _serve_recs(seed, n_tokens=6, vocab=50, scale=1.0):
+    """{rid: (greedy tokens, logits)} of two requests, drawn from ``seed``:
+    well separated top-2 margins (a top logit 5 above the rest)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    for rid in range(2):
+        logits = [rng.standard_normal(vocab).astype(np.float32) * scale
+                  for _ in range(n_tokens)]
+        for i, lg in enumerate(logits):
+            lg[(rid + i) % vocab] += 5.0
+        out[rid] = ([int(lg.argmax()) for lg in logits], logits)
+    return out
+
+
+def _moved(recs, eps, seed):
+    """``recs`` with every logit moved by up to ``eps``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {r: (toks, [lg + eps * rng.uniform(-1, 1, lg.shape).astype(
+        np.float32) for lg in logits]) for r, (toks, logits) in recs.items()}
+
+
+@pytest.mark.parametrize("mesh_eps,passes", [(1e-5, True), (1e-2, False)])
+def test_serve_gate_holds_logits_to_the_one_ulp_spread(cs, mesh_eps, passes):
+    """``serve_gate``: a mesh run within 10x the spread run's distance
+    from one card passes; one 1000x farther fails."""
+    one = _serve_recs(0)
+    gate = cs.serve_gate(_moved(one, mesh_eps, 1), one, _moved(one, 1e-5, 2))
+    assert gate["steps"] == gate["tokens"] == 12
+    assert (gate["factor"] <= 1.0) == passes
+    assert not gate["failures"]
+
+
+def test_serve_gate_tells_a_near_tie_from_a_wrong_token(cs):
+    """A token that differs where one card's top-2 margin is wide fails;
+    where the margin is under the bound it ends that request's
+    comparison without failing."""
+    import numpy as np
+    one = _serve_recs(0)
+    spread = _moved(one, 1e-5, 2)
+    toks, logits = one[0]
+    wrong = dict(one)
+    wrong[0] = ([toks[0], (toks[1] + 1) % 50] + toks[2:], logits)
+    gate = cs.serve_gate(wrong, one, spread)
+    assert gate["failures"] and "step 1" in gate["failures"][0]
+    tied = [lg.copy() for lg in logits]
+    tied[1][(toks[1] + 1) % 50] = tied[1][toks[1]] - 1e-6
+    one_tied = dict(one)
+    one_tied[0] = (toks, tied)
+    mesh = dict(one_tied)
+    mesh[0] = ([toks[0], (toks[1] + 1) % 50] + toks[2:], tied)
+    gate = cs.serve_gate(mesh, one_tied, _moved(one_tied, 1e-5, 2))
+    assert not gate["failures"]
+    assert [(t["rid"], t["step"]) for t in gate["near_ties"]] == [(0, 1)]
+    assert gate["steps"] == 2 + 6
+    assert np.isfinite(gate["factor"])

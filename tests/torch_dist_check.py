@@ -25,6 +25,8 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 2,1 --out DIR
     python tests/torch_dist_check.py owner_pad --rank R --world W \\
         --port P --mesh 2,2 --out DIR
+    python tests/torch_dist_check.py serve --rank R --world W \\
+        --port P --mesh 1,4 --out DIR [--configs qwen256,dsv3]
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/torch_dist_check.py jax_tp --mesh 1,4 --out DIR
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -55,7 +57,8 @@ that ``tp_restore`` resumes on another mesh (``--ckpt NAME``: that config's,
 on the ``tp`` world's mesh); ``jax_tp`` runs the reference's sharded train
 step on the same inputs; ``optim`` runs ``MuonOptimizer`` on a
 data-only mesh against the data-parallel train step; ``owner_pad``
-moves expert-split stacks that pad or permute over the owners.  Each
+moves expert-split stacks that pad or permute over the owners; ``serve``
+and ``jax_serve`` serve under a mesh (``torch_serve_check.py``).  Each
 writes ``rank<R>.npz`` and ``rank<R>.json`` (``jax.npz``) into DIR; the
 tests read them.  Every
 process group and every wait has a timeout, so a collective that hangs
@@ -1917,9 +1920,11 @@ def main() -> None:
                                      "checkpoint", "restore", "moe", "jax",
                                      "jax_moe", "tp", "tp_restore",
                                      "jax_tp", "optim", "owner_pad",
-                                     "zero3", "zero3_restore"))
+                                     "zero3", "zero3_restore", "serve",
+                                     "jax_serve"))
     ap.add_argument("--configs", default=",".join(TP_CONFIGS),
-                    help="tp / jax_tp: comma-separated TP_CONFIGS names")
+                    help="tp / jax_tp: comma-separated TP_CONFIGS names; "
+                         "serve / jax_serve: torch_serve_check.CASES names")
     ap.add_argument("--ckpt", default="",
                     help="tp / tp_restore: the TP_CONFIGS name to "
                          "checkpoint (tp: on this mesh) and restore")
@@ -1938,9 +1943,11 @@ def main() -> None:
     # yield the CPU to the test processes running beside these worlds
     # (several tests compare solver results that a time limit bounds)
     os.nice(10)
-    if args.mode in ("jax", "jax_moe", "jax_tp"):
+    import torch_serve_check
+    if args.mode in ("jax", "jax_moe", "jax_tp", "jax_serve"):
         {"jax": jax_reference, "jax_moe": jax_moe_reference,
-         "jax_tp": jax_tp_reference}[args.mode](args)
+         "jax_tp": jax_tp_reference,
+         "jax_serve": torch_serve_check.jax_serve_reference}[args.mode](args)
         return
     import torch.distributed as dist
     try:
@@ -1950,7 +1957,8 @@ def main() -> None:
          "moe": moe_rank, "tp": tp_rank,
          "tp_restore": tp_restore_rank, "optim": optim_rank,
          "owner_pad": owner_pad_rank, "zero3": zero3_rank,
-         "zero3_restore": zero3_restore_rank}[args.mode](args)
+         "zero3_restore": zero3_restore_rank,
+         "serve": torch_serve_check.serve_rank}[args.mode](args)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
