@@ -207,9 +207,10 @@ Phases, each printing one JSON line and asserting what it checks:
   serve_families
            one model a family at its published widths, bf16 caches, 3
            slots, 6 requests of 4-16 new tokens (``SERVE_FAMILY_RUNS``):
-           DeepSeek-V3 (the moe phase's cut), hymba-1.5b (prompts 1280,
-           past its 1024 window), xlstm-350m, seamless-m4t-large-v2
-           (512-frame prompts) and llava-next-mistral-7b (4 layers, 2880
+           DeepSeek-V3 (the moe phase's cut), hymba-1.5b (8 layers;
+           prompts 1280, past its 1024 window), xlstm-350m (8 layers: 7
+           mLSTM, 1 sLSTM), seamless-m4t-large-v2 (12 + 12 layers,
+           512-frame prompts) and llava-next-mistral-7b (4 layers, 2880
            patches a request); each served twice with logits recorded
            (bitwise equal), every request replayed at its served shape
            (bitwise; not DeepSeek-V3, whose rows share expert capacity),
@@ -304,6 +305,23 @@ Phases, each printing one JSON line and asserting what it checks:
            without ZeRO-3 by ``tp_gate`` (on a grid of every leaf's
            entries, the first and last 256 and 256 spread over each dim,
            each from the rank that holds it).
+  tp_families
+           the hybrid, xLSTM, encoder-decoder and VLM families through the
+           tensor-parallel step (fp32, remat, the kernels on, 3 Muon
+           steps).  One card, in this process: hymba (2 layers, 1 x
+           2048), xlstm (8, 4 x 512), seamless (2 + 2, 1 x 512) and llava
+           (2, 1 x 512) at their widths on a (1, 1) world, losses and
+           ``param_digest`` bitwise the same runs without a mesh.  Four
+           cards, one NCCL rank a card: llava cut to 4 layers on (1, 4)
+           held to one card by ``tp_gate``; (a) llava at its published
+           widths and all 32 layers on (1, 4),
+           batch 2 x (2880 patches + 512 tokens): step / optimizer ms,
+           tokens / s, launches and the peak a card within ``PEAK_GATE``
+           of the walk's (``tp_llava_predict``, a host subprocess started
+           with the script) and under 80 GB; (b) hymba (16 layers) and
+           xlstm on (1, 4), seamless on (2, 2), each held to one card
+           alike; first (c) the three kernels at llava's owner shapes on
+           (1, 4), on card 0.
   serve_mesh
            serving under a mesh (``Scheduler(..., mesh=mesh)``, the
            contiguous tier), one NCCL rank a card.  One card: smollm-360m
@@ -384,7 +402,7 @@ PHASES = ("kernels", "blocks", "gram_ns", "train", "adamw", "dropin",
           "dryrun",
           "variants", "pipeline", "resilience", "moe", "families", "serve",
           "serve_families", "serve_paged", "mesh", "tp", "tp_qwen", "tp_moe",
-          "zero3", "serve_mesh")
+          "zero3", "tp_families", "serve_mesh")
 # the stateful variants and their knobs in the variants phase
 VARIANT_RUNS = {"normuon": {}, "muonbp": {"muonbp_period": 2},
                 "dion2": {}, "adamuon": {}}
@@ -4559,18 +4577,23 @@ def family_config(arch: str):
     return configs.get(arch, **{k: v[0] for k, v in cut.items()})
 
 
-def family_inputs(torch, cfg, batch: int):
+def family_inputs(torch, cfg, batch: int, mesh=None):
     """``inputs(step)`` of ``train_run`` for a frontend config: patches or
     frames (batch, frontend_len, frontend_dim), standard normal from a
-    generator seeded by the step; None without a frontend."""
+    generator seeded by the step (under ``mesh``, this rank's rows of
+    them, as ``models.sharding.local_batch`` takes the tokens'); None
+    without a frontend."""
+    from repro_torch.models.sharding import local_batch
     if cfg.frontend is None:
         return None
     key = "patches" if cfg.frontend == "patch" else "frames"
 
     def inputs(step: int) -> dict:
         gen = torch.Generator("cuda").manual_seed(1000 + step)
-        return {key: torch.randn(batch, cfg.frontend_len, cfg.frontend_dim,
-                                 generator=gen, device="cuda")}
+        whole = torch.randn(batch, cfg.frontend_len, cfg.frontend_dim,
+                            generator=gen, device="cuda")
+        return {key: whole if mesh is None else
+                local_batch(whole, mesh).contiguous()}
     return inputs
 
 
@@ -4913,10 +4936,18 @@ SERVE_GATE = 2e-2
 # why)}), "moe" for moe_config's
 SERVE_FAMILY_RUNS = {
     "deepseek-v3-671b": dict(prompt_lens=(256, 512), max_len=1024, cut="moe"),
-    "hymba-1.5b": dict(prompt_lens=(1280,), max_len=1536, cut={}),
-    "xlstm-350m": dict(prompt_lens=(512,), max_len=576, cut={}),
+    "hymba-1.5b": dict(prompt_lens=(1280,), max_len=1536, cut={"n_layers": (
+        8, 32, "the one-card script's time (room for the tp_families "
+        "phase): global layer 0 and seven windowed layers")}),
+    "xlstm-350m": dict(prompt_lens=(512,), max_len=576, cut={"n_layers": (
+        8, 24, "the one-card script's time (room for the tp_families "
+        "phase): 7 mLSTM blocks and one sLSTM block, each kind")}),
     "seamless-m4t-large-v2": dict(prompt_lens=(512,), max_len=576,
-                                  enc_len=512, cut={}),
+                                  enc_len=512, cut={
+                                      "n_layers": (12, 24, "the one-card "
+                                                   "script's time"),
+                                      "n_enc_layers": (12, 24, "as the "
+                                                       "decoder's")}),
     "llava-next-mistral-7b": dict(prompt_lens=(128,), max_len=3136,
                                   cut=FAMILY_RUNS["llava-next-mistral-7b"][
                                       "cut"]),
@@ -6055,6 +6086,262 @@ def serve_mesh_checks(torch, dist, rank: int, world: int,
             raise AssertionError(failures[0])
 
 
+# ------------------------------------------------------------- tp_families
+# The hybrid, xLSTM, encoder-decoder and VLM families through the
+# tensor-parallel step (``models/ssm.py:_ssm_tp``, ``xlstm.py:_mlstm_tp`` /
+# ``_slstm_tp``, the cross attention and the frontend split), fp32, remat,
+# the kernels on, seed 0, 3 Muon steps.  One card: each family at
+# ``TP_FAMILY_ONE_CARD``'s depth on a (1, 1) world, bitwise the same run
+# without a mesh (losses and ``param_digest``).  Four cards: (a) llava at
+# its published widths and all 32 layers on ``TP_LLAVA_MESH`` (7.26 B
+# parameters: fp32 parameters, gradients and momentum ~87 GB whole, ~22
+# a card split), batch 2 x (2880 patches + 512 tokens), its peak a card
+# beside the dry run's walk (``tp_llava_predict``, started with the
+# script); before it llava cut to ``TP_LLAVA_CMP_LAYERS`` layers held to
+# one card by ``tp_gate``; (b) ``TP_FAMILY_RUNS`` each held to one card by
+# ``tp_gate``; (c) the kernels at llava's owner shapes on (1, 4)
+TP_LLAVA = "llava-next-mistral-7b"
+TP_LLAVA_MESH = (1, 4)
+TP_LLAVA_LAYERS = 32
+TP_LLAVA_CMP_LAYERS = 4
+TP_LLAVA_BATCH, TP_LLAVA_SEQ = 2, 512
+TP_FAMILY_RUNS = {
+    "hymba-1.5b": dict(mesh=(1, 4), batch=2, seq=2048, cut={"n_layers": 16}),
+    "xlstm-350m": dict(mesh=(1, 4), batch=8, seq=512, cut={}),
+    "seamless-m4t-large-v2": dict(mesh=(2, 2), batch=2, seq=512, cut={}),
+}
+# the (1, 1) world's cuts (depth; batch x sequence): every kind of block
+# of each family (hymba's global layer 0 and its window inside 2048
+# positions, one sLSTM block of xlstm's eight, seamless's 4096 frames,
+# llava's 2880 patches), small enough for ~30 s of phase
+TP_FAMILY_ONE_CARD = {
+    "hymba-1.5b": (dict(n_layers=2), 1, 2048),
+    "xlstm-350m": (dict(n_layers=8), 4, 512),
+    "seamless-m4t-large-v2": (dict(n_layers=2, n_enc_layers=2), 1, 512),
+    "llava-next-mistral-7b": (dict(n_layers=2), 1, 512)}
+
+
+def tp_family_data(cfg, batch: int, seq: int):
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+
+
+def start_tp_family_predictions() -> list:
+    """The host's predicted peak a card of (a) (``tp_llava_predict``,
+    ``start_walks``)."""
+    return start_walks("tp_families_predict",
+                       {"tp_llava": ("tp_llava_predict", ())})
+
+
+def tp_llava_predict(out: str) -> None:
+    """The dry run's walk of (a) (``launch.dryrun.walk_cell``): llava at
+    ``TP_LLAVA_LAYERS`` layers, ``TP_LLAVA_BATCH`` x ``TP_LLAVA_SEQ``
+    tokens and their patches on a fake world of ``TP_LLAVA_MESH``, owner
+    Muon, one microbatch; its JSON to ``out``."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import walk_cell
+    cfg = configs.get(TP_LLAVA, n_layers=TP_LLAVA_LAYERS)
+    shape = ShapeSpec("tp_llava", TP_LLAVA_SEQ, TP_LLAVA_BATCH, "train")
+    result = walk_cell(cfg, TP_LLAVA, shape, TP_LLAVA_MESH, "owner",
+                       accum=1)
+    Path(out).write_text(json.dumps(result, default=str))
+
+
+def phase_tp_families(torch, smi: str, cells: list) -> None:
+    """On one card the (1, 1) world (``tp_families_one``) in this process;
+    on four, one NCCL rank a card (spawned, as the tp phase's): the
+    kernels at llava's owner shapes on this card (c), then (a) and (b)
+    (``tp_families_checks``) and (a)'s predicted peak (``cells``:
+    ``start_tp_family_predictions``) beside the measured one.  Other card
+    counts say so and pass."""
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.launch.mesh import HBM_BYTES, free_port
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if world == 1:
+        import datetime
+
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import init_process_group
+        init_process_group("cuda", rank=0, world_size=1,
+                           init_method=f"tcp://localhost:{free_port()}",
+                           timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+        try:
+            tp_families_one(torch, dist, 0, 1)
+        finally:
+            dist.destroy_process_group()
+        emit({"phase": "tp_families", "check": "done", "world": world,
+              "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+        return
+    if world != math.prod(TP_LLAVA_MESH):
+        emit({"phase": "tp_families", "skipped": f"needs 1 or "
+              f"{math.prod(TP_LLAVA_MESH)} cards, {world} visible"})
+        return
+    owner_kernels(torch, configs.get(TP_LLAVA, n_layers=TP_LLAVA_LAYERS),
+                  TP_LLAVA_MESH, {"phase": "tp_families", "arch": TP_LLAVA,
+                                  "n_layers": TP_LLAVA_LAYERS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "tp_phase"
+    out.mkdir(parents=True, exist_ok=True)
+    measured = out / "llava.json"
+    measured.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    mp.start_processes(nccl_rank, args=(world, free_port(),
+                                        "tp_families_checks", measured),
+                       nprocs=world, start_method="spawn", join=True)
+    seconds = time.perf_counter() - t1
+    predicted = tp_predictions(cells)["tp_llava"]
+    got = json.loads(measured.read_text())
+    ratio = predicted["peak_gb"] / max(got)
+    emit({"phase": "tp_families", "check": "llava_peak_vs_dryrun",
+          "arch": TP_LLAVA, "mesh": list(TP_LLAVA_MESH),
+          "n_layers": TP_LLAVA_LAYERS, "predicted_peak_gb": predicted,
+          "measured_peak_gb_per_card": got,
+          "predicted_over_measured": ratio, "peak_gate": PEAK_GATE,
+          "world": world, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    if abs(ratio - 1) > PEAK_GATE or max(got) > HBM_BYTES / 1e9:
+        raise AssertionError(f"llava's peak {got} GB a card against the "
+                             f"walk's {predicted['peak_gb']:.2f}: off by "
+                             f"more than {PEAK_GATE:.0%} or past the card")
+
+
+def tp_family_run(torch, arch: str, cut: dict, batch: int, seq: int,
+                  mesh=None, **kw) -> dict:
+    """``train_run`` of ``arch`` cut by ``cut`` (Muon, owner, donate), its
+    patches or frames from ``family_inputs``; on ``mesh`` the
+    tensor-parallel step."""
+    from repro_torch import configs
+    cfg = configs.get(arch, **cut)
+    return train_run(torch, "muon", "owner", mesh, cfg=cfg,
+                     dcfg=tp_family_data(cfg, batch, seq), donate=True,
+                     inputs=family_inputs(torch, cfg, batch, mesh),
+                     tensor_parallel=mesh is not None, **kw)
+
+
+def tp_families_one(torch, dist, rank: int, world: int) -> None:
+    """One card: each family at ``TP_FAMILY_ONE_CARD``'s depth through the
+    tensor-parallel step on a (1, 1) world (the split code paths with a
+    model axis of one rank) and without a mesh, on the same batches:
+    losses and ``param_digest`` bitwise, launches from the plan each
+    step (``train_run``)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    for arch, (cut, batch, seq) in TP_FAMILY_ONE_CARD.items():
+        pair = []
+        for m in (mesh, None):
+            r = tp_family_run(torch, arch, cut, batch, seq, m, digest=True)
+            pair.append({k: r[k] for k in ("loss_ema", "digest", "step_ms",
+                                            "optimizer_ms", "launches",
+                                            "peak_mem_gb")})
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        tp, one = pair
+        same = tp["loss_ema"] == one["loss_ema"] and \
+            tp["digest"] == one["digest"]
+        emit({"phase": "tp_families", "arch": arch, "mesh": [1, 1],
+              "cut": cut, "batch": [batch, seq],
+              "bitwise_vs_no_mesh": same, "loss_ema": tp["loss_ema"],
+              "step_ms": tp["step_ms"], "optimizer_ms": tp["optimizer_ms"],
+              "no_mesh_step_ms": one["step_ms"],
+              "launches": tp["launches"], "peak_mem_gb": tp["peak_mem_gb"]})
+        if not same:
+            raise AssertionError(f"{arch} on a (1, 1) world is not the run "
+                                 "without a mesh bitwise")
+
+
+def tp_families_checks(torch, dist, rank: int, world: int,
+                       measured: Path) -> None:
+    """The ``tp_families`` phase on one rank of four.
+
+    1. llava at its widths cut to ``TP_LLAVA_CMP_LAYERS`` layers on
+       ``TP_LLAVA_MESH``, held to one card on the same batches by
+       ``tp_gate`` (``tp_vs_single``).
+    2. (a) llava at ``TP_LLAVA_LAYERS`` layers on ``TP_LLAVA_MESH``:
+       step ms, optimizer ms, tokens / s, peak GB and launches per rank
+       (the peaks written to ``measured`` for the parent).
+    3. (b) each of ``TP_FAMILY_RUNS`` on its mesh, held to one card alike
+       (the batch in as many microbatches as the mesh has data ranks).
+    Every run is made and printed before a missed gate fails the phase."""
+    from repro_torch.launch.mesh import make_mesh
+
+    lead = rank == 0
+    missed = []
+
+    def gated_run(arch, cut, batch, seq, shape):
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        t0 = time.perf_counter()
+        run = tp_family_run(torch, arch, cut, batch, seq, mesh,
+                            capture="host", grads=True)
+        timing = {k: run[k] for k in ("step_ms", "optimizer_ms",
+                                      "peak_mem_gb", "launches")}
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, timing)
+        failure = None
+        if lead:
+            cfg = run["cfg"]
+            emit({"phase": "tp_families", "arch": arch, "mesh": list(shape),
+                  "cut": cut, "batch": [batch, seq],
+                  "n_layers": cfg.n_layers, "loss_ema": run["loss_ema"],
+                  "per_rank": per_rank,
+                  "seconds": time.perf_counter() - t0})
+            failure = tp_vs_single(
+                torch, {tuple(shape): run}, cfg=cfg,
+                dcfg=tp_family_data(cfg, batch, seq), donate=True,
+                inputs=family_inputs(torch, cfg, batch))
+        del run
+        failures = [None] * world
+        dist.all_gather_object(failures, failure)
+        if failures[0] is not None:
+            missed.append(failures[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gated_run(TP_LLAVA, {"n_layers": TP_LLAVA_CMP_LAYERS}, TP_LLAVA_BATCH,
+              TP_LLAVA_SEQ, TP_LLAVA_MESH)
+
+    # (a): llava at its published depth, what one card cannot hold
+    mesh = make_mesh(TP_LLAVA_MESH, ("data", "model"), "cuda")
+    run = tp_family_run(torch, TP_LLAVA, {"n_layers": TP_LLAVA_LAYERS},
+                        TP_LLAVA_BATCH, TP_LLAVA_SEQ, mesh)
+    cfg = run["cfg"]
+    timing = {k: run[k] for k in ("step_ms", "optimizer_ms", "peak_mem_gb",
+                                  "launches")}
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, timing)
+    if lead:
+        tokens = TP_LLAVA_BATCH * TP_LLAVA_SEQ
+        positions = TP_LLAVA_BATCH * (TP_LLAVA_SEQ + cfg.frontend_len)
+        steady = [{k: sum(r[k][1:]) / len(r[k][1:])
+                   for k in ("step_ms", "optimizer_ms")} for r in per_rank]
+        emit({"phase": "tp_families", "check": "llava_full_depth",
+              "arch": TP_LLAVA, "mesh": list(TP_LLAVA_MESH),
+              "n_layers": cfg.n_layers, "params": cfg.param_count(),
+              "batch": [TP_LLAVA_BATCH, TP_LLAVA_SEQ],
+              "patches": [cfg.frontend_len, cfg.frontend_dim],
+              "loss_ema": run["loss_ema"], "per_rank": per_rank,
+              "steady_mean_ms_per_rank": steady,
+              "tokens_per_s": [tokens / (t / 1e3) for t in
+                               per_rank[0]["step_ms"]],
+              "positions_per_s": [positions / (t / 1e3) for t in
+                                  per_rank[0]["step_ms"]],
+              "launches_per_step": run["launches_by_step"]})
+        measured.write_text(json.dumps([r["peak_mem_gb"]
+                                        for r in per_rank]))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, r in TP_FAMILY_RUNS.items():
+        gated_run(arch, r["cut"], r["batch"], r["seq"], r["mesh"])
+    if missed:
+        raise AssertionError("; ".join(missed))
+
+
 def phase_serve_mesh(torch, smi: str, cells: list) -> None:
     """Every visible card, one NCCL rank each (spawned, as the tp
     phases'): on one card ``serve_mesh_one``, on four the runs of
@@ -6131,6 +6418,8 @@ def main() -> int:
                 else []) + (start_tp_moe_predictions()
                             if "tp_moe" in phases and four else []) + \
         (start_zero3_predictions() if "zero3" in phases and four else []) + \
+        (start_tp_family_predictions() if "tp_families" in phases and four
+         else []) + \
         (start_serve_mesh_predictions() if "serve_mesh" in phases and four
          else [])
     try:
@@ -6259,6 +6548,11 @@ def run_phases(torch, args, phases: list, cells: list,
         phase_zero3(torch, smi[0],
                     [c for c in tp_cells if c["cell"].startswith(
                         ("zero3_", "tp_"))], train_runs.get("muon"))
+    if "tp_families" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp_families(torch, smi[0], [c for c in tp_cells
+                                          if c["cell"] == "tp_llava"])
     if "serve_mesh" in phases:
         gc.collect()
         torch.cuda.empty_cache()

@@ -23,21 +23,22 @@ Train cells run ``train/step.make_train_step`` with ``Muon`` in owner /
 gather / AdamW mode, once; the costs are those of rank 0.  Serve cells run
 ``train/serve.prefill_fn`` / ``decode_fn`` on one rank's rows.  The
 batch is split over the mesh's data axes (``models.sharding.dp_axes``), a
-batch smaller than the data-parallel size run whole on each card.  The
-dense family's train and serve cells walk the tensor-parallel forward:
-parameters split by ``param_specs`` over the 'model' axis (16 cards), the
-forward's collectives on it, and a serve cell's decode cache split by
-``cache_specs``; so do the MoE family's, its experts split over that axis
-(expert parallelism).  nemotron-4-340b's, deepseek-v3-671b's and
-kimi-k2-1t-a32b's cells (``BIG_ARCHS``) run the reference's >= 340 B
-memory policy: ZeRO-3 (``param_specs(..., zero3=True)``: the block
-weights also split over 'data', gathered a layer at a time) and, in
-training, bf16 gradient accumulation and bf16 optimizer state; their
-``detail`` says so.  The other families' cells keep the parameters
-replicated on every card (their tensor-parallel forward is ROADMAP item
-6): a model of more than ~10 B parameters does not fit a card in that
-layout, and ``fits_hbm`` says so.  The eager step has no lowering: a
-cell's ``timings_s`` hold ``build`` (parameters, optimizer state and
+batch smaller than the data-parallel size run whole on each card.  Every
+family's train cells walk the tensor-parallel step: parameters split by
+``param_specs`` over the 'model' axis (16 cards) and the forward's
+collectives on it (the MoE experts split over that axis: expert
+parallelism).  The dense and MoE families' serve cells walk the
+tensor-parallel forward too, a decode cache split by ``cache_specs``.
+nemotron-4-340b's, deepseek-v3-671b's and kimi-k2-1t-a32b's cells
+(``BIG_ARCHS``) run the reference's >= 340 B memory policy: ZeRO-3
+(``param_specs(..., zero3=True)``: the block weights also split over
+'data', gathered a layer at a time) and, in training, bf16 gradient
+accumulation and bf16 optimizer state; their ``detail`` says so.  The
+other families' serve cells keep the parameters replicated on every card
+(their serving under a mesh is ROADMAP item 6's serving half): a model
+of more than ~10 B parameters does not fit a card in that layout, and
+``fits_hbm`` says so.  The eager step has no lowering: a cell's
+``timings_s`` hold ``build`` (parameters, optimizer state and
 inputs), ``lower`` (0) and ``compile`` (the walked call, where the
 reference compiles).
 
@@ -77,7 +78,7 @@ from repro_torch.launch.mesh import HBM_BYTES, axis_sizes, \
 from repro_torch.launch.op_walker import OpWalker
 from repro_torch.models import model_fns
 from repro_torch.models.sharding import dp_axes, local_part, param_specs
-from repro_torch.models.tp import model_extent, ported, tensor_parallel
+from repro_torch.models.tp import model_extent, serves_split, tensor_parallel
 from repro_torch.train.train_state import TrainState
 
 RESULT_DIR = os.path.abspath(os.path.join(
@@ -169,7 +170,7 @@ def build_train_cell(cfg, arch_id, shape, mesh, mode, muon=None,
     opt = api.Muon(plan, mesh, config=muon or opt_config(arch_id, mode),
                    device="cpu")
     specs = None
-    if zero3 or tensor_parallel(cfg, mesh):
+    if zero3 or tensor_parallel(mesh):
         specs = param_specs(cfg, params, mesh, zero3=zero3)
         params = tree.rebuild(params, {
             p: local_part(v, specs[p], mesh).clone()
@@ -211,7 +212,7 @@ def build_serve_cell(cfg, arch_id, shape, mesh, zero3: bool = False,
     inputs = rank_inputs(cfg, sp, mesh)
     rows = inputs["tokens" if sp.kind == "prefill" else "token"].shape[0]
     ctx = None
-    if split and ported(cfg):
+    if split and serves_split(cfg):
         ctx = serve_fns.mesh_context(cfg, mesh, zero3=zero3)
         params = tree.tree_map(lambda v: v.clone(),
                                serve_fns.local_params(params, ctx))
@@ -339,12 +340,12 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
             f"also over 'data', {axis_sizes(mesh)['data']} cards, gathered "
             f"a layer at a time; bf16 gradient accumulation); {batch}; "
             "the tensor-parallel forward")
-    elif sp.kind == "train" and tensor_parallel(cfg, mesh):
+    elif sp.kind == "train" and tensor_parallel(mesh):
         r.detail["layout"] = (
             f"parameters split by param_specs over 'model' "
             f"({model_extent(mesh)} cards); {batch}; the tensor-parallel "
             "forward")
-    elif sp.kind != "train" and split and ported(cfg):
+    elif sp.kind != "train" and split and serves_split(cfg):
         zero = (f", with ZeRO-3 (the block weights also over 'data', "
                 f"{axis_sizes(mesh)['data']} cards, gathered a layer at a "
                 "time)") if zero3 else ""
@@ -355,8 +356,10 @@ def walk_cell(cfg, arch_id: str, shape, mesh_kind, mode: str, *,
             f"over 'model'); {batch}; the tensor-parallel forward")
     else:
         r.detail["layout"] = (
-            f"parameters replicated on every card; {batch}; no "
-            "tensor-parallel forward (ROADMAP item 6)")
+            f"parameters replicated on every card; {batch}; "
+            + ("the model axis spreads the owners only" if sp.kind == "train"
+               else "no serving under a mesh (ROADMAP item 6, its serving "
+               "half)"))
     result = {
         "ok": True,
         "num_devices": ndev,

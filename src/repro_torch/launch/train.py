@@ -17,12 +17,11 @@ owner loss / preemption.  ``--faults`` injects a scripted adversity drill
 ("data", "model") mesh, ``remesh()``'s largest model axis up to
 ``--prefer-model`` (16, the reference's default: (1, 4) on four cards;
 ``--prefer-model 2`` gives (2, 2)), tensor-parallel over 'model' and
-data-parallel over 'data' (the MoE family's experts split over 'model').
-The families whose tensor-parallel forward is not ported (all but dense
-and MoE, ROADMAP item 6) keep (world, 1); the ``[mesh]``
-line says which mesh ran and why.  ``--faults`` kill / readd raise there
-(ROADMAP item 8); ``--resume`` restores a checkpoint written at any world
-size and mesh shape.
+data-parallel over 'data' (the MoE family's experts split over 'model';
+every family the token pipeline feeds splits, the hybrid and xLSTM ones
+included); the ``[mesh]`` line says which mesh ran.  ``--faults`` kill /
+readd raise there (ROADMAP item 8); ``--resume`` restores a checkpoint
+written at any world size and mesh shape.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen2.5-14b --mesh --batch 4 --seq 2048 --steps 10
@@ -49,7 +48,6 @@ from repro_torch.core.muon import MuonConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.models.tp import ported
 from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.resilient import ResilientConfig, ResilientLoop
 
@@ -120,12 +118,8 @@ def main(argv=None):
                          "token pipeline does not make")
     mesh = None
     if args.mesh:
-        split = ported(cfg)
-        mesh = make_mesh(device, args.prefer_model if split else 1)
-        why = "" if split else (f": the {cfg.family} family's "
-                                "tensor-parallel forward is not ported "
-                                "(ROADMAP item 6)")
-        print(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))}{why}",
+        mesh = make_mesh(device, args.prefer_model)
+        print(f"[mesh] {dict(zip(mesh.mesh_dim_names, mesh.shape))}",
               flush=True)
     # the Hopper kernels on the card; a CPU tensor runs each kernel's plain
     # version

@@ -27,7 +27,7 @@ from repro_torch.models.layers import AttnConfig
 from repro_torch.models.transformer import (  # noqa: F401  (one crossing)
     ArchConfig, _check_family, _rope_for, apply_layer, frontend,
     frontend_init, params_from_numpy, params_to_numpy, unbound_layers)
-from repro_torch.models.transformer import _embed, _last_logits
+from repro_torch.models.transformer import _embed, _last_logits, _split
 
 Params = Dict[str, Any]
 
@@ -77,37 +77,41 @@ def init(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> Params:
             "lm_head": layers.embed_init(gen, cfg.vocab, d, **kw)}
 
 
-def _enc_block(cfg: ArchConfig, bp: Params, h: torch.Tensor, rope_cs):
+def _enc_block(cfg: ArchConfig, bp: Params, h: torch.Tensor, rope_cs,
+               tp=None):
     a = layers.rmsnorm(bp["attn_norm"], h, cfg.norm_eps)
     h = h + layers.attention(bp["attn"], _enc_attn_cfg(cfg), a,
-                             rope_cs=rope_cs)
+                             rope_cs=rope_cs, tp=tp)
     m = layers.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps)
-    return h + layers.mlp(bp["mlp"], m, cfg.act)
+    return h + layers.mlp(bp["mlp"], m, cfg.act, tp=_split(tp, cfg.d_ff))
 
 
-def encode(cfg: ArchConfig, params: Params,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames: (B, S_enc, frontend_dim) -> (B, S_enc, d_model)."""
+def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """frames: (B, S_enc, frontend_dim) -> (B, S_enc, d_model).  ``tp``:
+    ``forward``'s (training only)."""
     _check(cfg)
     x = frontend(params["frontend_proj"],
-                 frames.to(as_dtype(cfg.compute_dtype)))
+                 frames.to(as_dtype(cfg.compute_dtype)),
+                 tp=_split(tp, cfg.d_model))
     rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     for bp in unbound_layers(params["enc_blocks"]):
-        body = functools.partial(_enc_block, cfg, bp, rope_cs=rope_cs)
+        body = functools.partial(_enc_block, cfg, bp, rope_cs=rope_cs, tp=tp)
         x = apply_layer(body, x, remat=cfg.remat)
     return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _dec_block(cfg: ArchConfig, bp: Params, h: torch.Tensor,
                enc_out: Optional[torch.Tensor], rope_cs, *, self_cache=None,
-               cross_cache=None, pos=None):
+               cross_cache=None, pos=None, tp=None):
     """Decoder block over ``enc_out``, or over the precomputed
     ``cross_cache`` with the self-attention ``self_cache`` written at
-    ``pos`` (then returns (h, self_cache))."""
+    ``pos`` (then returns (h, self_cache)).  ``tp``: the training path's
+    model axis (no cache)."""
     a = layers.rmsnorm(bp["attn_norm"], h, cfg.norm_eps)
     if self_cache is None:
         h = h + layers.attention(bp["attn"], cfg.attn_cfg(), a,
-                                 rope_cs=rope_cs)
+                                 rope_cs=rope_cs, tp=tp)
     else:
         out, self_cache = layers.attention(bp["attn"], cfg.attn_cfg(), a,
                                            cache=self_cache, pos=pos,
@@ -116,28 +120,40 @@ def _dec_block(cfg: ArchConfig, bp: Params, h: torch.Tensor,
     c = layers.rmsnorm(bp["cross_norm"], h, cfg.norm_eps)
     if cross_cache is None:
         h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
-                                 xk=enc_out)
+                                 xk=enc_out, tp=tp)
     else:
         h = h + layers.attention(bp["cross_attn"], _enc_attn_cfg(cfg), c,
                                  cache=cross_cache, static_cache=True)[0]
     m = layers.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps)
-    h = h + layers.mlp(bp["mlp"], m, cfg.act)
+    h = h + layers.mlp(bp["mlp"], m, cfg.act, tp=_split(tp, cfg.d_ff))
     return h if self_cache is None else (h, self_cache)
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-            frames: torch.Tensor,
-            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+            frames: torch.Tensor, patches: Optional[torch.Tensor] = None,
+            tp=None) -> torch.Tensor:
     """Training: frames (B, S_enc, F) + decoder tokens (B, S_dec) ->
-    (B, S_dec, vocab) fp32 logits."""
-    enc_out = encode(cfg, params, frames)
-    x = layers.embed(params["embed"], tokens).to(as_dtype(cfg.compute_dtype))
+    (B, S_dec, vocab) fp32 logits.
+
+    ``tp`` (a ``models.tp.ModelParallel``): the tensor-parallel forward,
+    ``params`` this rank's parts as ``models.sharding.param_specs`` places
+    them and the activations between blocks (the encoder's output too)
+    replicated over the model axis: the frontend, every attention (the
+    encoder's non-causal self attention, the decoder's causal one, the
+    cross attention: q from the decoder, k / v from the replicated
+    ``enc_out``) and MLP as ``transformer.forward``'s; the embedding and
+    the head vocab-parallel where the vocabulary divides the axis (the
+    logits then this rank's (B, S_dec, V/tp) columns), whole otherwise."""
+    vocab_tp = _split(tp, cfg.vocab)
+    enc_out = encode(cfg, params, frames, tp)
+    x = layers.embed(params["embed"], tokens, tp=vocab_tp).to(
+        as_dtype(cfg.compute_dtype))
     rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     for bp in unbound_layers(params["dec_blocks"]):
-        body = functools.partial(_dec_block, cfg, bp, rope_cs=rope_cs)
+        body = functools.partial(_dec_block, cfg, bp, rope_cs=rope_cs, tp=tp)
         x = apply_layer(body, x, enc_out, remat=cfg.remat)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return layers.unembed(params["lm_head"], x)
+    return layers.unembed(params["lm_head"], x, tp=vocab_tp)
 
 
 # ------------------------------------------------------------ serving paths

@@ -475,18 +475,21 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
 
     Returns the output (B, S, d), or (output, cache) when a cache is given.
 
-    tp: a ``models.tp.ModelParallel``: self attention with the projections
-    split over the model axis, without a cache (the training path,
-    ``_attention_tp``) or with this rank's part of a contiguous one (the
-    serving path, ``_attention_cached_tp``; ``cache_rows`` the rows it
-    holds where the cache is split by sequence, ``cache_row_range``).
+    tp: a ``models.tp.ModelParallel``: the projections split over the
+    model axis, self or cross attention without a cache (the training
+    path, ``_attention_tp``), or self attention with this rank's part of a
+    contiguous cache (the serving path, ``_attention_cached_tp``;
+    ``cache_rows`` the rows it holds where the cache is split by sequence,
+    ``cache_row_range``).
     """
     if tp is not None:
-        if xk is not None or block_table is not None or static_cache:
+        if block_table is not None or static_cache or (
+                xk is not None and cache is not None):
             raise ValueError("tensor-parallel attention is self attention "
-                             "over a contiguous cache or none")
+                             "over a contiguous cache or none, or cross "
+                             "attention without a cache")
         if cache is None:
-            return _attention_tp(p, cfg, x, rope_cs, tp)
+            return _attention_tp(p, cfg, x, rope_cs, tp, xk)
         return _attention_cached_tp(p, cfg, x, cache, pos, rope_cs, tp,
                                     cache_rows)
     if block_table is not None and (cache is None or xk is not None):
@@ -628,12 +631,15 @@ def _kv_groups(k: torch.Tensor, n_heads: int, tp) -> torch.Tensor:
     return k[:, :, groups]
 
 
-def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp):
+def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp,
+                  xk: Optional[torch.Tensor] = None):
     """Self attention of the replicated (B, S, d) ``x`` with the
     projections split by ``param_specs`` over the model axis: q / k / v
     column-parallel (a projection whose width does not divide the axis is
     whole on every rank), o row-parallel, its partial sums reduced once.
-    Three layouts (the reference's GSPMD choices,
+    With ``xk`` (B, T, d), replicated too: cross attention, k and v from
+    ``xk``, no rope and no mask (the encoder-decoder's).  Three layouts
+    (the reference's GSPMD choices,
     ``src/repro/models/layers.py:358-383``):
 
     * head-parallel, where ``n_heads`` and ``n_kv_heads`` divide the axis:
@@ -646,6 +652,8 @@ def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp):
       gather), so a split that falls mid-head is undone before the
       reshape; each rank attends its rows against every key at their own
       causal offsets, and the all-to-all back gives o its feature split.
+      The S query rows must split over the axis (a VLM's patch prefix
+      counts among them); a length that does not raises ``ValueError``.
 
     Rotary embeddings act within a head, so they follow the gathers; each
     query row keeps its global position."""
@@ -655,23 +663,31 @@ def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp):
     # column-parallel: a split projection takes this rank's columns from
     # x through copy_to_model; a whole one is computed alike everywhere
     x_in = tp_lib.copy_to_model(x, tp)
+    src, src_in = (x, x_in) if xk is None else \
+        (xk, tp_lib.copy_to_model(xk, tp))
+    T = src.shape[1]
     q_split, kv_split = tp.divides(H * hd), tp.divides(KV * hd)
     q = linear(p["q_proj"], x_in if q_split else x)
-    k, v = (linear(p[n], x_in if kv_split else x)
+    k, v = (linear(p[n], src_in if kv_split else src)
             for n in ("k_proj", "v_proj"))
-    cos_q, sin_q, cos_k, sin_k = rope_cs
+    rope = rope_cs is not None and xk is None
+    if rope:
+        cos_q, sin_q, cos_k, sin_k = rope_cs
+    causal = cfg.causal and xk is None
     scale = 1.0 / math.sqrt(hd)
     if tp.divides(H):
         q = q.reshape(B, S, H // n, hd)
         if tp.divides(KV):
-            k, v = (t.reshape(B, S, KV // n, hd) for t in (k, v))
+            k, v = (t.reshape(B, T, KV // n, hd) for t in (k, v))
         else:
-            k, v = (_kv_groups(_whole(t, kv_split, tp).reshape(B, S, KV, hd),
+            k, v = (_kv_groups(_whole(t, kv_split, tp).reshape(B, T, KV, hd),
                                H, tp) for t in (k, v))
-        q, k = apply_rope(q, cos_q, sin_q), apply_rope(k, cos_k, sin_k)
-        pos = torch.arange(S, device=x.device)
-        out = _sdpa(q, k, v, scale=scale, qpos=pos, kpos=pos,
-                    causal=cfg.causal, window=cfg.sliding_window)
+        if rope:
+            q, k = apply_rope(q, cos_q, sin_q), apply_rope(k, cos_k, sin_k)
+        out = _sdpa(q, k, v, scale=scale,
+                    qpos=torch.arange(S, device=x.device),
+                    kpos=torch.arange(T, device=x.device),
+                    causal=causal, window=cfg.sliding_window)
         out = out.reshape(B, S, (H // n) * hd)
     else:
         if S % n:
@@ -681,15 +697,16 @@ def _attention_tp(p: Params, cfg: AttnConfig, x: torch.Tensor, rope_cs, tp):
         r0 = tp.rank * rows
         q = tp_lib.features_to_seq(q, tp) if q_split else \
             tp_lib.split_to_model(q, tp, 1)
-        q = apply_rope(q.reshape(B, rows, H, hd), cos_q[r0:r0 + rows],
-                       sin_q[r0:r0 + rows])
-        k, v = (_whole(t, kv_split, tp).reshape(B, S, KV, hd)
+        q = q.reshape(B, rows, H, hd)
+        k, v = (_whole(t, kv_split, tp).reshape(B, T, KV, hd)
                 for t in (k, v))
-        k = apply_rope(k, cos_k, sin_k)
+        if rope:
+            q = apply_rope(q, cos_q[r0:r0 + rows], sin_q[r0:r0 + rows])
+            k = apply_rope(k, cos_k, sin_k)
         out = _sdpa(q, k, v, scale=scale,
                     qpos=torch.arange(r0, r0 + rows, device=x.device),
-                    kpos=torch.arange(S, device=x.device),
-                    causal=cfg.causal, window=cfg.sliding_window)
+                    kpos=torch.arange(T, device=x.device),
+                    causal=causal, window=cfg.sliding_window)
         out = out.reshape(B, rows, H * hd)
         out = tp_lib.seq_to_features(out, tp) if q_split else \
             tp_lib.gather_from_model(out, tp, 1)

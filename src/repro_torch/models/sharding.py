@@ -17,9 +17,9 @@ tree by a spec table.  The mesh is a ``DeviceMesh`` or any object with
 to the reference's entry for entry: the serving tier on a mesh
 (``serve.Scheduler(..., mesh=...)``, the dense and MoE families) allocates
 each cache leaf as this rank's part (``local_shape``) from the start.  The
-families without a tensor-parallel forward, and the paged pool, still
-serve on one card (ROADMAP item 6; the reference refuses the paged pool
-under a mesh too).
+other families (whose train step splits by ``param_specs`` too) and the
+paged pool still serve on one card (ROADMAP item 6's serving half; the
+reference refuses the paged pool under a mesh too).
 """
 
 from __future__ import annotations

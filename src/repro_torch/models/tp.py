@@ -5,9 +5,9 @@ This module has no counterpart in the reference.  There the parameters
 enter ``jit`` placed by ``models.sharding.param_specs`` (column-parallel
 in-projections, row-parallel out-projections, vocab-sharded embeddings)
 and GSPMD inserts the collectives the forward and backward need.  The port
-runs eagerly on each rank's local shard, so the dense forward
-(``models/layers.py``, ``models/transformer.py``) issues them itself,
-through the Functions below.
+runs eagerly on each rank's local shard, so each family's forward
+(``models/layers.py``, ``transformer.py``, ``ssm.py``, ``xlstm.py``,
+``encdec.py``) issues them itself, through the Functions below.
 
 A tensor is *replicated* when every rank of the model axis holds the same
 value and computes the same thing from it (its gradient is then the same
@@ -29,7 +29,10 @@ operator's backward is the adjoint of its forward under that convention:
   forward, all-gather backward;
 * ``seq_to_features`` / ``features_to_seq``: the all-to-all between
   (B, S/tp, F) (this rank's rows, every feature) and (B, S, F/tp) (every
-  row, this rank's features), each the other's backward.
+  row, this rank's features), each the other's backward;
+* ``halves_to_channels``: a column-parallel product whose columns are two
+  halves (the hybrid SSM's ``in_proj``: xs ; z) regrouped so each rank
+  holds the same channel range of both, one all-to-all of two blocks.
 
 On a model axis of one rank every operator is the identity, so the
 tensor-parallel code path of one card computes bitwise what the plain one
@@ -90,21 +93,21 @@ def model_extent(mesh) -> int:
     return mesh.size(mesh.mesh_dim_names.index("model"))
 
 
-def ported(cfg) -> bool:
-    """Whether ``cfg``'s family has the tensor-parallel forward: the dense
-    decoders and the MoE family (experts split over the axis: expert
-    parallelism); the other families' is ROADMAP item 6."""
+def serves_split(cfg) -> bool:
+    """Whether ``cfg``'s family serves under a mesh: the dense decoders and
+    the MoE family.  The others' serving under a mesh (their caches split
+    by ``cache_specs``) is the serving half of ROADMAP item 6."""
     return cfg.family in ("dense", "moe") and not cfg.encdec
 
 
-def tensor_parallel(cfg, mesh) -> bool:
-    """Whether training ``cfg`` on ``mesh`` is tensor-parallel: its
-    family's forward is ``ported`` and the mesh's 'model' axis has more
-    than one rank.  The one rule by which the train step, its loss,
-    ``init_state``, the resilient loop, the launcher and the dry run
-    decide; otherwise the parameters are replicated and the model axis
-    only spreads the owners."""
-    return ported(cfg) and model_extent(mesh) > 1
+def tensor_parallel(mesh) -> bool:
+    """Whether training on ``mesh`` is tensor-parallel: its 'model' axis
+    has more than one rank (every family has the split train step).  The
+    one rule by which the train step, its loss, ``init_state``, the
+    resilient loop, the launcher and the dry run's train cells decide;
+    otherwise the parameters are replicated and the model axis only
+    spreads the owners."""
+    return model_extent(mesh) > 1
 
 
 def model_parallel(mesh) -> Optional[ModelParallel]:
@@ -266,6 +269,49 @@ def _features_to_seq(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     return out.permute(1, 2, 0, 3).reshape(B, S // mp.size, mp.size * Fl)
 
 
+def _halves_routes(mp: ModelParallel) -> tuple:
+    """The all-to-all of ``halves_to_channels`` on this rank: the ranks its
+    two column blocks go to, and the ranks its two channel blocks come
+    from.  The 2F columns are 2·tp blocks of F/tp; rank r holds blocks 2r
+    and 2r + 1 and needs blocks r (first half) and tp + r (second half),
+    so block j goes to rank j mod tp and comes from rank j // 2."""
+    n, r = mp.size, mp.rank
+    return [(2 * r) % n, (2 * r + 1) % n], [r // 2, (n + r) // 2]
+
+
+def _exchange(x: torch.Tensor, mp: ModelParallel, send_to: list,
+              recv_from: list) -> torch.Tensor:
+    """x (2, ...): block i to rank ``send_to[i]``; the result's block i from
+    rank ``recv_from[i]``.  ``all_to_all_single`` lays the blocks out in
+    rank order on both sides, so a pair in descending order (on an odd
+    axis, 2r + 1 = tp sends its second block to rank 0) is swapped before
+    the exchange, or after it."""
+    flip_in, flip_out = send_to[0] > send_to[1], recv_from[0] > recv_from[1]
+    x = (x.flip(0) if flip_in else x).contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(
+        out, x, output_split_sizes=[recv_from.count(s)
+                                    for s in range(mp.size)],
+        input_split_sizes=[send_to.count(d) for d in range(mp.size)],
+        group=mp.group)
+    return out.flip(0) if flip_out else out
+
+
+class _HalvesToChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        B, S, F2 = x.shape
+        blocks = x.reshape(B, S, 2, F2 // 2).movedim(2, 0)
+        return _exchange(blocks, mp, *_halves_routes(mp))
+
+    @staticmethod
+    def backward(ctx, g):
+        send_to, recv_from = _halves_routes(ctx.mp)
+        blocks = _exchange(g, ctx.mp, recv_from, send_to)
+        return blocks.movedim(0, 2).flatten(2), None
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mp):
@@ -393,6 +439,20 @@ def gather_layer(params: dict, zs: Optional[ZeroShards],
 def split_to_model(x: torch.Tensor, mp: ModelParallel,
                    dim: int) -> torch.Tensor:
     return x if mp.size == 1 else _SplitToModel.apply(x, mp, _dim(x, dim))
+
+
+def halves_to_channels(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """(B, S, 2F/tp) this rank's contiguous part of a (B, S, 2F) product
+    whose columns are two halves [a ; b] → (2, B, S, F/tp): this rank's
+    channels of a and of b, the same range of each (one all-to-all of two
+    blocks a rank; its backward the inverse).  The hybrid SSM's ``in_proj``
+    (xs ; z) split over 2·d_inner, regrouped for a channel-split scan."""
+    if mp.size == 1:
+        B, S, F2 = x.shape
+        return x.reshape(B, S, 2, F2 // 2).movedim(2, 0)
+    if x.shape[-1] % 2:
+        raise ValueError(f"{x.shape[-1]} columns are not two halves")
+    return _HalvesToChannels.apply(x, mp)
 
 
 def seq_to_features(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:

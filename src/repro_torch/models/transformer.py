@@ -222,8 +222,14 @@ def frontend_init(gen, cfg: ArchConfig, kw) -> Params:
             "fc2": layers.linear_init(gen, cfg.d_model, cfg.d_model, **kw)}
 
 
-def frontend(p: Params, emb: torch.Tensor) -> torch.Tensor:
-    """fc2(gelu_tanh(fc1(emb))): patch or frame embeddings to d_model."""
+def frontend(p: Params, emb: torch.Tensor, tp=None) -> torch.Tensor:
+    """fc2(gelu_tanh(fc1(emb))): patch or frame embeddings to d_model.
+    With ``tp`` (where ``param_specs`` splits d_model over the model axis)
+    ``fc1`` is column-parallel and ``fc2`` row-parallel: this rank's
+    d_model / tp hidden columns, one reduction of the (B, P, d) output."""
+    if tp is not None:
+        return tp_lib.reduce_from_model(
+            frontend(p, tp_lib.copy_to_model(emb, tp)), tp)
     return layers.linear(p["fc2"], F.gelu(layers.linear(p["fc1"], emb),
                                           approximate="tanh"))
 
@@ -236,11 +242,14 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
     ``global_layers``, the reference's per-layer window flag).  With this
     layer's ``cache`` (and hybrid's ``ssm_state``) written at ``pos``
     (through ``block_table`` for a paged cache), returns
-    (x, cache, new_ssm_state); x alone otherwise.  With ``tp`` (the dense
-    and MoE families' training path) the block's leaves are this rank's
-    parts and ``x`` is replicated over the model axis: the attention (GQA
-    or MLA) and the MLP or MoE each reduce their row-parallel partial sums
-    once, before the residual add; a ``cache`` is then this rank's part
+    (x, cache, new_ssm_state); x alone otherwise.  With ``tp`` (the
+    training path; serving: the dense and MoE families) the block's leaves
+    are this rank's parts and ``x`` is replicated over the model axis: the
+    attention (GQA or MLA), the hybrid's SSM (``ssm._ssm_tp``) and the MLP
+    or MoE each reduce their row-parallel partial sums once, before the
+    mix and the residual add (the hybrid's mix then is one card's:
+    s[0]·attn + s[1]·ssm in fp32 from the two reduced outputs); a
+    ``cache`` is then this rank's part
     (``cache_rows``: the rows it holds where it is split by sequence,
     ``layers.cache_row_range``).  ``dp``: the data axes the MoE dispatch
     ranks its tokens over (``moe.moe``)."""
@@ -264,7 +273,7 @@ def _block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, rope_cs,
         attn_out, cache = attn_out
     if cfg.family == "hybrid":
         if cache is None:
-            ssm_out = ssm_lib.ssm(p["ssm"], cfg.ssm, h)
+            ssm_out = ssm_lib.ssm(p["ssm"], cfg.ssm, h, tp=tp)
         else:
             ssm_out, ssm_state = ssm_lib.ssm(p["ssm"], cfg.ssm, h,
                                              state=ssm_state)
@@ -293,36 +302,37 @@ def _split(tp, width: int):
     return tp if tp is not None and tp.divides(width) else None
 
 
-def _check_tp(cfg: ArchConfig, tp) -> None:
-    if tp is not None and tp.size > 1 and not tp_lib.ported(cfg):
-        raise NotImplementedError(
-            f"the tensor-parallel forward of the {cfg.family} family is not "
-            "ported (ROADMAP item 6); train it on a (world, 1) mesh and "
-            "serve it on one card")
-
-
 def _serve_tp(cfg: ArchConfig, tp):
     """The serving entry points' model axis: ``tp`` where it has more than
-    one rank (refused for a family without the tensor-parallel forward),
-    else None, so a model axis of one rank runs the one-card code
-    bitwise."""
-    _check_tp(cfg, tp)
-    return tp if tp is not None and tp.size > 1 else None
+    one rank (refused for a family that does not serve under a mesh,
+    ``models.tp.serves_split``), else None, so a model axis of one rank
+    runs the one-card code bitwise."""
+    if tp is None or tp.size == 1:
+        return None
+    if not tp_lib.serves_split(cfg):
+        raise NotImplementedError(
+            f"serving the {cfg.family} family under a mesh is not ported "
+            "(ROADMAP item 6, its serving half; the training half is "
+            "ported): serve it on one card")
+    return tp
 
 
 def _xlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
-                 state=None):
+                 state=None, tp=None):
     """mLSTM or sLSTM block; with a carried ``state`` returns
-    (x, new_state), x alone otherwise."""
+    (x, new_state), x alone otherwise.  ``tp``: the training path's model
+    axis (the leaves this rank's parts; the block MLP column / row
+    parallel where its width divides the axis)."""
     h = layers.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     core = xlstm_lib.mlstm if kind == "mlstm" else xlstm_lib.slstm
     if state is None:
-        out = core(p["core"], cfg.xlstm, h)
+        out = core(p["core"], cfg.xlstm, h, tp=tp)
     else:
         out, state = core(p["core"], cfg.xlstm, h, state=state)
     x = x + out
     h = layers.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-    x = x + layers.mlp(p["mlp"], h, "gelu")
+    x = x + layers.mlp(p["mlp"], h, "gelu",
+                       tp=_split(tp, int(cfg.xlstm.ff_mult * cfg.d_model)))
     return x if state is None else (x, state)
 
 
@@ -368,14 +378,16 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     positions only (the reference cuts its full-sequence logits to them;
     norm and head act per position, so the port cuts before them).
 
-    ``tp`` (a ``models.tp.ModelParallel``; the dense and MoE families):
-    the tensor-parallel forward (``src/repro/models/transformer.py:310-335``
-    under GSPMD; the MoE experts split over the axis).  ``params`` are this rank's parts as
-    ``models.sharding.param_specs`` places them, the activations between
-    blocks replicated over the model axis, and the logits this rank's
-    (B, S, V/tp) vocab columns where the vocab divides the axis (whole
-    otherwise).  Under ``remat`` the recompute issues each block's
-    collectives again, in the same order (non-reentrant checkpointing).
+    ``tp`` (a ``models.tp.ModelParallel``; every decoder family): the
+    tensor-parallel forward (``src/repro/models/transformer.py:310-335``
+    under GSPMD; the MoE experts split over the axis).  ``params`` are
+    this rank's parts as ``models.sharding.param_specs`` places them, the
+    activations between blocks replicated over the model axis (the patch
+    or frame prefix too, after the frontend's one reduction), and the
+    logits this rank's (B, S, V/tp) vocab columns where the vocab divides
+    the axis (whole otherwise).  Under ``remat`` the recompute issues each
+    block's collectives again, in the same order (non-reentrant
+    checkpointing).
 
     ``dp`` (a ``models.tp.DataParallel``): ``tokens`` are this rank's rows
     of a batch split over the data axes; the MoE dispatch ranks them over
@@ -393,15 +405,13 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     head and the norms are never split over 'data'.
     """
     _check_decoder(cfg)
-    _check_tp(cfg, tp)
-    if not tp_lib.ported(cfg):
-        tp = None
     vocab_tp = _split(tp, cfg.vocab)
     x = _embed(cfg, params, tokens, patches if patches is not None
-               else frames, tp=vocab_tp)
+               else frames, tp=vocab_tp,
+               frontend_tp=_split(tp, cfg.d_model))
     n_prefix = x.shape[1] - tokens.shape[1]
     if cfg.family == "ssm":
-        x = _xlstm_forward(cfg, params, x)
+        x = _xlstm_forward(cfg, params, x, tp)
     else:
         rope_cs = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
         hybrid = cfg.family == "hybrid"
@@ -418,11 +428,11 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
     return layers.unembed(head, x, tp=vocab_tp)
 
 
-def _xlstm_forward(cfg: ArchConfig, params: Params,
-                   x: torch.Tensor) -> torch.Tensor:
+def _xlstm_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                   tp=None) -> torch.Tensor:
     """Segments of ``slstm_every − 1`` mLSTM blocks, each followed by one
     sLSTM block, then any trailing mLSTM blocks; remat on the mLSTM blocks
-    only, as in the reference."""
+    only, as in the reference.  ``tp``: ``forward``'s."""
     every = cfg.xlstm.slstm_every
     n_s = cfg.n_layers // every
     mb = unbound_layers(params["mlstm_blocks"])
@@ -430,14 +440,15 @@ def _xlstm_forward(cfg: ArchConfig, params: Params,
 
     def m_run(x, blocks):
         for bp in blocks:
-            body = functools.partial(_xlstm_block, cfg, bp, kind="mlstm")
+            body = functools.partial(_xlstm_block, cfg, bp, kind="mlstm",
+                                     tp=tp)
             x = apply_layer(body, x, remat=cfg.remat)
         return x
 
     seg = every - 1
     for s_i in range(n_s):
         x = m_run(x, mb[s_i * seg:(s_i + 1) * seg])
-        x = _xlstm_block(cfg, sb[s_i], x, "slstm")
+        x = _xlstm_block(cfg, sb[s_i], x, "slstm", tp=tp)
     return m_run(x, mb[n_s * seg:])
 
 
@@ -598,14 +609,17 @@ def _whole_len(cfg: ArchConfig, leaf: torch.Tensor, tp,
 
 
 def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-           prefix: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+           prefix: Optional[torch.Tensor] = None, tp=None,
+           frontend_tp=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, after the projected frontend
     ``prefix`` (patches or frames) where given; with ``tp``, from this
-    rank's vocab rows (``layers.embed``)."""
+    rank's vocab rows (``layers.embed``); with ``frontend_tp``, the
+    frontend split (``frontend``)."""
     x = layers.embed(params["embed"], tokens, tp=tp).to(
         as_dtype(cfg.compute_dtype))
     if cfg.frontend is not None and prefix is not None:
-        pe = frontend(params["frontend_proj"], prefix.to(x.dtype))
+        pe = frontend(params["frontend_proj"], prefix.to(x.dtype),
+                      tp=frontend_tp)
         x = torch.cat([pe, x], dim=1)
     return x
 

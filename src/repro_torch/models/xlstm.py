@@ -17,6 +17,12 @@ fp32 (c, n, h, m), as the reference's ``lax.scan``.
 Muon-eligible leaves: q/k/v/o projections, up/down FFN, r/w sLSTM
 matrices; gate biases and ``if_gate_w`` stay on AdamW by the name rules.
 
+Under tensor parallelism (``mlstm`` / ``slstm`` with ``tp``, the train
+step of a mesh whose 'model' axis has more than one rank) the leaves are
+this rank's parts as ``models.sharding.param_specs`` places them: the
+mLSTM runs its heads head-parallel (``_mlstm_tp``), the sLSTM its loop
+whole on every rank from gathered inputs (``_slstm_tp``).
+
 Serving carries each block's state across calls (``state=``): the
 mLSTM's (C, n, m) — memory (B, H, hd, hd), normaliser (B, H, hd) and
 stabiliser (B, H), the reference's state at the last position — and the
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
+from repro_torch.models import tp as tp_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +82,16 @@ def _mlstm_operands(p, cfg: XLSTMConfig, x: torch.Tensor):
     q = layers.linear(p["q_proj"], x).reshape(B, S, H, hd)
     k = layers.linear(p["k_proj"], x).reshape(B, S, H, hd) / math.sqrt(hd)
     v = layers.linear(p["v_proj"], x).reshape(B, S, H, hd)
-    gates = (layers.dot(x, p["if_gate_w"])
-             + p["if_gate_bias"].to(x.dtype)).float().reshape(B, S, 2, H)
-    return q, k, v, gates[:, :, 0], F.logsigmoid(gates[:, :, 1])
+    return (q, k, v) + _gates(layers.dot(x, p["if_gate_w"])
+                              + p["if_gate_bias"].to(x.dtype), H)
+
+
+def _gates(pre: torch.Tensor, H: int) -> tuple:
+    """ig and the log-sigmoid fg (B, S, H), fp32, of the (B, S, 2H)
+    pre-activations [i₀…i_{H−1}, f₀…f_{H−1}]."""
+    B, S, _ = pre.shape
+    gates = pre.float().reshape(B, S, 2, H)
+    return gates[:, :, 0], F.logsigmoid(gates[:, :, 1])
 
 
 def mlstm_core(q, k, v, ig, fg, state: Optional[Tuple] = None):
@@ -148,14 +162,72 @@ def mlstm_core(q, k, v, ig, fg, state: Optional[Tuple] = None):
 
 
 def mlstm(p, cfg: XLSTMConfig, x: torch.Tensor, *,
-          state: Optional[Tuple] = None):
+          state: Optional[Tuple] = None, tp=None):
     """x (B, S, d) -> (B, S, d); with a carried ``state`` (C, n, m),
-    -> (y, new state)."""
+    -> (y, new state).  ``tp`` (a ``models.tp.ModelParallel`` of more than
+    one rank; training only): the leaves are this rank's parts
+    (``_mlstm_tp``)."""
+    if tp is not None and tp.size > 1:
+        if state is not None:
+            raise ValueError("the split mixer is the training path")
+        return _mlstm_tp(p, cfg, x, tp)
     B, S, d = x.shape
     out = mlstm_core(*_mlstm_operands(p, cfg, x), state=state)
     y, new = (out, None) if state is None else out
     y = layers.linear(p["o_proj"], y.to(x.dtype).reshape(B, S, d))
     return y if state is None else (y, new)
+
+
+def _whole_gate_bias(b: torch.Tensor, n_heads: int, tp) -> torch.Tensor:
+    """The whole (2H) ``if_gate_bias`` from this rank's part.  Split over
+    the axis as [i₀…i_{H−1}, f₀…f_{H−1}], a part does not follow the heads
+    (at tp = 2 rank 0 holds every input-gate bias), so it is gathered
+    whole; the gates it feeds are whole on every rank, so the backward
+    keeps this rank's part of their gradient."""
+    return tp_lib.gather_from_model(b, tp, -1) if tp.divides(2 * n_heads) \
+        else b
+
+
+def _mlstm_tp(p, cfg: XLSTMConfig, x: torch.Tensor, tp):
+    """The mLSTM of the replicated (B, S, d) ``x`` on the leaves
+    ``param_specs`` splits over the model axis: q / k / v out-split and
+    ``o_proj`` in-split over d, ``if_gate_bias`` over 2H, ``if_gate_w``
+    whole.  Every rank computes all 2H gate pre-activations from ``x``
+    with the whole bias (``_whole_gate_bias``); they feed each rank's own
+    heads, so their gradient is summed over the axis (``copy_to_model``),
+    which makes ``if_gate_w``'s whole on every rank.
+
+    * Head-parallel where H divides the axis: the q / k / v columns of a
+      rank are its H/tp heads, it runs their recurrence, and ``o_proj`` is
+      row-parallel (one reduction).
+    * Otherwise the q / k / v columns split mid-head: they are gathered
+      whole, every rank runs every head, and ``o_proj`` takes this rank's
+      columns of y through its rows (one reduction).
+    Where d does not divide the axis every projection is whole and every
+    rank computes the whole block."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    bias = _whole_gate_bias(p["if_gate_bias"], H, tp)
+    if not tp.divides(d):
+        return mlstm(dict(p, if_gate_bias=bias), cfg, x)
+    pre = layers.dot(x, p["if_gate_w"]) + bias.to(x.dtype)
+    x_in = tp_lib.copy_to_model(x, tp)
+    q, k, v = (layers.linear(p[n], x_in)
+               for n in ("q_proj", "k_proj", "v_proj"))
+    ig, fg = _gates(tp_lib.copy_to_model(pre, tp), H)
+    if tp.divides(H):
+        h = H // tp.size
+        heads = slice(tp.rank * h, (tp.rank + 1) * h)
+        q, k, v = (t.reshape(B, S, h, hd) for t in (q, k, v))
+        y = mlstm_core(q, k / math.sqrt(hd), v, ig[..., heads],
+                       fg[..., heads])
+        y = layers.linear(p["o_proj"], y.to(x.dtype).reshape(B, S, h * hd))
+        return tp_lib.reduce_from_model(y, tp)
+    q, k, v = (tp_lib.gather_from_model(t, tp, -1, reduce_grad=True)
+               .reshape(B, S, H, hd) for t in (q, k, v))
+    y = mlstm_core(q, k / math.sqrt(hd), v, ig, fg)
+    return layers._row_parallel(p["o_proj"], y.to(x.dtype).reshape(B, S, d),
+                                True, tp)
 
 
 def mlstm_init_state(cfg: XLSTMConfig, batch: int, *, lead: tuple = (),
@@ -185,15 +257,31 @@ def slstm_init(gen, cfg: XLSTMConfig, *, lead: tuple = (),
 
 
 def slstm(p, cfg: XLSTMConfig, x: torch.Tensor, *,
-          state: Optional[Tuple] = None):
+          state: Optional[Tuple] = None, tp=None):
     """x (B, S, d) -> (B, S, d).  One step per position: the fp32 carry
     (c, n, h, m) starts at (0, 0, 0, −1e30), or at a carried ``state``, and
     h crosses ``r_proj`` in x.dtype, as in the reference's scan.  With a
-    ``state``, -> (y, the last carry)."""
-    B, S, d = x.shape
+    ``state``, -> (y, the last carry).  ``tp`` (a
+    ``models.tp.ModelParallel`` of more than one rank; training only): the
+    leaves are this rank's parts (``_slstm_tp``)."""
+    if tp is not None and tp.size > 1:
+        if state is not None:
+            raise ValueError("the split mixer is the training path")
+        return _slstm_tp(p, cfg, x, tp)
     wx = layers.linear(p["w_proj"], x) + p["gate_bias"].to(x.dtype)
+    out = _slstm_loop(wx, p["r_proj"], x.dtype, state)
+    y = layers.linear(p["o_proj"], out[0])
+    return y if state is None else (y, out[1])
+
+
+def _slstm_loop(wx: torch.Tensor, r_proj, dtype, state=None) -> tuple:
+    """(the stacked h (B, S, d) in ``dtype``, the last carry) of the
+    recurrence over ``wx`` (B, S, 4d), the input projection with the gate
+    bias, in (z, i, f, o) order."""
+    B, S, d4 = wx.shape
+    d = d4 // 4
     if state is None:
-        c = torch.zeros(B, d, dtype=torch.float32, device=x.device)
+        c = torch.zeros(B, d, dtype=torch.float32, device=wx.device)
         n = torch.zeros_like(c)
         h = torch.zeros_like(c)
         m = torch.full_like(c, -1e30)
@@ -202,7 +290,7 @@ def slstm(p, cfg: XLSTMConfig, x: torch.Tensor, *,
     ys = []
     for t in range(S):
         pre = (wx[:, t].float()
-               + layers.linear(p["r_proj"], h.to(x.dtype)).float())
+               + layers.linear(r_proj, h.to(dtype)).float())
         zi, ii, fi, oi = pre.chunk(4, dim=-1)
         lf = F.logsigmoid(fi)
         mn = torch.maximum(lf + m, ii)
@@ -212,9 +300,38 @@ def slstm(p, cfg: XLSTMConfig, x: torch.Tensor, *,
         n = f_ * n + i_
         h = torch.sigmoid(oi) * c / torch.clamp(n, min=1.0)
         m = mn
-        ys.append(h.to(x.dtype))
-    y = layers.linear(p["o_proj"], torch.stack(ys, dim=1))
-    return y if state is None else (y, (c, n, h, m))
+        ys.append(h.to(dtype))
+    return torch.stack(ys, dim=1), (c, n, h, m)
+
+
+def _slstm_tp(p, cfg: XLSTMConfig, x: torch.Tensor, tp):
+    """The sLSTM of the replicated (B, S, d) ``x`` on the leaves
+    ``param_specs`` splits over the model axis: ``w_proj`` / ``r_proj`` /
+    ``gate_bias`` out-split over 4d in (z, i, f, o) order (at tp = 4 a
+    rank holds one kind of gate, not a range of channels), ``o_proj``
+    in-split over d.  The recurrence needs the whole h at every step, so
+    nothing inside the time loop crosses the axis: ``wx`` (this rank's
+    columns of the input projection, with ``gate_bias``, whose columns are
+    the same) is gathered whole once, ``r_proj`` once, and every rank runs
+    the whole loop on the same input; ``o_proj`` is row-parallel from this
+    rank's columns of y (one reduction).  y's gradient is then this rank's
+    own, so the gathers' backward reduce-scatters: each returns this
+    rank's slice of the summed gradient.  Where d does not divide the axis
+    ``o_proj`` is whole, every rank computes the same y, and the gathers'
+    backward keeps this rank's slice."""
+    d = x.shape[-1]
+    own = tp.divides(d)
+    if tp.divides(4 * d):
+        wx = layers.linear(p["w_proj"], tp_lib.copy_to_model(x, tp)) + \
+            p["gate_bias"].to(x.dtype)
+        wx = tp_lib.gather_from_model(wx, tp, -1, reduce_grad=own)
+        r_proj = {"w": tp_lib.gather_from_model(p["r_proj"]["w"], tp, -1,
+                                                reduce_grad=own)}
+    else:
+        wx = layers.linear(p["w_proj"], x) + p["gate_bias"].to(x.dtype)
+        r_proj = p["r_proj"]
+    y, _ = _slstm_loop(wx, r_proj, x.dtype)
+    return layers._row_parallel(p["o_proj"], y, own, tp)
 
 
 def slstm_init_state(cfg: XLSTMConfig, batch: int, dtype=torch.float32, *,

@@ -139,7 +139,7 @@ class ResilientLoop:
                                                 device="meta")
         # the parameters' specs where the step is tensor-parallel
         self.specs = param_specs(model_cfg, self.shapes, mesh) \
-            if tensor_parallel(model_cfg, mesh) else None
+            if tensor_parallel(mesh) else None
         self._step_cache: dict = {}      # plan signature -> step function
         self._install(self._plan_for(num_owners=num_owners))
         self._plan_speed = np.ones(self.num_owners)

@@ -8,8 +8,9 @@ this rank's parts as ``models.sharding.param_specs`` places them (ZeRO-3's
 for the >= 340 B configs), and the cache this rank's part as
 ``cache_specs`` places it, allocated as that part from the start
 (``init_cache_part``, the counterpart of the reference's
-``cache_shardings``).  The families without a tensor-parallel forward
-serve on one card (ROADMAP item 6).
+``cache_shardings``).  The other families train split over a mesh but
+serve on one card: their caches split by ``cache_specs`` (conv channels,
+SSM state, the xLSTM memories) are ROADMAP item 6's serving half.
 """
 
 from __future__ import annotations
@@ -57,11 +58,13 @@ class MeshContext:
 def mesh_context(cfg, mesh, *, zero3: bool = False) -> MeshContext:
     """``MeshContext`` of serving ``cfg`` on ``mesh`` (its parameters split
     by ``param_specs(..., zero3=zero3)``).  Raises ``NotImplementedError``
-    for a family without the tensor-parallel forward (ROADMAP item 6)."""
-    if not tp_lib.ported(cfg):
+    for a family that does not serve under a mesh
+    (``models.tp.serves_split``; ROADMAP item 6, its serving half)."""
+    if not tp_lib.serves_split(cfg):
         raise NotImplementedError(
-            f"serving the {cfg.family} family under a mesh needs its "
-            "tensor-parallel forward (ROADMAP item 6); serve it on one card")
+            f"serving the {cfg.family} family under a mesh is not ported "
+            "(ROADMAP item 6, its serving half; the training half is "
+            "ported): serve it on one card")
     shapes = model_fns(cfg).init(cfg, device="meta")
     specs = param_specs(cfg, shapes, mesh, zero3=zero3)
     mp = tp_lib.model_parallel(mesh)

@@ -15,13 +15,13 @@ its own rows of the global batch
 (``data.pipeline.batch_for_step(..., mesh=mesh)``), and its gradients go to
 the optimizer as ``Partial("avg")`` ``DTensor``s over those axes, so the
 owner update reduces each gradient straight to its owner.  The published
-deltas are added on every rank.  For the dense and MoE families on a mesh
-whose 'model' axis has more than one rank (``models.tp.tensor_parallel``,
-the one rule), or where ``grad_specs`` is given, the step is also
-tensor-parallel over that axis (``models/tp.py``; the MoE experts split
-over it: expert parallelism): each
-parameter is this rank's part as ``models.sharding.param_specs`` places it
-(``init_state``), the forward works from those parts, the loss is the
+deltas are added on every rank.  On a mesh whose 'model' axis has more
+than one rank (``models.tp.tensor_parallel``, the one rule: every family),
+or where ``grad_specs`` is given, the step is also tensor-parallel over
+that axis (``models/tp.py``; the MoE experts split over it: expert
+parallelism): each parameter is this rank's part as
+``models.sharding.param_specs`` places it (``init_state``), the forward
+works from those parts, the loss is the
 vocab-parallel cross entropy where the vocab is split, and each gradient
 reaches the optimizer with the spec's ``Shard`` on the model axis and
 ``Partial("avg")`` over the data axes.  The MoE dispatch ranks each
@@ -107,13 +107,8 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(torch.log(sumexp) + shift - gold)
 
 
-def _model_parallel(cfg, mesh):
-    """The model axis of the tensor-parallel step on ``mesh``; raises
-    where the family's tensor-parallel forward is not ported."""
-    if not tp_lib.ported(cfg):
-        raise NotImplementedError(
-            f"the tensor-parallel step of the {cfg.family} family is not "
-            "ported (ROADMAP item 6); train it on a (world, 1) mesh")
+def _model_parallel(mesh):
+    """The model axis of the tensor-parallel step on ``mesh``."""
     mp = tp_lib.model_parallel(mesh)
     if mp is None:
         raise ValueError("tensor parallelism needs a mesh with a 'model' "
@@ -128,9 +123,9 @@ def make_loss_fn(cfg, mesh=None, specs: Optional[dict] = None) -> Callable:
     ``specs`` given) the forward runs on this rank's parameter parts
     placed by ``specs`` (default ``param_specs``; ``_loss_fn``)."""
     if not (mesh is not None and (specs is not None
-                                  or tp_lib.tensor_parallel(cfg, mesh))):
+                                  or tp_lib.tensor_parallel(mesh))):
         return _loss_fn(cfg, None, tp_lib.data_parallel(mesh))
-    return _loss_fn(cfg, _model_parallel(cfg, mesh),
+    return _loss_fn(cfg, _model_parallel(mesh),
                     tp_lib.data_parallel(mesh),
                     tp_lib.zero_shards(mesh, _tp_specs(cfg, mesh, specs)))
 
@@ -255,10 +250,10 @@ def make_train_step(cfg, opt: Muon, mesh=None, *, accum_steps: int = 1,
                 and accum_steps > 1 and opt.effective_mode == "owner"
                 and not opt.config.compress_grads)
     tensor_parallel = mesh is not None and (
-        grad_specs is not None or tp_lib.tensor_parallel(cfg, mesh))
+        grad_specs is not None or tp_lib.tensor_parallel(mesh))
     data = tp_lib.data_parallel(mesh)
     specs = _tp_specs(cfg, mesh, grad_specs) if tensor_parallel else None
-    loss_fn = _loss_fn(cfg, _model_parallel(cfg, mesh)
+    loss_fn = _loss_fn(cfg, _model_parallel(mesh)
                        if tensor_parallel else None, data,
                        tp_lib.zero_shards(mesh, specs))
     # the MoE dispatch spans the data ranks, so they take their rows of
@@ -423,8 +418,8 @@ def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
     zero = torch.zeros((), dtype=torch.float32, device=device)
     zero3 = zero3 and mesh is not None
     if zero3:
-        _model_parallel(cfg, mesh)      # the family's split forward
-    if not (zero3 or tp_lib.tensor_parallel(cfg, mesh)):
+        _model_parallel(mesh)           # a mesh with a 'model' axis
+    if not (zero3 or tp_lib.tensor_parallel(mesh)):
         params = tree.tree_map(lambda v: v.requires_grad_(True),
                                m.init(cfg, seed, device))
         if mesh is not None:
@@ -438,6 +433,12 @@ def init_state(cfg, opt: Muon, seed: int = 0, device: DeviceLike = None,
                       zero)
 
 
+# the leaves ``init`` draws from its generator (``layers.normal``): the
+# weights, the embeddings, the MoE router, the SSM's conv kernel and the
+# mLSTM's gate weight
+DRAWN_LEAVES = ("w", "embedding", "router_w", "conv_w", "if_gate_w")
+
+
 def init_parts(cfg, seed: int, device, specs: dict, mesh):
     """This rank's parts of ``model_fns(cfg).init(cfg, seed, device)``
     under ``specs``: each random leaf drawn whole, in ``init``'s order,
@@ -446,7 +447,7 @@ def init_parts(cfg, seed: int, device, specs: dict, mesh):
     m = model_fns(cfg)
     shapes = m.init(cfg, device="meta")
     drawn = [(p, tuple(v.shape)) for p, v in _in_draw_order(shapes)
-             if p.rsplit("/", 1)[-1] in ("w", "embedding", "router_w")]
+             if p.rsplit("/", 1)[-1] in DRAWN_LEAVES]
     queue = iter(drawn)
 
     def keep(whole):

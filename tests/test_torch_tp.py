@@ -25,9 +25,10 @@ parts bitwise the slices of the one-process ``init``; each rank holding
 only its part of every split leaf; without a context (and with a model
 axis of one rank) the forward, the loss and the gradients bitwise those
 of the one-card path; the one rule that decides tensor parallelism
-(``models.tp.tensor_parallel``), and the dry run's train cells walking
-the replicated step for another family and the split step on a (1, 4)
-mesh.
+(``models.tp.tensor_parallel``: every family), and the dry run's train
+cells walking the split step for the hybrid family on (16, 16) and the
+dense one on a (1, 4) mesh; serving the hybrid family under a mesh still
+refused.
 """
 
 import concurrent.futures
@@ -240,9 +241,11 @@ def test_tp_gate_admits_adamw_sign_flips_and_catches_faults():
 
 
 def test_one_rule_decides_tensor_parallelism():
-    """``models.tp.tensor_parallel``: the dense decoders and the MoE
-    family on a model axis of more than one rank; every other family, a
-    model axis of one rank and no mesh keep the parameters replicated."""
+    """``models.tp.tensor_parallel``: a model axis of more than one rank,
+    whatever the family (every family has the split train step); a model
+    axis of one rank and no mesh keep the parameters replicated.
+    The serving rule (``models.tp.serves_split``) keeps the dense decoders
+    and the MoE family."""
     class Mesh:
         mesh_dim_names = ("data", "model")
 
@@ -255,13 +258,14 @@ def test_one_rule_decides_tensor_parallelism():
              if configs.get(a, reduced=True).family == "dense"]
     assert set(dense) == {"smollm-360m", "stablelm-1.6b", "qwen2.5-14b",
                           "nemotron-4-340b"}
-    split = set(dense) | {"deepseek-v3-671b", "kimi-k2-1t-a32b"}
+    serves = set(dense) | {"deepseek-v3-671b", "kimi-k2-1t-a32b"}
+    assert tp_lib.tensor_parallel(Mesh((16, 16)))
+    assert tp_lib.tensor_parallel(Mesh((2, 2)))
+    assert not tp_lib.tensor_parallel(Mesh((4, 1)))
+    assert not tp_lib.tensor_parallel(None)
     for arch in configs.ARCH_IDS:
         cfg = configs.get(arch, reduced=True)
-        assert tp_lib.tensor_parallel(cfg, Mesh((16, 16))) == (arch in split)
-        assert tp_lib.tensor_parallel(cfg, Mesh((2, 2))) == (arch in split)
-        assert not tp_lib.tensor_parallel(cfg, Mesh((4, 1)))
-        assert not tp_lib.tensor_parallel(cfg, None)
+        assert tp_lib.serves_split(cfg) == (arch in serves)
 
 
 def _dryrun_walks():
@@ -298,13 +302,13 @@ def _dryrun_walks():
 
 
 def test_dryrun_walks_replicated_and_split_train_steps():
-    """A family whose tensor-parallel forward is not ported walks the
-    replicated step on the 16-wide model axis; the dense family on a fake
-    (1, 4) mesh walks the split step."""
+    """The hybrid family's train_4k cell walks the split step on the
+    16-wide model axis; the dense family on a fake (1, 4) mesh walks the
+    split step."""
     hymba, qwen = _dryrun_walks()
     assert hymba["ok"], hymba.get("traceback")
     assert hymba["roofline"]["detail"]["layout"].startswith(
-        "parameters replicated")
+        "parameters split by param_specs over 'model' (16 cards)")
     assert qwen["ok"] and qwen["num_devices"] == 4
     assert qwen["roofline"]["detail"]["layout"].startswith(
         "parameters split by param_specs over 'model' (4 cards)")
@@ -343,11 +347,26 @@ def test_no_context_bitwise(name):
 
 
 def test_other_families_and_zero3_raise():
+    """Training the hybrid family split is the tensor-parallel step (its
+    forward on a model axis of one rank through the split code path is
+    the plain one's); serving it under a mesh still raises, naming the
+    serving half of ROADMAP item 6."""
+    from repro_torch.train import serve as serve_fns
     cfg = configs.get("hymba-1.5b", reduced=True)
     params = transformer.init(cfg, 0, "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        transformer.forward(cfg, params, tokens,
+    assert not tp_lib.serves_split(cfg)
+    assert torch.equal(transformer.forward(cfg, params, tokens),
+                       transformer.forward(
+                           cfg, params, tokens,
+                           tp=tp_lib.ModelParallel(None, 1, 0)))
+
+    class Mesh:
+        mesh_dim_names, shape = ("data", "model"), (1, 2)
+    with pytest.raises(NotImplementedError, match="item 6, its serving half"):
+        serve_fns.mesh_context(cfg, Mesh())
+    with pytest.raises(NotImplementedError, match="item 6, its serving half"):
+        transformer.prefill(cfg, params, tokens, 8,
                             tp=tp_lib.ModelParallel(None, 2, 0))
 
 

@@ -421,7 +421,7 @@ def card_param_bytes(cfg, mesh) -> dict:
     from repro_torch.models.sharding import param_specs
     shapes = transformer.init(cfg, device="meta")
     specs = param_specs(cfg, shapes, mesh) if \
-        tp_lib.tensor_parallel(cfg, mesh) else None
+        tp_lib.tensor_parallel(mesh) else None
     model = mesh.size(mesh.mesh_dim_names.index("model"))
     return {p: v.numel() * v.element_size()
             // (model if specs and "model" in specs[p] else 1)

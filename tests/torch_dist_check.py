@@ -21,6 +21,8 @@ Run by ``tests/test_torch_mesh_*.py`` through ``launch``, the way
         --port P --mesh 1,4 --out DIR [--configs qwen256,smollm3h]
     python tests/torch_dist_check.py tp_restore --rank R --world W \\
         --port P --mesh 2,1 --out DIR/restore [--ckpt dsv3]
+    python tests/torch_dist_check.py tp_families --rank R --world W \\
+        --port P --mesh 1,2 --out DIR --configs hymba,hymba3h,xlstm,...
     python tests/torch_dist_check.py optim --rank R --world W \\
         --port P --mesh 2,1 --out DIR
     python tests/torch_dist_check.py owner_pad --rank R --world W \\
@@ -54,7 +56,10 @@ runs the tensor-parallel train step of the dense and MoE families
 (``TP_CONFIGS``; the MoE experts split over "model") against its
 one-process run, and ``models/tp.py``'s Functions, and saves a checkpoint
 that ``tp_restore`` resumes on another mesh (``--ckpt NAME``: that config's,
-on the ``tp`` world's mesh); ``jax_tp`` runs the reference's sharded train
+on the ``tp`` world's mesh); ``tp_families`` runs ``tp`` on the
+hybrid, xLSTM, encoder-decoder and VLM families (``FAMILY_CONFIGS``), with
+their split pieces against float64 in place of the Functions and a
+checkpoint of the split hybrid; ``jax_tp`` runs the reference's sharded train
 step on the same inputs; ``optim`` runs ``MuonOptimizer`` on a
 data-only mesh against the data-parallel train step; ``owner_pad``
 moves expert-split stacks that pad or permute over the owners; ``serve``
@@ -221,12 +226,12 @@ def _full(v):
 def step_specs(cfg, mesh):
     """The parameters' specs where the train step of ``cfg`` on ``mesh``
     is tensor-parallel (``models.tp.tensor_parallel``), else None."""
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     from repro_torch.models.sharding import param_specs
     from repro_torch.models.tp import tensor_parallel
-    if not tensor_parallel(cfg, mesh):
+    if not tensor_parallel(mesh):
         return None
-    return param_specs(cfg, transformer.init(cfg, device="meta"), mesh)
+    return param_specs(cfg, model_fns(cfg).init(cfg, device="meta"), mesh)
 
 
 def whole_np(t, specs, mesh) -> dict:
@@ -1069,7 +1074,21 @@ TP_CONFIGS = {
     "nemoremat": ("nemotron-4-340b", dict(vocab=256, remat=True)),
     "nemoacc": ("nemotron-4-340b", dict(vocab=256)),
     "nemostage": ("nemotron-4-340b", dict(vocab=256)),
+    # the hybrid, xLSTM, encoder-decoder and VLM families
+    # (``tp_families``): reduced hymba (4 / 2 heads: head-parallel at
+    # model 2, KV-gathered at 4; the SSM's channels split), its 3-head
+    # variant (sequence-sharded, with the window and the global layers),
+    # xlstm (4 heads: head-parallel mLSTM, the sLSTM's gathers), seamless
+    # and llava with vocab 256 (split over 'model')
+    "hymba": ("hymba-1.5b", {}),
+    "hymba3h": ("hymba-1.5b", dict(d_model=48, n_heads=3, n_kv_heads=1,
+                                   head_dim=16, ssm=dict(d_model=48))),
+    "xlstm": ("xlstm-350m", {}),
+    "seamless": ("seamless-m4t-large-v2", dict(vocab=256)),
+    "llava": ("llava-next-mistral-7b", dict(vocab=256)),
 }
+FAMILY_CONFIGS = ("hymba", "hymba3h", "xlstm", "seamless", "llava")
+FAMILY_CKPT = "hymba"
 # microbatches a step of the configs named (1 for the others)
 TP_ACCUM = {"dsv3acc": 2, "nemoacc": 2, "nemostage": 2}
 # the dtype their gradients are accumulated in (float32 for the others)
@@ -1100,19 +1119,23 @@ def tp_config(name: str, jax: bool = False):
 def tp_params(name: str) -> dict:
     """``name``'s parameters drawn with numpy, leaf by leaf in path order
     (the same in both packages): weights N(0, 1/fan_in), embeddings
-    N(0, 0.02²), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²)."""
+    N(0, 0.02²), biases N(0, 0.02²), norm scales, the hybrid's mix scales
+    and the SSM's skip 1 + N(0, 0.1²), the SSM's ``a_log`` log(1..d_state)
+    + N(0, 0.1²) (its init's, perturbed)."""
     from repro_torch.core import tree
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     rng = np.random.default_rng(0)
     flat = {}
-    for p, v in tree.flatten(transformer.init(tp_config(name),
-                                              device="meta")):
+    cfg = tp_config(name)
+    for p, v in tree.flatten(model_fns(cfg).init(cfg, device="meta")):
         shape, leaf = tuple(v.shape), p.rsplit("/", 1)[-1]
         x = rng.standard_normal(shape)
         if leaf == "w":
             x = x / np.sqrt(shape[-2])
-        elif leaf == "norm_scale":
+        elif leaf in ("norm_scale", "mix_scale", "d_skip"):
             x = 1.0 + 0.1 * x
+        elif leaf == "a_log":
+            x = np.log(np.arange(1, shape[-1] + 1)) + 0.1 * x
         else:
             x = 0.02 * x
         flat[p] = x.astype(np.float32)
@@ -1131,12 +1154,19 @@ def _nest(flat: dict) -> dict:
 
 
 def tp_batch(name: str, step: int) -> dict:
-    """Global batch ``step``: tokens and next-token labels."""
-    vocab = tp_config(name).vocab
+    """Global batch ``step``: tokens and next-token labels, and for a
+    frontend config its patches or frames (TP_BATCH, frontend_len,
+    frontend_dim), standard normal."""
+    cfg = tp_config(name)
     rng = np.random.default_rng(100 + step)
-    seq = rng.integers(0, vocab, (TP_BATCH, TP_SEQ + 1))
-    return {"tokens": seq[:, :-1].astype(np.int32),
-            "labels": seq[:, 1:].astype(np.int32)}
+    seq = rng.integers(0, cfg.vocab, (TP_BATCH, TP_SEQ + 1))
+    out = {"tokens": seq[:, :-1].astype(np.int32),
+           "labels": seq[:, 1:].astype(np.int32)}
+    if cfg.frontend is not None:
+        key = "patches" if cfg.frontend == "patch" else "frames"
+        out[key] = rng.standard_normal(
+            (TP_BATCH, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    return out
 
 
 def tp_muon_config():
@@ -1160,14 +1190,14 @@ def tp_train(name: str, mesh, params_np: dict, steps: int = TP_STEPS,
     import torch
 
     from repro_torch.core import api, tree
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     from repro_torch.models.sharding import (local_batch, local_part,
                                              param_specs)
     from repro_torch.train.step import make_train_step, placed_params
     from repro_torch.train.train_state import TrainState
 
     cfg = tp_config(name)
-    shapes = transformer.init(cfg, device="meta")
+    shapes = model_fns(cfg).init(cfg, device="meta")
     plan = api.dedicate_params(shapes, mesh=mesh, strategy="greedy")
     opt = api.Muon(plan, mesh, config=tp_muon_config(), device="cpu")
     full = tree.tree_map(torch.from_numpy, params_np)
@@ -1332,11 +1362,12 @@ def _tp_ckpt_arrays(loop) -> dict:
     return out
 
 
-def tp_rank(args) -> None:
+def tp_rank(args, functions=None, ckpt: str = TP_CKPT) -> None:
     """The tensor-parallel step on a ("data", "model") mesh.
 
     1. On a model axis of two (mesh (1, 2)): each Function of
-       ``models/tp.py`` against the unsplit float64 computation.
+       ``models/tp.py`` against the unsplit float64 computation
+       (``functions``: another such check, ``_tp_functions`` by default).
     2. Each of ``args.configs`` trained ``TP_STEPS`` steps from
        ``tp_params`` on ``tp_batch``: loss_ema per step, step 1's
        gradients (and their placements) and updates, the last parameters;
@@ -1344,8 +1375,9 @@ def tp_rank(args) -> None:
        ``init_state``'s parts are the slices of the one-process ``init``.
        Rank 0 also runs each in one process, and from the parameters one
        ulp up, and holds the mesh run to them (``chip_smoke.tp_gate``).
-    3. At (1, 2): the resilient loop on ``TP_CKPT`` with a checkpoint into
-       DIR/ckpt, its whole parameters and AdamW moments saved.
+    3. At (1, 2): the resilient loop on ``ckpt`` (``TP_CKPT`` by default)
+       with a checkpoint into DIR/ckpt, its whole parameters and AdamW
+       moments saved.
     ``--train-only``: 2 alone, without the one-process runs and the
     ``init_state`` check.  ``--ckpt NAME``: 3 on this mesh with that
     config, and not 1."""
@@ -1354,7 +1386,7 @@ def tp_rank(args) -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from repro_torch.core import api, tree
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     from repro_torch.models.sharding import local_part, param_specs
     from repro_torch.train.step import init_state
 
@@ -1362,7 +1394,7 @@ def tp_rank(args) -> None:
     info, arrays = {"rank": args.rank, "configs": {}}, {}
     extras = not args.train_only
     if extras and tuple(args.mesh) == (1, 2) and not args.ckpt:
-        info["functions"] = _tp_functions(mesh)
+        info["functions"] = (functions or _tp_functions)(mesh)
     for name in args.configs.split(","):
         cfg = tp_config(name)
         params_np = tp_params(name)
@@ -1380,12 +1412,12 @@ def tp_rank(args) -> None:
         if not extras:
             continue
         # init_state's parts against the one-process init's slices
-        shapes = transformer.init(cfg, device="meta")
+        shapes = model_fns(cfg).init(cfg, device="meta")
         opt = api.Muon(api.dedicate_params(shapes, mesh=mesh), mesh,
                        config=tp_muon_config(), device="cpu")
         st = init_state(cfg, opt, seed=0, device="cpu", mesh=mesh)
         specs = param_specs(cfg, shapes, mesh)
-        whole = dict(tree.flatten(transformer.init(cfg, 0, "cpu")))
+        whole = dict(tree.flatten(model_fns(cfg).init(cfg, 0, "cpu")))
         row["init_parts_bitwise"] = all(
             torch.equal(v.detach(), local_part(whole[p], specs[p], mesh))
             for p, v in tree.flatten(st.params))
@@ -1403,12 +1435,321 @@ def tp_rank(args) -> None:
                         "single_placements": ref["placements"]})
     if args.ckpt or (extras and tuple(args.mesh) == (1, 2)):
         loop = _tp_ckpt_loop(mesh, Path(args.out) / "ckpt",
-                             name=args.ckpt or TP_CKPT)
+                             name=args.ckpt or ckpt)
         loop.run()
         loop.mgr.wait()
         arrays.update({f"ckpt/{k}": v
                        for k, v in _tp_ckpt_arrays(loop).items()})
     np.savez(Path(args.out) / f"rank{args.rank}.npz", **arrays)
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def tp_families_rank(args) -> None:
+    """``tp_rank`` on the hybrid, xLSTM, encoder-decoder and VLM families
+    (``FAMILY_CONFIGS``): at (1, 2) the new split pieces against their
+    unsplit float64 computation (``_tp_pieces``) and a checkpoint of the
+    split hybrid (``FAMILY_CKPT``)."""
+    tp_rank(args, _tp_pieces, FAMILY_CKPT)
+
+
+# the split pieces against the unsplit float64 computation: the mixers'
+# fp32 internals (gates, scans, exponents) set the rounding, so the gate is
+# relative to the largest entry
+PIECES_TOL = 1e-5
+
+
+def tp_pieces_rank(args) -> None:
+    """``_tp_pieces`` alone on this mesh's model axis (any extent: the
+    families world runs them at two ranks)."""
+    mesh = _setup(args)
+    info = {"rank": args.rank, "functions": _tp_pieces(mesh)}
+    np.savez(Path(args.out) / f"rank{args.rank}.npz")
+    (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
+
+
+def _tp_pieces(mesh) -> dict:
+    """The families' split pieces on this rank of a model axis of two or
+    more (shapes that split over 2, 3 and 4 ranks), float64 parameters
+    and inputs, against the whole computation on the
+    same values, forward and backward (every leaf's gradient as this
+    rank's part of the whole one, the inputs' whole): [forward, gradient]
+    max|Δ| over max|want| each.
+
+    * ``halves_to_channels`` alone (the SSM's regrouping);
+    * the SSM mixer split by ``param_specs`` (regrouping, channel-local
+      scan, ``x_proj`` read in part and its gradient summed);
+    * the mLSTM head-parallel (4 heads) and with whole heads gathered
+      (3 heads), ``if_gate_bias`` gathered whole;
+    * the sLSTM, ``wx`` and ``r_proj`` gathered;
+    * cross attention head-parallel (4 heads) and sequence-sharded (3).
+
+    Where a case's heads or channels do not divide the axis it takes its
+    gathered or whole path.  And two planted faults, each of which must
+    show (``faults``): the SSM with ``x_proj``'s gradient left unreduced
+    over 'model' (its error on x_proj's gradient), and where the 4 heads
+    divide the axis the mLSTM reading this rank's part of
+    ``if_gate_bias`` as the gates of its own heads (the forward's
+    error)."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.models import layers, ssm as S, tp as T, xlstm as X
+    from repro_torch.models.sharding import local_part, param_specs
+    mp = T.model_parallel(mesh)
+    n, r = mp.size, mp.rank
+    rng = np.random.default_rng(7)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape))
+
+    def rel(a, b):
+        scale = float(b.abs().max())
+        return float((a - b).abs().max()) / (scale or 1.0)
+    out, faults = {}, {}
+    # 1. the regrouping alone: one loss on every rank's own weights
+    B, Sq, F_ = 2, 12, 12
+    Xw = draw(B, Sq, 2 * F_)
+    R = [draw(2, B, Sq, F_ // n) for _ in range(n)]
+    x = Xw.chunk(n, -1)[r].clone().requires_grad_(True)
+    y = T.halves_to_channels(x, mp)
+    (y * R[r]).sum().backward()
+    want = torch.stack([Xw[..., :F_].chunk(n, -1)[r],
+                        Xw[..., F_:].chunk(n, -1)[r]])
+    G = torch.cat([torch.cat([R[i][h] for i in range(n)], -1)
+                   for h in (0, 1)], -1)
+    out["halves_to_channels"] = [rel(y, want), rel(x.grad, G.chunk(n, -1)[r])]
+
+    def case(params, split_fn, whole_fn, inputs, leaf=None):
+        """[forward, gradient] errors of ``split_fn`` on this rank's parts
+        against ``whole_fn``, one replicated loss sum(y · W), each
+        gradient's max|Δ| over the largest entry of every gradient of the
+        piece (a gate bias's gradient is a sum over positions that the
+        stabiliser nearly cancels: its own scale is rounding's); with
+        ``leaf``, that leaf's gradient error alone as a third entry."""
+        params = tree.tree_map(lambda v: v.double() + 0.1 * draw(*v.shape),
+                               params)
+        specs = param_specs(None, params, mesh)
+        whole = tree.tree_map(lambda v: v.clone().requires_grad_(True),
+                              params)
+        parts = tree.rebuild(params, {
+            p: local_part(v, specs[p], mesh).clone().requires_grad_(True)
+            for p, v in tree.flatten(params)})
+        xs_w = [v.clone().requires_grad_(True) for v in inputs]
+        xs_p = [v.clone().requires_grad_(True) for v in inputs]
+        yw, yp = whole_fn(whole, *xs_w), split_fn(parts, *xs_p)
+        W = draw(*yw.shape)
+        (yw * W).sum().backward()
+        (yp * W).sum().backward()
+        grads = {p: (v.grad, local_part(dict(tree.flatten(whole))[p].grad,
+                                        specs[p], mesh))
+                 for p, v in tree.flatten(parts)}
+        grads.update({f"input{i}": (a.grad, b.grad)
+                      for i, (a, b) in enumerate(zip(xs_p, xs_w))})
+        scale = max(float(b.abs().max()) for _, b in grads.values())
+        errs = {k: float((a - b).abs().max()) / scale
+                for k, (a, b) in grads.items()}
+        row = [rel(yp, yw), max(errs.values())]
+        return row + [errs[leaf]] if leaf else row
+
+    gen = torch.Generator().manual_seed(0)
+    scfg = S.SSMConfig(d_model=24, d_state=4)
+    sp = S.ssm_init(gen, scfg)
+    xin = [draw(B, Sq, 24)]
+    out["ssm"] = case(sp, lambda p, x: S.ssm(p, scfg, x, tp=mp),
+                      lambda p, x: S.ssm(p, scfg, x), xin)
+    for tag, heads, d in (("mlstm", 4, 16), ("mlstm_gathered", 3, 24)):
+        xcfg = X.XLSTMConfig(d_model=d, n_heads=heads)
+        out[tag] = case(X.mlstm_init(gen, xcfg),
+                        lambda p, x: X.mlstm(p, xcfg, x, tp=mp),
+                        lambda p, x: X.mlstm(p, xcfg, x), [draw(B, Sq, d)])
+    xcfg = X.XLSTMConfig(d_model=16, n_heads=4)
+    out["slstm"] = case(X.slstm_init(gen, xcfg),
+                        lambda p, x: X.slstm(p, xcfg, x, tp=mp),
+                        lambda p, x: X.slstm(p, xcfg, x), [draw(B, Sq, 16)])
+    for tag, heads in (("cross_attention", 4), ("cross_attention_seq", 3)):
+        acfg = layers.AttnConfig(16, heads, heads, 4, causal=False)
+        out[tag] = case(
+            layers.attention_init(gen, acfg),
+            lambda p, x, k: layers.attention(p, acfg, x, xk=k, tp=mp),
+            lambda p, x, k: layers.attention(p, acfg, x, xk=k),
+            [draw(B, Sq, 16), draw(B, 6, 16)])
+    out["faults"] = faults
+    rows_of_whole = S._rows_of_whole
+    S._rows_of_whole = lambda w, tp, rows: w[tp.rank * rows:
+                                            (tp.rank + 1) * rows]
+    try:
+        faults["ssm_x_proj_unreduced"] = case(
+            sp, lambda p, x: S.ssm(p, scfg, x, tp=mp),
+            lambda p, x: S.ssm(p, scfg, x), xin, leaf="x_proj/w")[2]
+    finally:
+        S._rows_of_whole = rows_of_whole
+    if 4 % n:
+        return out
+
+    def heads_bias(b, H, tp):
+        # the fault: this rank's part read as [i ; f] of its own heads
+        h = H // tp.size
+        i, f = b.chunk(2)
+        whole = torch.zeros(2 * H, dtype=b.dtype)
+        whole[tp.rank * h:(tp.rank + 1) * h] = i
+        whole[H + tp.rank * h:H + (tp.rank + 1) * h] = f
+        return whole
+    whole_gate_bias = X._whole_gate_bias
+    X._whole_gate_bias = heads_bias
+    try:
+        faults["mlstm_bias_as_heads_part"] = case(
+            X.mlstm_init(gen, xcfg), lambda p, x: X.mlstm(p, xcfg, x, tp=mp),
+            lambda p, x: X.mlstm(p, xcfg, x), [draw(B, Sq, 16)])[0]
+    finally:
+        X._whole_gate_bias = whole_gate_bias
+    return out
+
+
+def _branch_recorder(rec: list):
+    """Wrap the mLSTM's and sLSTM's cores to append, per call, each
+    branch decision of their forward to ``rec``: the normaliser's clamp
+    |den| > 1 (with |den| itself) and cummax's argmax (the mLSTM, heads
+    last but den's (B, H, S)); max(lf + m, i) and n > 1 per step (the
+    sLSTM).  Wraps ``Muon.update`` to append ("step", {path: whole
+    gradient}) after each step.  Returns the undo."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import api, tree
+    from repro_torch.models import layers, xlstm as X
+    core, loop, update = X.mlstm_core, X._slstm_loop, api.Muon.update
+
+    def mlstm_core(q, k, v, ig, fg, state=None):
+        with torch.no_grad():
+            shifted = ig.double() - torch.cumsum(fg.double(), dim=1)
+            run = torch.cummax(shifted, dim=1)
+            S = q.shape[1]
+            logd = (shifted.transpose(1, 2)[:, :, None, :]
+                    - run.values.transpose(1, 2)[:, :, :, None])
+            causal = torch.ones(S, S, dtype=torch.bool).tril()
+            d = torch.exp(torch.where(causal, logd, float("-inf")).float())
+            den = (torch.matmul(q.float().transpose(1, 2),
+                                k.float().transpose(1, 2).mT) * d).sum(-1)
+            rec.append(("mlstm", {"den": den.abs().numpy(),
+                                  "argmax": run.indices.numpy()}))
+        return core(q, k, v, ig, fg, state)
+
+    def slstm_loop(wx, r_proj, dtype, state=None):
+        with torch.no_grad():
+            B, S, d4 = wx.shape
+            c, n, h = (torch.zeros(B, d4 // 4) for _ in range(3))
+            m = torch.full((B, d4 // 4), -1e30)
+            keep, clamp = [], []
+            for t in range(S):
+                zi, ii, fi, oi = (wx[:, t].float() + layers.linear(
+                    r_proj, h.to(dtype)).float()).chunk(4, dim=-1)
+                lf = F.logsigmoid(fi)
+                keep.append((lf + m >= ii).numpy())
+                mn = torch.maximum(lf + m, ii)
+                c = torch.exp(lf + m - mn) * c + \
+                    torch.exp(ii - mn) * torch.tanh(zi)
+                n = torch.exp(lf + m - mn) * n + torch.exp(ii - mn)
+                clamp.append((n > 1).numpy())
+                h, m = torch.sigmoid(oi) * c / torch.clamp(n, min=1.0), mn
+            rec.append(("slstm", {"keep_m": np.stack(keep),
+                                  "n_gt1": np.stack(clamp)}))
+        return loop(wx, r_proj, dtype, state)
+
+    def counted(self, grads, *a, **kw):
+        rec.append(("step", {p: _full(g).numpy().copy()
+                             for p, g in tree.flatten(grads)}))
+        return update(self, grads, *a, **kw)
+    X.mlstm_core, X._slstm_loop, api.Muon.update = (mlstm_core, slstm_loop,
+                                                   counted)
+
+    def undo():
+        X.mlstm_core, X._slstm_loop, api.Muon.update = core, loop, update
+    return undo
+
+
+def _branch_flips(split: list, one: list) -> list:
+    """The calls of ``split`` (its mLSTM records' heads whole) whose
+    branch decisions differ from ``one``'s: [{step, mixer, branch,
+    entries, margin}], the margin the smallest ||den| − 1| of one
+    process's call (the mLSTM)."""
+    flips, step = [], 1
+    for (kind, a), (_, b) in zip(split, one):
+        if kind == "step":
+            step += 1
+            continue
+        pairs = ({"den_clamp": (a["den"] > 1, b["den"] > 1),
+                  "cummax_argmax": (a["argmax"], b["argmax"])}
+                 if kind == "mlstm" else
+                 {"max_keeps_m": (a["keep_m"], b["keep_m"]),
+                  "n_clamp": (a["n_gt1"], b["n_gt1"])})
+        for branch, (x, y) in pairs.items():
+            entries = int((x != y).sum())
+            if entries:
+                flips.append({
+                    "step": step, "mixer": kind, "branch": branch,
+                    "entries": entries,
+                    "margin": float(np.abs(b["den"] - 1).min())
+                    if kind == "mlstm" else None})
+    return flips
+
+
+def _widest_parting(split: dict, one: dict, steps: list) -> dict:
+    """Per leaf, the entry whose last parameter parts most between the
+    two runs' ``split`` and ``one`` ({path: array}): its index, distance,
+    and each step's gradient there in both runs beside that step's
+    largest gradient of the leaf in one process (``steps``: [(split's,
+    one's) {path: gradient}])."""
+    out = {}
+    for leaf in one:
+        diff = np.abs(split[leaf] - one[leaf])
+        at = np.unravel_index(int(diff.argmax()), diff.shape)
+        out[leaf] = {
+            "index": [int(i) for i in at], "distance": float(diff[at]),
+            "grads_split": [float(a[leaf][at]) for a, _ in steps],
+            "grads_one": [float(b[leaf][at]) for _, b in steps],
+            "grad_scale": [float(np.abs(b[leaf]).max()) for _, b in steps]}
+    return out
+
+
+def tp_branches_rank(args) -> None:
+    """Where ``args.configs``' split step parts from one process: each
+    trained ``TP_STEPS`` steps on this mesh and, on rank 0, in one
+    process, every branch decision of the mixers and every step's
+    gradients recorded (``_branch_recorder``; the mLSTM's heads gathered
+    over the model ranks, which needs one data rank); rank 0 writes per
+    config the branch flips (``_branch_flips``) and each leaf's entry
+    that parts most (``_widest_parting``)."""
+    import torch.distributed as dist
+    mesh = _setup(args)
+    info = {"rank": args.rank, "configs": {}}
+    for name in args.configs.split(","):
+        rec: list = []
+        undo = _branch_recorder(rec)
+        try:
+            got = tp_train(name, mesh, tp_params(name))
+            parts = [None] * args.world
+            dist.all_gather_object(parts, rec)
+            if args.rank != 0:
+                continue
+            if any(k == "mlstm" for k, _ in rec) and args.mesh[0] != 1:
+                raise ValueError("the recorded heads need one data rank")
+            split = [(k, a if k != "mlstm" else {
+                "den": np.concatenate([p[i][1]["den"] for p in parts], 1),
+                "argmax": np.concatenate([p[i][1]["argmax"] for p in parts],
+                                         -1)})
+                for i, (k, a) in enumerate(rec)]
+            rec.clear()
+            one = tp_train(name, None, tp_params(name))
+            steps = list(zip(*([a for k, a in r if k == "step"]
+                               for r in (split, rec))))
+            info["configs"][name] = {
+                "flips": _branch_flips(split, rec),
+                "widest": _widest_parting(
+                    *({p: v.numpy() for p, v in r["params"].items()}
+                      for r in (got, one)), steps)}
+        finally:
+            undo()
+    np.savez(Path(args.out) / f"rank{args.rank}.npz")
     (Path(args.out) / f"rank{args.rank}.json").write_text(json.dumps(info))
 
 
@@ -1424,7 +1765,7 @@ def padded_owner_checks(cfg, plan, state, mesh) -> dict:
 
     from repro_torch.core import api
     from repro_torch.core.owner_comms import OwnerLayout, group_key_str
-    from repro_torch.models import transformer
+    from repro_torch.models import model_fns
     layout = OwnerLayout(plan, mesh)
     cap_of = {group_key_str(k): g.packed_size // layout.shards
               for k, g in plan.groups.items()}
@@ -1438,7 +1779,7 @@ def padded_owner_checks(cfg, plan, state, mesh) -> dict:
         zero &= bool((state.momentum[group_key_str(k)][pad] == 0).all())
     roundtrip = None
     if padded:
-        other = api.dedicate_params(transformer.init(cfg, device="meta"),
+        other = api.dedicate_params(model_fns(cfg).init(cfg, device="meta"),
                                     mesh=mesh, strategy="greedy",
                                     physical_layout="assignment")
         moved = api.reshard_owner_state(state, plan, other, mesh)
@@ -1921,7 +2262,8 @@ def main() -> None:
                                      "jax_moe", "tp", "tp_restore",
                                      "jax_tp", "optim", "owner_pad",
                                      "zero3", "zero3_restore", "serve",
-                                     "jax_serve"))
+                                     "jax_serve", "tp_families",
+                                     "tp_pieces", "tp_branches"))
     ap.add_argument("--configs", default=",".join(TP_CONFIGS),
                     help="tp / jax_tp: comma-separated TP_CONFIGS names; "
                          "serve / jax_serve: torch_serve_check.CASES names")
@@ -1954,7 +2296,8 @@ def main() -> None:
         {"owner": owner_rank, "train": train_rank,
          "variants": variants_rank, "pipeline": pipeline_rank,
          "checkpoint": checkpoint_rank, "restore": restore_rank,
-         "moe": moe_rank, "tp": tp_rank,
+         "moe": moe_rank, "tp": tp_rank, "tp_families": tp_families_rank,
+         "tp_pieces": tp_pieces_rank, "tp_branches": tp_branches_rank,
          "tp_restore": tp_restore_rank, "optim": optim_rank,
          "owner_pad": owner_pad_rank, "zero3": zero3_rank,
          "zero3_restore": zero3_restore_rank,
